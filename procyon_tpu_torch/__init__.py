@@ -1,0 +1,18 @@
+"""procyon_tpu_torch — the PyTorch + CUDA port of procyon_tpu for NVIDIA
+Hopper (H100, sm_90a).
+
+The JAX package `procyon_tpu` stays beside this one as the reference. This
+package imports torch and numpy only; it never imports jax or procyon_tpu
+(tests/test_torch_imports.py holds it to that).
+
+Layers mirror the JAX package's module paths:
+  ops/        plain torch ops + the hand-written CUDA kernels (csrc/) that
+              replace the Pallas TPU kernels, each with its plain version
+  models/     ESM2 encoder, pooling, projectors, the protein side of the
+              unified model
+  data/       the ESM protein tokenizer (numpy)
+  inference/  cosine top-k ranking
+  bridge.py   JAX parameter pytrees (as numpy) -> torch tensors
+"""
+
+__version__ = "0.1.0"
