@@ -8,10 +8,12 @@ package imports torch and numpy only; it never imports jax or procyon_tpu
 Layers mirror the JAX package's module paths:
   ops/        plain torch ops + the hand-written CUDA kernels (csrc/) that
               replace the Pallas TPU kernels, each with its plain version
-  models/     ESM2 encoder, pooling, projectors, the protein side of the
-              unified model
-  data/       the ESM protein tokenizer (numpy)
-  inference/  cosine top-k ranking
+  models/     ESM2 encoder, Llama decoder, LoRA banks, pooling, projectors,
+              the InfoNCE head, the unified fusion model
+  data/       tokenizers, the task library, collators, stores (numpy)
+  inference/  prompts from free text, cosine top-k, the retrieval service
+  app/        the retrieval service behind HTTP (stdlib, FastAPI optional)
+  evaluate/   the QA readout
   bridge.py   JAX parameter pytrees (as numpy) -> torch tensors
 """
 

@@ -14,9 +14,10 @@ The dispatch rules are the reference's, at the same shapes (esm2.py:271-323):
 packed attention when S % 128 == 0, H*D % 128 == 0 and 128 % D == 0; the
 fused MLP when quant_mode == "w8a8", w1 is quantized, (B*S) % 512 == 0 and
 ffn % 512 == 0; otherwise the non-fused MLP with gelu_erf_fast.
-attn_backend "rowblock" takes the row-block kernel on every route (the
-reference reaches the same kernel through flash_attention after padding S
-to 128); any other value takes the plain reference attention.
+Attention outside the packed route goes through
+ops/flash_attention.flash_attention with `attn_backend` as its backend, as
+in the reference: "rowblock" the row-block kernels, None the flash kernel,
+"ref" the CPU reference.
 
 Not ported yet (see ROADMAP.md, slice 1 remainder): LoRA, prefix tuning and
 the bottleneck adapter raise NotImplementedError instead of dropping out.
@@ -27,14 +28,14 @@ from typing import Any, Optional
 
 import torch
 
+from procyon_tpu_torch.models._init import Seed, make_generator
 from procyon_tpu_torch.ops import quant
 from procyon_tpu_torch.ops.activations import gelu_erf_fast
-from procyon_tpu_torch.ops.attention_rowblock import (rowblock_packed_fwd,
-                                                      rowblock_packed_qkv_fwd)
-from procyon_tpu_torch.ops.flash_attention import mha_reference
+from procyon_tpu_torch.ops.attention_rowblock import rowblock_packed_qkv_fwd
+from procyon_tpu_torch.ops.flash_attention import flash_attention
 from procyon_tpu_torch.ops.fused_mlp import fused_ln_mlp_int8
 from procyon_tpu_torch.ops.norms import layer_norm
-from procyon_tpu_torch.ops.rotary import apply_rope_flat, flat_rotary_tables
+from procyon_tpu_torch.ops.rotary import flat_rotary_tables
 
 PAD_IDX = 1
 MASK_IDX = 32
@@ -105,13 +106,13 @@ def _check_ported(cfg: ESM2Config):
         raise NotImplementedError(_NOT_PORTED.format("the ESM2 adapter"))
 
 
-def init_params(generator: torch.Generator, cfg: ESM2Config, *,
-                device=None):
+def init_params(seed: Seed, cfg: ESM2Config, *, device="cuda"):
     """Random parameters with the reference's distributions (esm2.py:166-240):
     dense weights N(0, 1/fan_in) (embedding and LM-head std as there), zero
-    biases, unit norm scales. The numbers differ from jax.random's."""
+    biases, unit norm scales. The numbers differ from jax.random's. `seed`
+    is an int or a generator on `device` (models/_init.py)."""
     _check_ported(cfg)
-    device = torch.device(device) if device is not None else generator.device
+    generator, device = make_generator(seed, device)
     L, hd = cfg.n_layers, cfg.head_dim
     HD = cfg.n_heads * hd
 
@@ -166,26 +167,17 @@ def _layer(layers, i: int):
 
 
 def _attention(q, k, v, seg, rot, cfg: ESM2Config):
-    """q/k/v [B, S, H*D] pre-rotary -> [B, S, H*D]."""
+    """q/k/v [B, S, H*D] pre-rotary -> [B, S, H*D]. On a CUDA tensor every
+    backend ends in a kernel: "rowblock" in the packed row-block kernel
+    (rotary fused) or, where that does not apply (head_dim 24), in the
+    flash kernel, as None does. "ref" is the CPU reference."""
     B, S, HD = q.shape
-    hd = cfg.head_dim
-    rope = (rot[0], rot[1], rot[0], rot[1])
-    if cfg.attn_backend == "rowblock":
-        shape4 = (B, S, cfg.n_heads, hd)
-        if HD % 128 == 0 and 128 % hd == 0:
-            out = rowblock_packed_fwd(q.reshape(shape4), k.reshape(shape4),
-                                      v.reshape(shape4), seg, rope=rope)
-        else:
-            # the reference's unpacked rowblock route: rotary outside,
-            # scale on the scores inside
-            out = rowblock_packed_fwd(
-                apply_rope_flat(q, rot[0], rot[1], hd).reshape(shape4),
-                apply_rope_flat(k, rot[0], rot[1], hd).reshape(shape4),
-                v.reshape(shape4), seg)
-        return out.reshape(B, S, HD)
-    return mha_reference(apply_rope_flat(q, rot[0], rot[1], hd),
-                         apply_rope_flat(k, rot[0], rot[1], hd), v, seg,
-                         head_dim=hd)
+    shape4 = (B, S, cfg.n_heads, cfg.head_dim)
+    out = flash_attention(q.reshape(shape4), k.reshape(shape4),
+                          v.reshape(shape4), seg, seg,
+                          backend=cfg.attn_backend,
+                          rope=(rot[0], rot[1], rot[0], rot[1]))
+    return out.reshape(B, S, HD)
 
 
 def _mlp(x, lp, cfg: ESM2Config):

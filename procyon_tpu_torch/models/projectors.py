@@ -10,6 +10,8 @@ from typing import List, Sequence
 
 import torch
 
+from procyon_tpu_torch.models._init import Seed, make_generator
+
 
 @dataclasses.dataclass(frozen=True)
 class ProjectorConfig:
@@ -27,10 +29,11 @@ def _dims(cfg: ProjectorConfig) -> Sequence[int]:
     return [cfg.in_dim] + [hidden] * (cfg.n_layers - 1) + [cfg.out_dim]
 
 
-def init_params(generator: torch.Generator, cfg: ProjectorConfig, *,
-                device=None) -> List[dict]:
-    """N(0, 1/fan_in) weights `[in, out]`, zero biases (none for 1 layer)."""
-    device = torch.device(device) if device is not None else generator.device
+def init_params(seed: Seed, cfg: ProjectorConfig, *,
+                device="cuda") -> List[dict]:
+    """N(0, 1/fan_in) weights `[in, out]`, zero biases (none for 1 layer).
+    `seed` is an int or a generator on `device` (models/_init.py)."""
+    generator, device = make_generator(seed, device)
     dims = _dims(cfg)
     params = []
     for d_in, d_out in zip(dims[:-1], dims[1:]):

@@ -15,6 +15,12 @@ The two JAX entry points map onto it:
     `[B, S, 3*H*D]` QKV projection (the kernel reads them without copies);
   * `rowblock_packed_fwd`: separate `[B, S, H, D]` q/k/v. The kernel takes
     the sequence length as an argument, so no padding to 128 is needed.
+  * `rowblock_fwd` (the TPU kernel `_rowblock_kernel`): BSHD q/k/v with
+    grouped-query heads, causal option and log-sum-exp. It is the function
+    the flash forward computes, in the same base-2 score space, so it
+    launches that kernel (csrc/flash_attention_fwd.cu). `flash_attention`
+    with backend="rowblock" reaches the same launch directly where the
+    packed kernel does not apply (head_dim 24 of ESM2-35M).
 """
 
 import ctypes
@@ -23,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from procyon_tpu_torch.ops import _build
+from procyon_tpu_torch.ops import _build, flash_attention
 from procyon_tpu_torch.ops.rotary import apply_rope_flat
 
 MASK_VALUE = -1e30
@@ -174,3 +180,15 @@ def rowblock_packed_fwd(q, k, v, seg, *, sm_scale: Optional[float] = None,
         head_dim=D, score_scale=1.0 if rope is not None else sm_scale * LOG2E,
         rope=tables)
     return out.reshape(B, S, H, D)
+
+
+def rowblock_fwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, *,
+                 causal: bool, sm_scale: float, bounded: bool = False,
+                 want_lse: bool = True):
+    """q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] (rotary already applied),
+    seg / positions int32 [B, S]. Returns (out [B, Sq, Hq, D], lse
+    [B, Hq, Sq] f32 natural log, or None): the contract of the flash
+    forward, whose kernel and plain version it runs (`bounded` as there)."""
+    return flash_attention.flash_fwd(
+        q, k, v, seg_q, seg_kv, q_positions, kv_positions, causal=causal,
+        sm_scale=sm_scale, bounded=bounded, want_lse=want_lse)

@@ -7,8 +7,10 @@ W8A8 (`qmatmul_w8a8`): dynamic symmetric per-row activation quantization,
 an s8 x s8 -> s32 product, then the row-scale x column-scale epilogue in
 f32. The JAX package left these matmuls (the fused QKV projection and the
 attention output projection) to XLA, outside any Pallas kernel; here the
-product is `torch._int_mm` (cuBLASLt int8 on the card, ATen on the CPU) and
-the quantization and epilogue are torch ops.
+product is `torch._int_mm` and the quantization and epilogue are torch
+ops. On the H100 `torch._int_mm` ran as a CUTLASS sm80 wmma int8 tensor-op
+kernel, not a cuBLASLt one (torch.profiler, PERF.md section 5); on the CPU
+it is ATen's loop.
 """
 
 from typing import Dict
@@ -51,8 +53,9 @@ def quantize_rows(x: torch.Tensor):
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """s8 [M, K] x s8 [K, N] -> s32 [M, N], exact. cuBLASLt's int8 route
-    wants more than 16 rows; short inputs are padded with zero rows."""
+    """s8 [M, K] x s8 [K, N] -> s32 [M, N], exact. The CUDA route
+    of torch._int_mm wants more than 16 rows; short inputs are padded with
+    zero rows."""
     M = a.shape[0]
     if a.is_cuda and M <= 16:
         a = torch.cat([a, a.new_zeros(32 - M, a.shape[1])])

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at shapes beyond chip_smoke.py's: ESM2's full S=1026 (a ragged last key
 tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
-16-row block (d=2560) and its G=256 group.
+16-row block (d=2560) and its G=256 group; the flash forward at ragged
+lengths, every head dim, strided views, a cache shape and ESM2-35M's route.
 
 Marked `cuda`: needs a CUDA device, and without one every test skips (the
 fixture decides, at run time). This file imports torch only (the machine
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from procyon_tpu_torch.ops import attention_rowblock as rb
+from procyon_tpu_torch.ops import flash_attention as fa
 from procyon_tpu_torch.ops import fused_mlp as fm
 from procyon_tpu_torch.ops import quant
 from procyon_tpu_torch.ops.rotary import flat_rotary_tables
@@ -130,8 +132,8 @@ def test_fused_mlp_matches_plain(cuda, M, d, H, add_residual):
 
 
 def test_int_mm_short_inputs_are_exact(cuda):
-    """cuBLASLt's int8 route is given at least 32 rows (ops/quant.int_mm
-    pads); the product stays exact."""
+    """torch._int_mm's CUDA route is given at least 32 rows
+    (ops/quant.int_mm pads); the product stays exact."""
     g = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randint(-127, 128, (5, 64), generator=g, device=cuda,
                       dtype=torch.int8)
@@ -139,3 +141,159 @@ def test_int_mm_short_inputs_are_exact(cuda):
                       dtype=torch.int8)
     want = (a.double() @ b.double()).to(torch.int32)
     assert torch.equal(quant.int_mm(a, b), want)
+
+
+def _flash_inputs(dev, B, Sq, Skv, Hq, Hkv, D, seed):
+    """q, k, v as strided views of flat [B, S, (Hq + 2 Hkv) * D]
+    projections when Sq == Skv, else q fresh and k/v a slice of a longer
+    cache; int64 segment ids and positions, as numpy collators give them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if Sq == Skv:
+        flat = torch.randn((B, Sq, (Hq + 2 * Hkv) * D), generator=g,
+                           device=dev).to(torch.bfloat16)
+        q = flat[..., :Hq * D].reshape(B, Sq, Hq, D)
+        k = flat[..., Hq * D:(Hq + Hkv) * D].reshape(B, Skv, Hkv, D)
+        v = flat[..., (Hq + Hkv) * D:].reshape(B, Skv, Hkv, D)
+    else:
+        q = torch.randn((B, Sq, Hq, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        cache = torch.randn((2, B, Skv + 9, Hkv, D), generator=g,
+                            device=dev).to(torch.bfloat16)
+        k, v = cache[0, :, :Skv], cache[1, :, :Skv]
+    seg_q = _seg(B, Sq, dev).long()
+    seg_kv = _seg(B, Skv, dev).long()
+    if Sq != Skv:
+        seg_q = torch.ones((B, Sq), dtype=torch.long, device=dev)
+        seg_kv[:] = 1
+        seg_kv[:, Skv - 17:] = 0                  # the cache's empty tail
+    return q, k, v, seg_q, seg_kv
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal", [
+    (3, 200, 200, 8, 2, 128, True),     # ragged tiles, GQA 4
+    (3, 130, 130, 4, 4, 16, False),
+    (2, 257, 257, 6, 3, 24, True),
+    (3, 512, 512, 4, 2, 32, False),
+    (2, 300, 300, 4, 1, 64, True),
+    (2, 48, 333, 8, 2, 128, True),      # new tokens over a cache
+    (1, 3, 20, 2, 1, 16, True),         # a few rows in one ragged tile
+    (5, 70, 70, 1, 1, 32, False),
+])
+def test_flash_forward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
+    q, k, v, seg_q, seg_kv = _flash_inputs(cuda, B, Sq, Skv, Hq, Hkv, D,
+                                           Sq + D)
+    q_pos = kv_pos = None
+    if Sq != Skv:
+        q_pos = torch.arange(Skv - 17 - Sq, Skv - 17,
+                             device=cuda).expand(B, Sq)
+        kv_pos = torch.arange(Skv, device=cuda).expand(B, Skv)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, seg_q, seg_kv, causal=causal,
+                             q_positions=q_pos, kv_positions=kv_pos)
+    assert fa.launches == before + 1
+    ints = fa.mask_inputs(q, k, seg_q, seg_kv, q_pos, kv_pos)
+    sm = 1.0 / math.sqrt(D)
+    ref, ref_lse = fa.flash_fwd_ref(q, k, v, *ints, causal=causal,
+                                    sm_scale=sm)
+    torch.cuda.synchronize()
+    assert out.shape == (B, Sq, Hq, D) and torch.isfinite(out.float()).all()
+    assert _close(out, ref)
+    assert not out[seg_q == 0].any().item()
+    # unbounded (no tile skipping above the diagonal) and with lse
+    out2, lse = fa.flash_fwd(q, k, v, *ints, causal=causal, sm_scale=sm,
+                             want_lse=True)
+    assert _close(out2, ref)
+    live = ref_lse > -1e29
+    assert torch.equal(lse > -1e29, live)
+    assert (lse[~live] == -1e30).all()
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+
+
+def test_rowblock_fwd_esm2_35m_shape_and_model_route(cuda):
+    """head_dim 24 (ESM2-35M): the packed kernel does not apply, so
+    attn_backend="rowblock" lands in the function rowblock_fwd computes,
+    i.e. the flash kernel's source; the model's layers all go through it."""
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.models import esm2
+    B, S, H, D = 2, 256, 20, 24
+    q, k, v, seg, _ = _flash_inputs(cuda, B, S, S, H, H, D, 5)
+    ints = fa.mask_inputs(q, k, seg, seg, None, None)
+    sm = 1.0 / math.sqrt(D)
+    out, lse = rb.rowblock_fwd(q, k, v, *ints, causal=False, sm_scale=sm)
+    ref, ref_lse = fa.flash_fwd_ref(q, k, v, *ints, causal=False,
+                                    sm_scale=sm)
+    assert _close(out, ref)
+    live = ref_lse > -1e29
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+
+    cfg = esm2.esm2_config("35m", n_layers=3, max_seq_len=S,
+                           attn_backend="rowblock")
+    params = esm2.init_params(0, cfg, device=cuda)
+    tokens = torch.randint(4, 24, (B, S), device=cuda)
+    tokens[0, S - 40:] = esm2.PAD_IDX
+    before = (fa.launches, rb.launches)
+    hidden = esm2.forward(params, cfg, tokens)["hidden"]
+    assert (fa.launches - before[0], rb.launches - before[1]) == (3, 0)
+    cfg32 = esm2.esm2_config("35m", n_layers=3, max_seq_len=S,
+                             attn_backend="ref", dtype=torch.float32)
+    want = esm2.forward(bridge.to_torch(bridge.to_numpy(params)), cfg32,
+                        tokens.cpu())["hidden"]
+    valid = (tokens != esm2.PAD_IDX).cpu()
+    cos = torch.nn.functional.cosine_similarity(
+        hidden.float().cpu()[valid], want[valid], dim=-1)
+    assert cos.min().item() >= 0.99
+
+
+def test_flash_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 64, 4, 16), device=cuda)
+    with pytest.raises(TypeError):      # f32 on the card
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 4, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):     # head_dim 48
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError):     # the CPU reference on a CUDA tensor
+        fa.flash_attention(q[..., :16].contiguous(), q[..., :16].contiguous(),
+                           q[..., :16].contiguous(), backend="ref")
+    with pytest.raises(ValueError):     # a transposed head
+        t = torch.zeros((1, 64, 16, 4), device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention(*(t.transpose(2, 3),) * 3)
+
+
+def test_llama_prefill_and_cache_on_the_card_match_the_cpu(cuda):
+    """Llama in bf16 on the card (flash kernel at prefill, over the dense
+    cache with Sq != Skv, the plain decode step at S == 1) against the same
+    weights in f32 on the CPU: logits within 0.1 of a unit-scale range and
+    per-row cosine >= 0.99 (bf16 through 2 layers)."""
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.models import llama
+    cfg = llama.tiny_config(dim=256, n_heads=4, n_kv_heads=2,
+                            intermediate=512, vocab_size=512,
+                            dtype=torch.bfloat16, max_seq_len=256)
+    cfg32 = llama.tiny_config(dim=256, n_heads=4, n_kv_heads=2,
+                              intermediate=512, vocab_size=512,
+                              max_seq_len=256)
+    params = llama.init_params(3, cfg, device=cuda)
+    p32 = bridge.to_torch(bridge.to_numpy(params))
+    g = torch.Generator().manual_seed(0)
+    B = 2
+    cache = llama.init_kv_cache(cfg, B, 128, device=cuda)
+    cache32 = llama.init_kv_cache(cfg32, B, 128, device="cpu")
+    start = 0
+    before = fa.launches
+    for n in (70, 5, 1):
+        tokens = torch.randint(3, 512, (B, n), generator=g)
+        pos = torch.arange(start, start + n).expand(B, n)
+        got = llama.forward(params, cfg, tokens=tokens.to(cuda),
+                            positions=pos.to(cuda), kv_cache=cache)
+        want = llama.forward(p32, cfg32, tokens=tokens, positions=pos,
+                             kv_cache=cache32)
+        cache, cache32 = got["kv_cache"], want["kv_cache"]
+        a, b = got["logits"].float().cpu(), want["logits"]
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+        assert cos.min().item() >= 0.99, (n, cos.min().item())
+        assert (a - b).abs().max().item() <= 0.1, n
+        start += n
+    # two layers x (prefill of 70, block of 5); the S == 1 step is plain
+    assert fa.launches - before == 4
+    no_cache = llama.forward(params, cfg, tokens=tokens.to(cuda))
+    assert torch.isfinite(no_cache["logits"]).all()

@@ -15,12 +15,25 @@ MODULES = [
     "procyon_tpu_torch.ops.norms",
     "procyon_tpu_torch.ops.quant",
     "procyon_tpu_torch.ops.rotary",
+    "procyon_tpu_torch.models._init",
+    "procyon_tpu_torch.models.contrastive",
     "procyon_tpu_torch.models.esm2",
+    "procyon_tpu_torch.models.llama",
+    "procyon_tpu_torch.models.lora",
     "procyon_tpu_torch.models.pooling",
     "procyon_tpu_torch.models.projectors",
     "procyon_tpu_torch.models.unified",
+    "procyon_tpu_torch.data.collators",
+    "procyon_tpu_torch.data.datasets",
+    "procyon_tpu_torch.data.instruct",
     "procyon_tpu_torch.data.protein_tokenizer",
+    "procyon_tpu_torch.data.registry",
+    "procyon_tpu_torch.data.text_tokenizer",
+    "procyon_tpu_torch.evaluate.qa",
     "procyon_tpu_torch.inference.prompts",
+    "procyon_tpu_torch.inference.retrieval_service",
+    "procyon_tpu_torch.app.main",
+    "procyon_tpu_torch.app.server",
 ]
 
 
@@ -43,6 +56,8 @@ def test_import_builds_nothing():
     """Importing the kernel wrappers compiles and loads nothing: the build
     happens at a wrapper's first launch on a CUDA tensor."""
     from procyon_tpu_torch.ops import _build
-    from procyon_tpu_torch.ops import attention_rowblock, fused_mlp
-    assert attention_rowblock.launches >= 0 and fused_mlp.launches >= 0
+    from procyon_tpu_torch.ops import (attention_rowblock, flash_attention,
+                                       fused_mlp)
+    assert attention_rowblock.launches >= 0 and fused_mlp.launches >= 0 \
+        and flash_attention.launches >= 0
     assert not _build._libs

@@ -63,8 +63,8 @@ def _configs(**esm_kw):
         ecfg).items() if k in names and k != "dtype"},
         dtype=torch.float32)
     layers = jcfg.shared_projector_layers or jcfg.retrieval_projector_layers
-    tcfg = tuni.UnifiedProteinConfig(
-        esm=tecfg, retrieval_dim=jcfg.retrieval_dim,
+    tcfg = tuni.UnifiedConfig(
+        llama=None, esm=tecfg, retrieval_dim=jcfg.retrieval_dim,
         shared_projector_layers=layers,
         shared_projector_hidden=jcfg.shared_projector_hidden,
         protein_pooling=jcfg.protein_pooling, dtype=torch.float32)
@@ -172,4 +172,4 @@ def test_projector_matches_reference(n_layers):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
     assert all(("b" in p) == (n_layers > 1)
-               for p in tproj.init_params(torch.Generator(), tc))
+               for p in tproj.init_params(0, tc, device="cpu"))
