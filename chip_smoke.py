@@ -32,20 +32,49 @@ source, all started together), then:
      starts the stdlib HTTP server on a free port, POSTs five descriptions,
      checks each answer and that each request launched the flash kernel
      once per layer, then prints queries/s for `service.retrieve` and for
-     `retrieval_query_embedding` at B16 x 512 tokens.
+     `retrieval_query_embedding` at B16 x 512 tokens;
+  6. holds the caption path's two kernels against their plain versions: the
+     page move at the path's shape (a bf16 pool of 32 x 881 pages of
+     128 KiB, 2,560 moves with repeating sources; also an int8 pool and an
+     f32 scale slab), exact; the paged decode attention at B80 Hq32 Hkv8
+     D128 with 12 pages a slot and ragged lengths (a dead slot, a length
+     that ends mid-page, one at a page boundary, the full 768), bf16 pools
+     and int8 pools with scales, and at B8 for the record, with the port's
+     gather route timed beside it at max_ctx 768 and 320;
+  7. checks the caption path on the card (bf16, 2 layers at full width, the
+     vocabulary cut to 8192 for this check only, 2 prompts of several pages,
+     beam 4, 8 new tokens, through a BeamPoolSession), once with the cascade
+     and once through the page-walk kernel, against the dense beam search on
+     the CPU in f32, on three seeds: stepped under the CPU's beam choices,
+     so that every step's log-probabilities and the beam scores can be held
+     to a tolerance whatever ties the random weights produce;
+  8. drives captioning at ProCyon-Full width on the /retrieve phase's
+     parameters, with descriptions of 226 words so that the prompts span
+     several pages: 8 proteins through ProcyonCaptionEval(use_paged=True,
+     shared_prefix=True) with beam 10, groups of 2, diversity 0.8 and 200
+     new tokens (pass A, the default: the cascade, two page moves a step;
+     the rows share their full prompt pages and the session caches them),
+     then the same batch twice through paged_beam_generate on that session,
+     which now prefills only the tails: with the cascade and with
+     cascade=False (pass B: every decode layer through the paged attention
+     kernel); captions/s, ms per beam step, peak device memory.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over the peak for their type (989 TFLOP/s bf16, 1979 TOP/s
 int8); an attention kernel's operations count the (query, key) pairs this
-run's masks allow, and its bytes the q, k and v rows that are not padding.
---profile adds one torch.profiler trace of a request.
+run's masks allow, and its bytes the q, k and v rows that are not padding;
+the paged attention counts the live tokens of this run's lengths, the page
+move each moved row read once and written once.
+--profile adds one torch.profiler trace of a request and of five beam steps
+of each caption route.
 
 Stdout ends with a JSON line of per-kernel results, the card's nvidia-smi
 line, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero.
 There is no CPU path: without CUDA it exits with status 2.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -85,6 +114,31 @@ LSE_TOL = 1e-3             # f32 log-sum-exp, kernel vs plain
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+# the caption path (ProCyon-Full, 8 proteins x beam 10): the session's pool
+# and one beam step's page moves, one per (layer, slot)
+POOL_SHAPE = dict(L=32, n_pages=881, page=64, KD=1024)
+PAGE_MOVES = 32 * 80
+PAGED_SHAPE = dict(Hq=32, Hkv=8, D=128, page=64, P=12)
+PAGED_BATCHES = (8, 80)
+CAPTION_PROTEINS = 8
+CAPTION_SMALL = dict(layers=2, vocab=8192, prompts=2, beam=4, new_tokens=8)
+CAPTION_SMALL_SEEDS = (SEED + 18, SEED + 20, SEED + 21)
+# words of the synthetic descriptions on the caption path (a UniProt
+# function annotation's length): the prompts then fill several 64-token
+# pages, so the shared prefix, the session's cache and the cascade's prefix
+# all carry real pages. 226 words stay just under the collator's budget for
+# one text (longer ones get a random crop, a different one for each row,
+# and then the rows share nothing) and leave a 20-token tail after the
+# shared pages, which a prefill wave sends to the flash kernel (16 or fewer
+# would take the short-block route)
+CAPTION_TEXT_WORDS = 226
+CAPTION_MIN_PROMPT_PAGES = 4
+# card bf16 against CPU f32 at 2 layers under the CPU's beam choices: every
+# step's log-probabilities (absolute) and the beam scores (relative); and
+# the two decode routes against each other at full depth (relative)
+SMALL_LOGP_ATOL = 0.25
+SMALL_SCORE_RTOL = 2e-2
+PASS_SCORE_RTOL = 2e-2
 RETRIEVE_DESCRIPTIONS = (
     ("disgenet", "progressive neurological decline with seizures"),
     ("omim", "early onset cardiomyopathy with conduction defects"),
@@ -200,7 +254,8 @@ def sdpa_ms(q, k, v, ok, kernel_out):
 
 def phase_build():
     from procyon_tpu_torch.ops import _build
-    names = ("rowblock_attention", "fused_ln_mlp_int8", "flash_attention_fwd")
+    names = ("rowblock_attention", "fused_ln_mlp_int8", "flash_attention_fwd",
+             "page_move", "paged_attention")
     t0 = time.perf_counter()
     errors = {}
 
@@ -912,7 +967,671 @@ def phase_retrieve(dev, profile):
     request_breakdown(service, source, desc)
     if profile:
         profile_request(service, source, desc)
-    return launches, qps1, qps16
+    return launches, qps1, qps16, service
+
+
+def phase_page_move(dev):
+    """The page move at the caption path's shape: the session's bf16 pool
+    (32 layers x 881 pages of [64, 1024]), one beam step's 2,560 moves with
+    sources that repeat (children of one parent) and never are
+    destinations; then an int8 pool and an f32 scale slab [.., 64, 8]
+    through the same kernel. Exact equality with the plain version."""
+    import torch
+    from procyon_tpu_torch.ops import page_move as pm
+    L, n_pages, page, KD = (POOL_SHAPE[k] for k in ("L", "n_pages", "page",
+                                                    "KD"))
+    N, M = L * n_pages, PAGE_MOVES
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    perm = torch.randperm(N, generator=g, device=dev)
+    dst = perm[:M].to(torch.int32)
+    src = perm[M:][torch.randint(0, M // 4, (M,), generator=g,
+                                 device=dev)].to(torch.int32)
+    check(src.unique().numel() < M, "page move: sources do not repeat")
+    result = None
+    for dtype, tail in ((torch.bfloat16, (page, KD)), (torch.int8, (page, KD)),
+                        (torch.float32, (page, KD // 128))):
+        pool = torch.randint(-100, 100, (N, *tail), generator=g,
+                             device=dev, dtype=torch.int32).to(dtype)
+        want = pm.move_pages_direct_ref(pool.clone(), src, dst)
+        before = pm.launches
+        got = pm.move_pages_direct(pool, src, dst)
+        torch.cuda.synchronize()
+        check(pm.launches == before + 1, "page move: no launch")
+        check(got is pool and torch.equal(got, want),
+              f"page move ({dtype}): differs from the plain version")
+        del want
+        ms, plain_ms = paired_ms(
+            lambda: pm.move_pages_direct(pool, src, dst),
+            lambda: pm.move_pages_direct_ref(pool, src, dst))
+        srcl, dstl = src.long(), dst.long()
+        library_ms = cuda_ms(lambda: pool.index_copy_(
+            0, dstl, pool.index_select(0, srcl)))
+        row_bytes = pool[0].numel() * pool.element_size()
+        # a source that repeats is read once
+        n_src = src.unique().numel()
+        n_bytes = (n_src + M) * row_bytes + nbytes(src, dst)
+        bound_ms, bound_by = bound(n_bytes, 0, PEAK_BF16)
+        name = str(dtype).split(".")[1]
+        print(f"page move {name} pool [{N}, {tail[0]}, {tail[1]}] "
+              f"({N * row_bytes / 2 ** 30:.2f} GiB), {M} moves of "
+              f"{row_bytes} bytes, {n_src} distinct sources: "
+              f"equal to the plain version; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (with its checks of the plan), index_select"
+              f" + index_copy_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({n_bytes / 1e6:.1f} MB)")
+        if result is None:
+            result = dict(
+                name="page_move", route="cuda",
+                source="procyon_tpu_torch/csrc/page_move.cu",
+                replaces="procyon_tpu/ops/page_move.py:83",
+                shape=f"pool [{N}, {page}, {KD}] bf16, {M} moves",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+        del pool, got
+        torch.cuda.empty_cache()
+    return result
+
+
+def paged_lens(B, max_ctx, page, rng):
+    """Ragged lengths: a dead slot, one that ends mid-page, one at a page
+    boundary, the full context, the rest between a quarter and three
+    quarters of it."""
+    lens = rng.integers(max_ctx // 4, 3 * max_ctx // 4, B)
+    lens[:4] = (0, 4 * page + page // 2 + 12, 5 * page, max_ctx)
+    return lens
+
+
+def phase_paged_attention(dev, B, quantized):
+    """The paged decode attention at Llama-3-8B widths, 12 pages a slot:
+    kernel against plain (out and lse), the dead slot exactly 0, times for
+    kernel, plain version, the library call (a gather of the pages, then
+    scaled_dot_product_attention under the length mask) and the port's own
+    gather route (`_decode_attention_step` over the gathered context) at
+    max_ctx 768 and 320."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import paged_attention as pa
+    Hq, Hkv, D, page, P = (PAGED_SHAPE[k] for k in ("Hq", "Hkv", "D", "page",
+                                                    "P"))
+    n_pages = B * P + 7
+    g = torch.Generator(device=dev).manual_seed(SEED + 9 + B)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    shape = (n_pages, page, Hkv * D)
+    if quantized:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand((n_pages, page, Hkv), generator=g, device=dev)
+                  * 0.02 + 1e-3 for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    table = torch.randperm(n_pages, generator=g, device=dev)[:B * P].reshape(
+        B, P).to(torch.int32)
+    lens_np = paged_lens(B, P * page, page, np.random.default_rng(SEED + B))
+    lens = torch.from_numpy(lens_np).to(dev, torch.int32)
+    kw = dict(n_kv_heads=Hkv, head_dim=D, k_scale_pool=ks, v_scale_pool=vs)
+    name = f"paged attention{' int8' if quantized else ''}"
+
+    def kernel(t=table, n=lens):
+        return pa.paged_decode_attention_fullpage(q, k, v, t, n, **kw)
+
+    def plain():
+        return pa.paged_decode_attention_ref(q, k, v, table, lens, **kw)
+
+    before = pa.launches
+    (out, lse), (ref, ref_lse) = kernel(), plain()
+    torch.cuda.synchronize()
+    check(pa.launches == before + 1, f"{name}: the wrapper did not launch")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
+    check(within_tol(out, ref), f"{name}: max_abs_err {err}")
+    dead = lens == 0
+    check(not out[dead].any().item()
+          and bool((lse[dead] == -1e30).all().item()),
+          f"{name}: the dead slot is not 0 / -1e30")
+    lse_err = (lse[~dead] - ref_lse[~dead]).abs().max().item()
+    check(lse_err <= LSE_TOL, f"{name}: lse err {lse_err}")
+    ms, plain_ms = paired_ms(kernel, plain)
+
+    def gather_route(n_ctx_pages):
+        """(kernel ms, gather-route ms) with the context cut to the first
+        n_ctx_pages pages of every slot."""
+        tab = table[:, :n_ctx_pages].contiguous()
+        ctx = n_ctx_pages * page
+        n = lens.clamp_max(ctx)
+        tab_l = tab.long()
+        valid = torch.arange(ctx, device=dev)[None, :] < n[:, None]
+        seg_q = torch.ones((B, 1), dtype=torch.int32, device=dev)
+        pos_q = n[:, None]
+        ctx_pos = torch.arange(ctx, dtype=torch.int32,
+                               device=dev).expand(B, -1)
+
+        def route():
+            kc = k[tab_l].reshape(B, ctx, Hkv, D)
+            vc = v[tab_l].reshape(B, ctx, Hkv, D)
+            scales = {}
+            if quantized:
+                scales = dict(k_scale=ks[tab_l].reshape(B, ctx, Hkv),
+                              v_scale=vs[tab_l].reshape(B, ctx, Hkv))
+            return llama._decode_attention_step(
+                q[:, None], kc, vc, seg_q, valid.to(torch.int32), pos_q,
+                ctx_pos, **scales)
+
+        got = route()[:, 0]
+        want = kernel(tab, n)[0]
+        live = n > 0
+        diff = (got[live].float() - want[live].float()).abs().max().item()
+        check(diff <= LIBRARY_ATOL, f"{name}: the gather route is {diff} "
+                                    f"from the kernel at {ctx} tokens")
+        k_ms, r_ms = paired_ms(lambda: kernel(tab, n), route)
+        return k_ms, r_ms
+
+    k768, r768 = gather_route(P)
+    k320, r320 = gather_route(5)
+
+    library_ms = None
+    if not quantized:
+        tab_l = table.long()
+        S = P * page
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        mask = mask | dead[:, None, None, None]   # a dead row must not NaN
+        qt = q[:, :, None, :]                      # [B, Hq, 1, D]
+
+        def library():
+            kc = k[tab_l].reshape(B, S, Hkv, D).transpose(1, 2)
+            vc = v[tab_l].reshape(B, S, Hkv, D).transpose(1, 2)
+            return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib = library()[:, :, 0]
+        diff = (lib[~dead].float() - out[~dead].float()).abs().max().item()
+        check(diff <= LIBRARY_ATOL, f"{name}: gather + sdpa is {diff} from "
+                                    "the kernel on live slots")
+        library_ms = cuda_ms(library)
+
+    live_tokens = int(lens_np.sum())
+    es = k.element_size()
+    n_bytes = 2 * live_tokens * Hkv * D * es + nbytes(q, out, lse, table,
+                                                      lens)
+    if quantized:
+        n_bytes += 2 * live_tokens * Hkv * 4
+    ops = 4 * D * Hq * live_tokens
+    bound_ms, bound_by = bound(n_bytes, ops, PEAK_BF16)
+    shape_s = f"B{B} Hq{Hq} Hkv{Hkv} D{D} P{P} page {page}"
+    lib_s = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"{name} {shape_s}, lengths {lens_np[:4].tolist()} + "
+          f"{B - 4} in [{P * page // 4}, {3 * P * page // 4}) "
+          f"({live_tokens} live tokens): max_abs_err {err:.3e}, lse err "
+          f"{lse_err:.3e} (tol {ATOL} + {RTOL}|plain|, lse {LSE_TOL}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + sdpa "
+          f"{lib_s}, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP); the port's "
+          f"gather route {r768:.4f} ms against the kernel's {k768:.4f} at "
+          f"max_ctx 768, {r320:.4f} against {k320:.4f} at max_ctx 320")
+    return dict(name="paged_attention", route="cuda",
+                source="procyon_tpu_torch/csrc/paged_attention.cu",
+                replaces="procyon_tpu/ops/paged_attention.py:250",
+                shape=shape_s, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                gather_route_ms_ctx768=r768, gather_route_ms_ctx320=r320,
+                kernel_ms_ctx320=k320)
+
+
+class LongTextStore:
+    """A store whose descriptions run to `words` words. The synthetic store
+    writes 14-word descriptions, which leave the caption prompt under one
+    64-token page; UniProt's function annotations, which the caption prompt
+    quotes as its in-context example, run to hundreds of words. Everything
+    but `text` is the wrapped store's."""
+
+    def __init__(self, base, words):
+        self.base, self.words = base, words
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def text(self, idx):
+        head = self.base.text(idx).split()
+        out = list(head)
+        for i in range(self.words - len(head)):
+            out.append(f"{head[i % len(head)]}{i // len(head)}")
+        return " ".join(out)
+
+
+def caption_batch(tokenizer, store, cfg, n):
+    """The caption collator's for_generation batch of proteins 0..n-1
+    (numpy, left-padded to the collator's max_text_len of 512)."""
+    from procyon_tpu_torch.data import collators, instruct
+    task = instruct.TaskLibrary().get("uniprot_all_caption")
+    coll = collators.CaptionCollator(
+        collators.CollatorConfig(protein_embed_dim=cfg.encoder_out_dim),
+        tokenizer, store, task)
+    return coll([(a, 0) for a in range(n)],
+                instruct.get_prompt(task, num_examples=1),
+                for_generation=True)
+
+
+def best_token_agreement(a, b):
+    """Share of positions on which the best hypotheses' tokens agree."""
+    return float((a[:, 0] == b[:, 0]).float().mean().item())
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """module.name = fn for the length of the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def tie_margins(select, step, logp, gen):
+    """Where the card's own selection (from its log-probabilities `logp`
+    and the CPU's scores) departs from the CPU's at this step: for each
+    prompt, the CPU-side score gap between the CPU's pick and the card's at
+    the first beam slot that differs (later slots see other diversity
+    counts). Returns (share of equal picks, [gaps])."""
+    ref_logp, ref_scores, done, (tok_c, par_c, sc_c) = step
+    tok_o, par_o, _ = select(logp, ref_scores, done, gen)
+    same = (tok_o == tok_c) & (par_o == par_c)
+    gaps = []
+    gsz = gen.beam_group_size
+    for b in range(same.shape[0]):
+        differs = (~same[b]).nonzero()
+        if not len(differs):
+            continue
+        j = int(differs[0])
+        par, tok = int(par_o[b, j]), int(tok_o[b, j])
+        if bool(done[b, par]):
+            cont = 0.0 if tok == gen.eos_token_id else -1e30
+        else:
+            cont = float(ref_logp[b, par, tok])
+        used = int((tok_c[b, :j // gsz * gsz] == tok).sum())
+        theirs = float(ref_scores[b, par]) + cont \
+            - gen.diversity_penalty * used
+        gaps.append(float(sc_c[b, j]) - theirs)
+    return float(same.float().mean()), gaps
+
+
+def caption_small_seed(dev, seed):
+    """One seed of phase_caption_small. Returns the largest log-probability
+    error over both routes."""
+    import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.app.main import procyon_full_config
+    from procyon_tpu_torch.data import datasets
+    from procyon_tpu_torch.data.text_tokenizer import load_tokenizer
+    from procyon_tpu_torch.inference import generation, paged_beam
+    from procyon_tpu_torch.models import unified
+    from procyon_tpu_torch.ops import page_move, paged_attention
+    c = CAPTION_SMALL
+    full = procyon_full_config(c["layers"])
+    cfg = dataclasses.replace(full, llama=dataclasses.replace(
+        full.llama, vocab_size=c["vocab"]))
+    params = unified.init_params(seed, cfg, device=dev)
+    tok = load_tokenizer(vocab_size=c["vocab"])
+    store = LongTextStore(
+        datasets.SyntheticStore(n_proteins=16,
+                                embed_dim=cfg.protein_embed_dim),
+        CAPTION_TEXT_WORDS)
+    batch = caption_batch(tok, store, cfg, c["prompts"])
+    gen = generation.GenerationConfig(
+        max_new_tokens=c["new_tokens"], method="beam", beam_size=c["beam"],
+        beam_group_size=2, diversity_penalty=0.8,
+        eos_token_id=tok.spec.eos_id, pad_token_id=tok.spec.pad_id)
+    lens = batch["seg_ids"].sum(1)
+    check(int(lens.min()) // 64 >= CAPTION_MIN_PROMPT_PAGES,
+          f"caption prompts of {lens.tolist()} tokens fill fewer than "
+          f"{CAPTION_MIN_PROMPT_PAGES} pages")
+    partial = int((lens % 64 != 0).any())
+    select = generation.diverse_beam_select
+
+    # the CPU's dense run in f32, every step's selection recorded
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                llama=dataclasses.replace(
+                                    cfg.llama, dtype=torch.float32))
+    p32 = bridge.to_torch(bridge.to_numpy(params), device="cpu")
+    steps = []
+
+    def recording(logp, scores, done, gen_):
+        out = select(logp, scores, done, gen_)
+        steps.append((logp.clone(), scores.clone(), done.clone(), out))
+        return out
+
+    t0 = time.perf_counter()
+    with patched(generation, "diverse_beam_select", recording):
+        want_t, want_s = generation.generate_beam(
+            p32, cfg32, paged_beam.to_device(batch, "cpu"), gen)
+    cpu_s = time.perf_counter() - t0
+    del p32
+    steps = [tuple(x.to(dev) for x in st[:3])
+             + (tuple(x.to(dev) for x in st[3]),) for st in steps]
+    print(f"caption check, seed {seed} (ProCyon-Full widths, {c['layers']} "
+          f"layers, vocab cut to {c['vocab']} for this check only, "
+          f"{c['prompts']} prompts of {lens.tolist()} tokens, beam "
+          f"{c['beam']}, {c['new_tokens']} new tokens), card bf16 paged "
+          f"against CPU f32 dense (CPU run {cpu_s:.1f} s):")
+
+    worst = 0.0
+    for cascade in (True, False):
+        what = "cascade" if cascade else "page-walk kernel"
+        errs, shares, gaps = [], [], []
+        delta = torch.zeros_like(steps[0][1])
+
+        def replay(logp, scores, done, gen_):
+            """The CPU's choice for this step, whatever the card's
+            log-probabilities say; the two are compared on the way."""
+            nonlocal delta
+            step = steps[len(errs)]
+            ref_logp, _, ref_done, (tok_c, par_c, sc_c) = step
+            check(torch.equal(done, ref_done), f"{what}: done flags differ "
+                                               f"at step {len(errs)}")
+            logp = logp.float()
+            err = (logp - ref_logp).abs()[~done].max().item()
+            share, step_gaps = tie_margins(select, step, logp, gen_)
+            check(all(g <= 2 * err + 1e-5 for g in step_gaps),
+                  f"{what}: the card's own pick at step {len(errs)} is "
+                  f"{step_gaps} from the CPU's, log-probabilities within "
+                  f"{err}")
+            par = par_c.long()
+            d = torch.gather(logp - ref_logp, 1,
+                             par[..., None].expand(-1, -1, logp.shape[-1])
+                             ).gather(2, tok_c.long()[..., None])[..., 0]
+            delta = torch.gather(delta, 1, par) + torch.where(
+                torch.gather(done, 1, par), 0.0, d)
+            errs.append(err)
+            shares.append(share)
+            gaps.extend(step_gaps)
+            return tok_c, par_c, sc_c
+
+        session = paged_beam.BeamPoolSession()
+        page_move.launches = paged_attention.launches = 0
+        with patched(paged_beam, "diverse_beam_select", replay):
+            toks, scores = paged_beam.paged_beam_generate(
+                params, cfg, batch, gen, session=session, cascade=cascade)
+        torch.cuda.synchronize()
+        check(session.pcfg.max_ctx >= 512, f"pool max_ctx "
+                                           f"{session.pcfg.max_ctx}")
+        check(len(session.cache.meta) > 0, "no prompt block was cached")
+        moves = 2 * (c["new_tokens"] + partial)
+        walks = 0 if cascade else c["layers"] * c["new_tokens"]
+        check(page_move.launches == moves
+              and paged_attention.launches == walks,
+              f"small caption check ({what}): {page_move.launches} page "
+              f"moves and {paged_attention.launches} paged attention "
+              f"launches, expected {moves} and {walks}")
+        check(torch.equal(toks.cpu(), want_t),
+              f"{what}: under the CPU's choices the card's token history "
+              "is not the CPU's")
+        rel = (delta.abs() / steps[-1][3][2].abs().clamp_min(1e-6)
+               ).max().item()
+        # the same route left to its own choices, for the record: where a
+        # pick sits on a tie it takes the other candidate and departs
+        free_t, free_s = paged_beam.paged_beam_generate(
+            params, cfg, batch, gen, session=session, cascade=cascade)
+        free_rel = ((free_s.float().cpu() - want_s).abs()
+                    / want_s.abs().clamp_min(1e-6)).max().item()
+        print(f"  {what}, stepped under the CPU's choices: log-probabilities "
+              f"within {max(errs):.4f} of the CPU's over {len(errs)} steps "
+              f"(asserted <= {SMALL_LOGP_ATOL}), beam scores within "
+              f"{rel:.5f} (relative; asserted <= {SMALL_SCORE_RTOL}); its "
+              f"own pick is the CPU's on {sum(shares) / len(shares):.3f} of "
+              f"the (step, beam) entries, and the {len(gaps)} first "
+              f"departures are CPU-side gaps of at most "
+              f"{max(gaps, default=0.0):.4f}; left to its own choices: best "
+              f"tokens agree on "
+              f"{best_token_agreement(free_t.cpu(), want_t):.3f}, beam "
+              f"scores within {free_rel:.4f}")
+        check(max(errs) <= SMALL_LOGP_ATOL,
+              f"{what}: log-probabilities {max(errs)} from the CPU's")
+        check(rel <= SMALL_SCORE_RTOL, f"{what}: beam scores {rel} from the "
+                                       "CPU's")
+        worst = max(worst, max(errs))
+    return worst
+
+
+def phase_caption_small(dev):
+    """The caption path on the card in bf16 (2 layers at ProCyon-Full width,
+    the vocabulary cut to 8192 for this check only; 2 prompts of several
+    pages, beam 4, 8 new tokens; a BeamPoolSession, so the pool's max_ctx is
+    at least 512), once with the cascade and once with cascade=False (the
+    page-walk kernel), against the port's dense generate_beam on the CPU in
+    f32 on the same weights. The kernels take bf16, so the card side cannot
+    run in f32, and bf16 flips a selection that sits on a near tie, after
+    which a beam departs for good. So the card is stepped under the CPU's
+    choices: every step's log-probabilities are held to SMALL_LOGP_ATOL, the
+    beam scores they add up to to SMALL_SCORE_RTOL, and the token history
+    must then be the CPU's exactly. Where the card's own pick would differ,
+    the CPU-side gap between the two candidates is shown to lie within
+    twice that step's error: a tie, not a fault of a route. No seed is
+    chosen for this: several run, and the free-running agreement is printed
+    beside each."""
+    import torch
+    for seed in CAPTION_SMALL_SEEDS:
+        caption_small_seed(dev, seed)
+        torch.cuda.empty_cache()
+
+
+def flash_waves(*widths):
+    """How many of these prefill waves reach the flash kernel: a session
+    pads a wave to the next power of two, and blocks of 16 tokens or fewer
+    take the short-block route."""
+    return sum((1 << (w - 1).bit_length()) > 16 for w in widths)
+
+
+def timed_generate(params, cfg, batch, gen, session, cascade):
+    """paged_beam_generate with the prefill and the steps timed apart (host
+    clock around synchronized work). Returns (tokens, scores, prefill
+    seconds, loop seconds, the page plan's shared tokens per row)."""
+    import torch
+    from procyon_tpu_torch.inference import paged_beam
+    marks = {}
+
+    def after_init(ctx):
+        torch.cuda.synchronize()
+        marks["t"] = time.perf_counter()
+        marks["start"] = ctx["start"]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, scores = paged_beam.paged_beam_generate(
+        params, cfg, batch, gen, session=session, cascade=cascade,
+        after_init=after_init)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return toks, scores, marks["t"] - t0, t2 - marks["t"], marks["start"]
+
+
+def profile_beam_steps(params, cfg, batch, gen, session, cascade, warm=10,
+                       steps=5):
+    """torch.profiler over `steps` beam steps of one route after `warm`
+    untraced ones: wall and device-busy time per step, kernels per step and
+    the kernels that take most of the device time, to stdout."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from procyon_tpu_torch.inference import paged_beam
+    state, ctx = paged_beam.paged_beam_init(params, cfg, batch, gen,
+                                            session=session, cascade=cascade)
+
+    def run(t0, n):
+        nonlocal state
+        for t in range(t0, t0 + n):
+            state = paged_beam.paged_beam_step(
+                params, cfg, gen, ctx["pcfg"], ctx["beam"], ctx["private"],
+                ctx["g0"], state, t, cascade_pages=ctx["cascade_pages"],
+                max_position=ctx["max_len"] + t)
+        torch.cuda.synchronize()
+
+    run(0, warm)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run(warm, 1)                    # pays the tracer's start
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(warm + 1, steps)
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    session.end_batch(ctx["session_rec"], state[1])
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    count = sum(e.count for e in kernels) / steps
+    what = "cascade" if cascade else "page-walk kernel"
+    print(f"{steps} beam steps ({what}) under torch.profiler: wall "
+          f"{wall:.1f} ms a step (tracing on), device busy {busy:.1f} ms a "
+          f"step in {count:.0f} kernels a step")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms a step "
+              f"in {e.count / steps:6.0f} launches  {e.key[:90]}")
+
+
+def phase_caption(dev, service, profile=False):
+    """The slice's main path: captioning at ProCyon-Full width on the
+    /retrieve phase's parameters, store and tokenizer."""
+    import torch
+    from procyon_tpu_torch.data import instruct
+    from procyon_tpu_torch.evaluate.procyon_models import ProcyonCaptionEval
+    from procyon_tpu_torch.ops import (flash_attention, page_move,
+                                       paged_attention)
+    params, cfg, tok = service.params, service.cfg, service.tokenizer
+    store = LongTextStore(service.store, CAPTION_TEXT_WORDS)
+    lcfg = cfg.llama
+    n = CAPTION_PROTEINS
+    model = ProcyonCaptionEval(
+        params, cfg, tok, store,
+        instruct.TaskLibrary().get("uniprot_all_caption"), batch_size=n,
+        use_paged=True, shared_prefix=True, device=dev)
+    gen = model.gen
+    steps = gen.max_new_tokens
+    check((gen.beam_size, gen.beam_group_size, gen.diversity_penalty, steps,
+           gen.eos_token_id) == (10, 2, 0.8, 200, tok.spec.eos_id),
+          f"the caption recipe changed: {gen}")
+    batch = caption_batch(tok, store, cfg, n)
+    lens = batch["seg_ids"].sum(1)
+    partial = int((lens % 64 != 0).any())
+    full_pages = (lens // 64).astype(int)
+    check(int(full_pages.min()) >= CAPTION_MIN_PROMPT_PAGES,
+          f"caption prompts of {lens.tolist()} tokens fill fewer than "
+          f"{CAPTION_MIN_PROMPT_PAGES} pages")
+
+    torch.cuda.reset_peak_memory_stats()
+    # pass A: the entry point a user calls, the default route (cascade)
+    page_move.launches = paged_attention.launches = 0
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    captions = model.get_predictions(list(range(n)))
+    torch.cuda.synchronize()
+    dt_a = time.perf_counter() - t0
+    moves_a, walks_a = page_move.launches, paged_attention.launches
+    flash_a = flash_attention.launches
+    session = model.session
+    pcfg = session.pcfg
+    pool_bytes = nbytes(session.pool["k"], session.pool["v"])
+    cached = len(session.cache.meta)
+    print(f"caption path: ProCyon-Full ({lcfg.n_layers} layers), {n} "
+          f"proteins x beam {gen.beam_size} (groups of "
+          f"{gen.beam_group_size}, diversity {gen.diversity_penalty}), "
+          f"{steps} new tokens; prompts of {lens.tolist()} tokens "
+          f"({CAPTION_TEXT_WORDS}-word descriptions); pool "
+          f"{pcfg.n_pages} pages x {pcfg.n_layers} layers, max_ctx "
+          f"{pcfg.max_ctx}, {pool_bytes / 1e9:.2f} GB")
+    check(sorted(captions) == list(range(n))
+          and all(isinstance(c, str) and c for c in captions.values()),
+          f"bad captions: {captions}")
+    check(len(set(captions.values())) > 1, "every protein got one caption")
+    check(moves_a == 2 * (steps + partial) and walks_a == 0,
+          f"pass A: {moves_a} page moves and {walks_a} paged attention "
+          f"launches, expected {2 * (steps + partial)} (k and v per step"
+          f"{', and the partial prompt page' if partial else ''}) and 0")
+    check(pcfg.max_ctx == 768 and pcfg.n_pages == POOL_SHAPE["n_pages"],
+          f"the session's pool changed: {pcfg}")
+    # the rows share every full prompt block (one instruction and one
+    # in-context example): row 0 prefills them in a first wave, the others
+    # only their tails in a second, and the session keeps the blocks
+    shared = int(full_pages[0]) * 64
+    tail = int(lens.max()) - shared
+    flash_a_want = lcfg.n_layers * flash_waves(int(lens[0]), tail)
+    check(cached == int(full_pages[0]) and flash_a == flash_a_want,
+          f"pass A: {cached} prompt blocks cached and {flash_a} flash "
+          f"launches, expected {int(full_pages[0])} blocks and "
+          f"{flash_a_want} launches (a wave of {int(lens[0])} tokens, then "
+          f"one of {tail})")
+    print(f"  pass A, ProcyonCaptionEval.get_predictions (cascade): "
+          f"{dt_a:.2f} s, {n / dt_a:.3f} captions/s; {moves_a} page moves "
+          f"(2 x {steps} steps + {2 * partial} for the partial prompt "
+          f"pages), 0 paged attention launches, {flash_a} flash launches "
+          f"in the prefill waves (row 0's whole prompt, then the other "
+          f"rows' {tail}-token tails over its {cached} shared pages, which "
+          f"the session keeps)")
+    print(f"  caption of protein 0: {captions[0][:100]!r}")
+
+    # the same batch again through paged_beam_generate on that session: the
+    # cascade, then the page-walk kernel (pass B). The session's cache now
+    # holds the prompts' full blocks, so each prefills only the rows' tails.
+    runs = {}
+    for cascade in (True, False):
+        page_move.launches = paged_attention.launches = 0
+        flash_attention.launches = 0
+        toks, sc, init_s, loop_s, start = timed_generate(
+            params, cfg, batch, gen, session, cascade)
+        walks = 0 if cascade else lcfg.n_layers * steps
+        what = "cascade rerun" if cascade else "pass B"
+        check(paged_attention.launches == walks
+              and page_move.launches == 2 * (steps + partial),
+              f"{what}: {paged_attention.launches} paged attention launches "
+              f"and {page_move.launches} page moves, expected {walks} and "
+              f"{2 * (steps + partial)}")
+        check((start == full_pages * 64).all()
+              and flash_attention.launches
+              == lcfg.n_layers * flash_waves(tail),
+              f"{what}: the cached prompt blocks were prefilled again "
+              f"(shared tokens {start.tolist()}, "
+              f"{flash_attention.launches} flash launches)")
+        runs[cascade] = (toks, sc, init_s, loop_s)
+    tok_a, sc_a, init_a, loop_a = runs[True]
+    tok_b, sc_b, init_b, loop_b = runs[False]
+    walks_b = lcfg.n_layers * steps
+    for name, sc in (("A", sc_a), ("B", sc_b)):
+        check(torch.isfinite(sc).all().item(), f"pass {name}: bad scores")
+    rel = ((sc_a - sc_b).abs() / sc_a.abs().clamp_min(1e-6)).max().item()
+    agree = best_token_agreement(tok_a, tok_b)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  both reruns prefill only the tails: {shared} "
+          f"of each row's tokens come from the session's cache")
+    print(f"  cascade, prefill + steps: prefill {init_a * 1e3:.1f} ms, "
+          f"{loop_a / steps * 1e3:.2f} ms per beam step, "
+          f"{n / (init_a + loop_a):.3f} captions/s")
+    print(f"  pass B, page-walk kernel (cascade=False): prefill "
+          f"{init_b * 1e3:.1f} ms, {loop_b / steps * 1e3:.2f} ms per beam "
+          f"step, {n / (init_b + loop_b):.3f} captions/s; {walks_b} paged "
+          f"attention launches ({lcfg.n_layers} x {steps})")
+    print(f"  pass A against pass B: beam scores within {rel:.4f} "
+          f"(relative; asserted <= {PASS_SCORE_RTOL}); best hypotheses' "
+          f"tokens agree on {agree:.3f} of the positions; best scores "
+          f"{[round(x, 2) for x in sc_a[:, 0].tolist()]}; peak device "
+          f"memory {peak:.2f} GiB")
+    check(rel <= PASS_SCORE_RTOL, f"pass A and B beam scores differ by {rel}")
+    if profile:
+        for cascade in (True, False):
+            profile_beam_steps(params, cfg, batch, gen, session, cascade)
+    return dict(page_move=moves_a, paged_attention=walks_b), dict(
+        captions_per_sec_eval=n / dt_a,
+        ms_per_step_cascade=loop_a / steps * 1e3,
+        ms_per_step_paged_kernel=loop_b / steps * 1e3,
+        captions_per_sec_cascade=n / (init_a + loop_a),
+        captions_per_sec_paged_kernel=n / (init_b + loop_b),
+        score_rel_diff=rel, best_token_agreement=agree,
+        peak_device_gib=peak, pool_gb=pool_bytes / 1e9,
+        prompt_tokens=lens.tolist())
 
 
 def tree_leaves(tree):
@@ -1014,12 +1733,18 @@ def main():
     phase_build()
     # the JSON line carries each kernel's results at the shape its main
     # path gives it: ESM2-650M's B64 x L512 batch, the /retrieve request,
-    # ESM2-35M's B16 x L512 batch
+    # ESM2-35M's B16 x L512 batch, one beam step of the caption path
     kernels = [[phase_attention(dev, b) for b in ATTN_BATCHES][-1],
                [phase_mlp(dev, m) for m in MLP_ROWS][-1],
                [phase_flash(dev, b) for b in FLASH_BATCHES][0]]
     phase_flash_cache(dev)
     kernels.append(phase_rowblock_fwd(dev))
+    kernels.append(phase_page_move(dev))
+    for quantized in (False, True):
+        paged = [phase_paged_attention(dev, b, quantized)
+                 for b in PAGED_BATCHES][-1]
+        if not quantized:
+            kernels.append(paged)
     phase_small_reference(dev)
     launches, cos_min, state = phase_main_path(dev)
     rates, bench_cos = phase_throughput(dev, *state)
@@ -1028,8 +1753,12 @@ def main():
     launches["rowblock_fwd"] = phase_esm35m(dev)
     phase_fusion_small(dev)
     torch.cuda.empty_cache()
-    launches["flash_attention_fwd"], qps1, qps16 = phase_retrieve(dev,
-                                                                  profile)
+    phase_caption_small(dev)
+    torch.cuda.empty_cache()
+    launches["flash_attention_fwd"], qps1, qps16, service = phase_retrieve(
+        dev, profile)
+    caption_launches, caption = phase_caption(dev, service, profile)
+    launches.update(caption_launches)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its "
@@ -1044,6 +1773,12 @@ def main():
         "model": "ProCyon-Full /retrieve (Llama-3-8B bf16, 20000 proteins)",
         "flash_launches_5_requests": launches["flash_attention_fwd"],
         "queries_per_sec_b1": qps1, "queries_per_sec_b16": qps16}}))
+    print(json.dumps({"main_path": {
+        "model": "ProCyon-Full captioning (8 proteins x beam 10, 200 new "
+                 "tokens, paged pool, shared prefix)",
+        "page_move_launches": launches["page_move"],
+        "paged_attention_launches": launches["paged_attention"],
+        **caption}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

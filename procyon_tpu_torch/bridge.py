@@ -63,3 +63,41 @@ def int8_k_major(q: torch.Tensor) -> torch.Tensor:
     innermost, as the fused MLP kernel's mma.sync B operand reads it."""
     assert q.dtype == torch.int8 and q.dim() == 2, (q.dtype, q.shape)
     return q.t().contiguous()
+
+
+_POOL_KEYS = ("k", "v", "page_table", "seq_len")
+_POOL_SCALE_KEYS = ("k_scale", "v_scale")
+
+
+def _pool_keys(pool) -> tuple:
+    missing = [k for k in _POOL_KEYS if k not in pool]
+    scales = [k for k in _POOL_SCALE_KEYS if k in pool]
+    if missing or len(scales) == 1:
+        raise ValueError(f"not a paged KV pool: keys {sorted(pool)}")
+    return _POOL_KEYS + tuple(scales)
+
+
+def pool_to_torch(pool: dict, *, device=None) -> dict:
+    """A paged KV pool of the JAX package (inference/kv_pool.py: `k`, `v`,
+    `page_table`, `seq_len`, and `k_scale` / `v_scale` on int8 pools, as
+    numpy arrays) -> the port's pool: the same keys, shapes and dtypes as
+    tensors of their own (the port updates its pools in place), so a test
+    can prefill in one package and decode in the other."""
+    return {k: _leaf_to_tensor(np.array(np.asarray(pool[k]), order="C"),
+                               device)
+            for k in _pool_keys(pool)}
+
+
+def pool_to_numpy(pool: dict) -> dict:
+    """The port's pool -> numpy arrays with the dtypes kept, as
+    `jnp.asarray` takes them. A bf16 leaf crosses bit-exactly through an
+    int16 view, into ml_dtypes' bfloat16 (the numpy type JAX uses)."""
+    out = {}
+    for k in _pool_keys(pool):
+        t = pool[k].detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            out[k] = t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            out[k] = t.numpy().copy()
+    return out

@@ -255,7 +255,7 @@ def _prot_hidden(hidden, ret_pos):
 
 def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
             axis_name=None, kv_cache=None, lora_expert=0,
-            want_logits: bool = True):
+            want_logits: bool = True, max_position=None):
     """Run the fusion model.
 
     batch keys (all fixed-shape; produced by data/collators.py):
@@ -269,7 +269,8 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
         bool; conflict_mask [B, B], conflict_ids [B], ret_negative_pos
         [B, K] optional: retrieval mode
     want_logits=False skips the LM head (see llama.forward); the LM loss
-    needs it.
+    needs it. max_position is llama.forward's host-side bound of
+    `positions`.
     """
     batch = _with_protein_embeds(params, cfg, batch)
     input_embeds = assemble_input_embeds(params, cfg, batch)
@@ -278,7 +279,8 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
                         seg_ids=batch.get("seg_ids"),
                         positions=batch.get("positions"),
                         kv_cache=kv_cache, lora_expert=lora_expert,
-                        want_logits=want_logits)
+                        want_logits=want_logits,
+                        max_position=max_position)
     result = {"hidden": out["hidden"]}
     for key in ("logits", "kv_cache"):
         if key in out:

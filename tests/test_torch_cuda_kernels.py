@@ -2,7 +2,9 @@
 at shapes beyond chip_smoke.py's: ESM2's full S=1026 (a ragged last key
 tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
 16-row block (d=2560) and its G=256 group; the flash forward at ragged
-lengths, every head dim, strided views, a cache shape and ESM2-35M's route.
+lengths, every head dim, strided views, a cache shape and ESM2-35M's route;
+the page move on bf16, int8 and f32 rows; the paged decode attention at
+other head dims, groups and page sizes, bf16 and int8 pools.
 
 Marked `cuda`: needs a CUDA device, and without one every test skips (the
 fixture decides, at run time). This file imports torch only (the machine
@@ -19,6 +21,8 @@ import torch
 from procyon_tpu_torch.ops import attention_rowblock as rb
 from procyon_tpu_torch.ops import flash_attention as fa
 from procyon_tpu_torch.ops import fused_mlp as fm
+from procyon_tpu_torch.ops import page_move as pm
+from procyon_tpu_torch.ops import paged_attention as pa
 from procyon_tpu_torch.ops import quant
 from procyon_tpu_torch.ops.rotary import flat_rotary_tables
 
@@ -297,3 +301,182 @@ def test_llama_prefill_and_cache_on_the_card_match_the_cpu(cuda):
     assert fa.launches - before == 4
     no_cache = llama.forward(params, cfg, tokens=tokens.to(cuda))
     assert torch.isfinite(no_cache["logits"]).all()
+
+
+# ---- page move and paged decode attention (the caption path's kernels) ----
+
+
+@pytest.mark.parametrize("dtype,tail", [
+    (torch.bfloat16, (64, 1024)),    # a bf16 page at Llama-3-8B widths
+    (torch.int8, (64, 1024)),        # an int8 page
+    (torch.float32, (64, 8)),        # an int8 pool's scale slab: 2 KiB rows
+    (torch.bfloat16, (8, 24)),       # a row shorter than one block's chunk
+])
+def test_page_move_matches_plain(cuda, dtype, tail):
+    N, M = 300, 97
+    g = torch.Generator(device=cuda).manual_seed(N + tail[1])
+    pool = torch.randint(-100, 100, (N, *tail), generator=g,
+                         device=cuda).to(dtype)
+    perm = torch.randperm(N, generator=g, device=cuda)
+    dst = perm[:M].to(torch.int32)
+    # sources repeat, and none of them is a destination
+    src = perm[M:][torch.randint(0, 40, (M,), generator=g,
+                                 device=cuda)].to(torch.int32)
+    want = pm.move_pages_direct_ref(pool.clone(), src, dst)
+    before = pm.launches
+    got = pm.move_pages_direct(pool, src, dst)
+    torch.cuda.synchronize()
+    assert pm.launches == before + 1 and got is pool
+    assert torch.equal(got, want)
+
+
+def test_page_move_refuses_what_it_cannot_copy(cuda):
+    pool = torch.zeros((8, 4, 8), dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        pm.move_pages_direct(pool, idx.long(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        pm.move_pages_direct(pool.transpose(1, 2), idx, idx)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pm.move_pages_direct(pool[:, :1, :4].contiguous(), idx, idx)
+
+
+def _paged_case(dev, B, Hq, Hkv, D, page, P, lens, quantized, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = B * P + 3
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    shape = (n_pages, page, Hkv * D)
+    if quantized:
+        k, v = (torch.randint(-127, 128, shape, generator=g,
+                              device=dev).to(torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((n_pages, page, Hkv), generator=g, device=dev)
+                  * 0.02 + 1e-3 for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    table = torch.randperm(n_pages, generator=g, device=dev)[:B * P].reshape(
+        B, P).to(torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(n_kv_heads=Hkv, head_dim=D, k_scale_pool=ks, v_scale_pool=vs)
+    return (q, k, v, table, lens), kw
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("B,Hq,Hkv,D,page,P,lens", [
+    # Llama-3-8B widths: dead slot, mid-page, page boundary, full context
+    (6, 32, 8, 128, 64, 12, [0, 1, 300, 320, 767, 768]),
+    (3, 8, 8, 128, 64, 3, [5, 64, 192]),        # no grouping (MHA)
+    (4, 16, 2, 64, 32, 5, [0, 33, 96, 160]),    # D 64, group 8, page 32
+    (2, 4, 2, 128, 128, 2, [130, 256]),         # one token per thread
+    (3, 8, 4, 64, 16, 4, [7, 16, 64]),          # 8 slices of head_dim
+])
+def test_paged_attention_matches_plain(cuda, B, Hq, Hkv, D, page, P, lens,
+                                       quantized):
+    args, kw = _paged_case(cuda, B, Hq, Hkv, D, page, P, lens, quantized,
+                           seed=B * 100 + page)
+    if (D * (1 if quantized else 2)) % (16 * (128 // page)):
+        # a head row that does not split into 16-byte slices over the block
+        with pytest.raises(ValueError, match="page_size"):
+            pa.paged_decode_attention_fullpage(*args, **kw)
+        return
+    before = pa.launches
+    out, lse = pa.paged_decode_attention_fullpage(*args, **kw)
+    ref, ref_lse = pa.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    assert _close(out, ref)
+    dead = args[4] == 0
+    assert not out[dead].any() and bool((lse[dead] == -1e30).all())
+    assert (lse[~dead] - ref_lse[~dead]).abs().max() <= 1e-3
+
+
+def test_paged_attention_refuses_what_it_cannot_take(cuda):
+    args, kw = _paged_case(cuda, 2, 8, 2, 128, 64, 2, [3, 70], False, 0)
+    q, k, v, table, lens = args
+    with pytest.raises(TypeError, match="bf16"):
+        pa.paged_decode_attention_fullpage(q.float(), k.float(), v.float(),
+                                           table, lens, **kw)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_decode_attention_fullpage(q, k, v, table.long(), lens, **kw)
+    with pytest.raises(ValueError, match="page_size"):
+        pa.paged_decode_attention_fullpage(
+            q, k[:, :48].contiguous(), v[:, :48].contiguous(), table, lens,
+            **kw)
+
+
+# ---- the caption path's calling code on the card ----
+
+
+def test_ref_backend_refuses_the_card_on_decode_and_beam_steps(cuda):
+    """attn_backend="ref" is the CPU reference: with the pool on the card a
+    one-token decode, a beam step and the beam's prefill raise instead of
+    doing the kernels' work in plain code, and launch nothing."""
+    import dataclasses
+    from procyon_tpu_torch.data import collators, datasets, instruct
+    from procyon_tpu_torch.data.text_tokenizer import load_tokenizer
+    from procyon_tpu_torch.inference import generation, paged_beam
+    from procyon_tpu_torch.models import llama, unified
+    cfg = unified.UnifiedConfig(
+        llama=llama.LlamaConfig(
+            vocab_size=4096, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+            intermediate=256, max_seq_len=512, dtype=torch.bfloat16),
+        esm=None, protein_embed_dim=64, token_projector_layers=2,
+        token_projector_hidden=64, retrieval_dim=32, dtype=torch.bfloat16)
+    ref = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, attn_backend="ref"))
+    params = unified.init_params(0, cfg, device=cuda)
+    tok = load_tokenizer(vocab_size=4096)
+    task = instruct.TaskLibrary().get("uniprot_all_caption")
+    coll = collators.CaptionCollator(
+        collators.CollatorConfig(protein_embed_dim=cfg.encoder_out_dim), tok,
+        datasets.SyntheticStore(n_proteins=8, embed_dim=64), task)
+    batch = coll([(0, 0), (1, 0)], instruct.get_prompt(task, num_examples=1),
+                 for_generation=True)
+    gen = generation.GenerationConfig(
+        max_new_tokens=4, method="beam", beam_size=4, beam_group_size=2,
+        diversity_penalty=0.8, eos_token_id=tok.spec.eos_id,
+        pad_token_id=tok.spec.pad_id)
+    state, ctx = paged_beam.paged_beam_init(params, cfg, batch, gen)
+    pcfg, pool = ctx["pcfg"], state[1]
+    before = (pm.launches, pa.launches, fa.launches)
+    with pytest.raises(ValueError, match="CPU reference"):
+        paged_beam.paged_beam_step(
+            params, ref, gen, pcfg, ctx["beam"], ctx["private"], ctx["g0"],
+            state, 0, max_position=ctx["max_len"])
+    with pytest.raises(ValueError, match="CPU reference"):
+        llama.paged_forward(
+            params["llama"], ref.llama, pool, pcfg,
+            torch.arange(pcfg.slots, device=cuda),
+            tokens=torch.zeros((pcfg.slots, 1), dtype=torch.int32,
+                               device=cuda), max_position=ctx["max_len"])
+    with pytest.raises(ValueError, match="CPU reference"):
+        paged_beam.paged_beam_init(params, ref, batch, gen)
+    assert (pm.launches, pa.launches, fa.launches) == before
+    # the kernels' backend takes the same step, through the page move
+    paged_beam.paged_beam_step(
+        params, cfg, gen, pcfg, ctx["beam"], ctx["private"], ctx["g0"],
+        state, 0, max_position=ctx["max_len"])
+    torch.cuda.synchronize()
+    assert pm.launches == before[0] + 2
+
+
+@pytest.mark.parametrize("flags", [(), ("--paged",),
+                                   ("--paged", "--shared_prefix")])
+def test_caption_cli_writes_captions_on_the_card(cuda, tmp_path, flags):
+    """The bulk caption entry point at its default device: the synthetic
+    model in bf16, every backend through the flash kernel at prefill and
+    the paged ones through the page move."""
+    import csv
+    from procyon_tpu_torch.scripts import caption_bulk
+    out = tmp_path / "captions.csv"
+    before = (fa.launches, pm.launches)
+    caption_bulk.main(["--synthetic", "--n_proteins", "6", "--batch_size",
+                       "4", "--max_new_tokens", "8", "--out", str(out),
+                       *flags])
+    rows = list(csv.reader(open(out)))
+    assert rows[0] == ["protein_id", "caption"]
+    assert [r[0] for r in rows[1:]] == [str(i) for i in range(6)]
+    assert all(r[1] for r in rows[1:])
+    assert fa.launches > before[0]
+    assert (pm.launches > before[1]) == bool(flags)

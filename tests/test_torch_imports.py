@@ -13,6 +13,8 @@ MODULES = [
     "procyon_tpu_torch.ops.flash_attention",
     "procyon_tpu_torch.ops.fused_mlp",
     "procyon_tpu_torch.ops.norms",
+    "procyon_tpu_torch.ops.page_move",
+    "procyon_tpu_torch.ops.paged_attention",
     "procyon_tpu_torch.ops.quant",
     "procyon_tpu_torch.ops.rotary",
     "procyon_tpu_torch.models._init",
@@ -29,11 +31,17 @@ MODULES = [
     "procyon_tpu_torch.data.protein_tokenizer",
     "procyon_tpu_torch.data.registry",
     "procyon_tpu_torch.data.text_tokenizer",
+    "procyon_tpu_torch.evaluate.caption",
+    "procyon_tpu_torch.evaluate.procyon_models",
     "procyon_tpu_torch.evaluate.qa",
+    "procyon_tpu_torch.inference.generation",
+    "procyon_tpu_torch.inference.kv_pool",
+    "procyon_tpu_torch.inference.paged_beam",
     "procyon_tpu_torch.inference.prompts",
     "procyon_tpu_torch.inference.retrieval_service",
     "procyon_tpu_torch.app.main",
     "procyon_tpu_torch.app.server",
+    "procyon_tpu_torch.scripts.caption_bulk",
 ]
 
 
@@ -57,7 +65,8 @@ def test_import_builds_nothing():
     happens at a wrapper's first launch on a CUDA tensor."""
     from procyon_tpu_torch.ops import _build
     from procyon_tpu_torch.ops import (attention_rowblock, flash_attention,
-                                       fused_mlp)
+                                       fused_mlp, page_move, paged_attention)
     assert attention_rowblock.launches >= 0 and fused_mlp.launches >= 0 \
-        and flash_attention.launches >= 0
+        and flash_attention.launches >= 0 and page_move.launches >= 0 \
+        and paged_attention.launches >= 0
     assert not _build._libs
