@@ -57,7 +57,40 @@ source, all started together), then:
      then the same batch twice through paged_beam_generate on that session,
      which now prefills only the tails: with the cascade and with
      cascade=False (pass B: every decode layer through the paged attention
-     kernel); captions/s, ms per beam step, peak device memory.
+     kernel); captions/s, ms per beam step, peak device memory;
+  9. holds the int4 unpack + matmul kernel against its plain version at the
+     five weight shapes of Llama-3-8B (wq / wo, wk / wv, w_gate / w_up,
+     w_down, lm_head; groups of 128) at 16 rows, and at 128 and 256 rows on
+     the w_gate shape, cycling over copies of the weight that together
+     exceed the L2 cache, as a forward finds them cold; beside it
+     `dequantize4` + `torch.matmul` (the library call) and the bf16
+     `x @ w` of the same shape; the wrapper's host time a call, and the
+     per-layer launches' time by the warps the wrapper's k split aims at;
+ 10. checks continuous-batching serving on the card (bf16, int4 weights
+     through the kernel, 2 layers, vocabulary 8192): a ContinuousBatcher
+     with chunk-free prefill, a prefix cache and 4-step rounds against the
+     same batcher on the CPU in f32 on the same weights, stepped under the
+     CPU's tokens so that every sampled row's logits can be held to a
+     tolerance whatever ties the random weights make; and the int4 logits
+     by the kernel route against the dequantize route;
+ 11. drives serving at Llama-3-8B width on the /retrieve phase's decoder:
+     16 slots, 48 requests alternating token and fused prompts behind one
+     shared 256-token instruction prefix (prefix cache on), private tails
+     of 64-256 tokens, 64 new tokens, 8-step rounds, arrivals over the
+     first 12 rounds, a 1 GiB pool of 64-token pages (max_ctx 640, so every
+     decode step walks the pages in the paged attention kernel); once with
+     bf16 weights, once with int4 weights (every matmul of at most 256 rows
+     through the int4 kernel), once more in bf16 with async_rounds, then
+     int4 and bf16 again (the host's speed drifts, and it bounds a round);
+     requests/s, output tokens/s, latency, slot utilisation, ms per round,
+     waste, peak memory;
+ 12. speculative decoding on the induced-bigram int8 checkpoint
+     (models/synthetic.py, period 16) at full width and depth: spec_k=7
+     with spec_quantum 1 and 4 against plain greedy rounds on the same
+     requests, tokens equal, acceptance per round;
+ 13. POST /generate from four concurrent HTTP clients against a
+     GenerationService over the bf16 batcher: each answer equals the
+     tokens the same prompt gets alone.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -65,9 +98,11 @@ operations over the peak for their type (989 TFLOP/s bf16, 1979 TOP/s
 int8); an attention kernel's operations count the (query, key) pairs this
 run's masks allow, and its bytes the q, k and v rows that are not padding;
 the paged attention counts the live tokens of this run's lengths, the page
-move each moved row read once and written once.
---profile adds one torch.profiler trace of a request and of five beam steps
-of each caption route.
+move each moved row read once and written once, the int4 matmul its packed
+weights, scales, x and out.
+--profile adds one torch.profiler trace of a request, of five beam steps
+of each caption route and of one 8-step decode round of the serving path
+with bf16 and with int4 weights.
 
 Stdout ends with a JSON line of per-kernel results, the card's nvidia-smi
 line, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero.
@@ -147,6 +182,29 @@ RETRIEVE_DESCRIPTIONS = (
              "function and delayed wound healing"),
     ("disgenet", "retinal degeneration with night blindness"),
 )
+# the int4 matmul at Llama-3-8B: (name, k, n, launches of it in a forward)
+INT4_GROUP = 128
+INT4_SHAPES = (("wq/wo", 4096, 4096, 64), ("wk/wv", 4096, 1024, 64),
+               ("w_gate/w_up", 4096, 14336, 64), ("w_down", 14336, 4096, 32),
+               ("lm_head", 4096, 128256, 1))
+INT4_ROWS = 16                      # a decode round's 16 slots
+INT4_MORE_ROWS = (128, 256)         # on the w_gate shape
+L2_BYTES = 50e6
+# against x @ dequantize4(qw) in bf16, which rounds q * s to bf16 before
+# the product (2^-9 relative a weight): a share of the largest output
+INT4_DEQUANT_RTOL = 4 * 2.0 ** -8
+# the serving check: card bf16 (int4 kernel route) against CPU f32 on the
+# same int4 weights, every sampled row's logits under the CPU's tokens
+SERVING_SMALL = dict(layers=2, dim=1024, heads=8, kv_heads=2,
+                     intermediate=2816, vocab=8192, slots=4, new_tokens=12,
+                     quantum=4)
+SERVING_LOGIT_ATOL = 0.25
+# scripts/bench_serving.py's default traffic with its protein-serving
+# options (shared instruction prefix, prefix cache)
+SERVING = dict(slots=16, requests=48, min_prompt=64, max_prompt=256,
+               shared_prefix=256, max_new=64, step_quantum=8,
+               arrival_rounds=12, page_size=64, pool_mb=1024)
+SPEC = dict(period=16, spec_k=7, requests=16, max_new=64, prompt=(8, 40))
 QUALITY_GATE_COS = 0.999   # bench.py's gate, printed beside cos_min
 SANITY_COS = 0.99          # random weights: asserted bound
 
@@ -255,7 +313,7 @@ def sdpa_ms(q, k, v, ok, kernel_out):
 def phase_build():
     from procyon_tpu_torch.ops import _build
     names = ("rowblock_attention", "fused_ln_mlp_int8", "flash_attention_fwd",
-             "page_move", "paged_attention")
+             "page_move", "paged_attention", "int4_matmul")
     t0 = time.perf_counter()
     errors = {}
 
@@ -1634,6 +1692,783 @@ def phase_caption(dev, service, profile=False):
         prompt_tokens=lens.tolist())
 
 
+def ahead_ms(fn, iters=20, warmup=3):
+    """CUDA-event time of `fn(i)` per call with the host kept ahead of the
+    device: a spin kernel is queued first, so the calls' launches pile up
+    behind it and the events bracket device work alone. For kernels that
+    take less time than their wrapper's Python."""
+    import torch
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)          # some 20 ms of device time
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def int4_case(dev, name, k, n, rows, g):
+    """One shape of the int4 matmul: kernel against plain, then times over
+    copies of the weight that together exceed the L2 cache."""
+    import torch
+    from procyon_tpu_torch.ops import int4_matmul as im
+    from procyon_tpu_torch.ops import quant
+    w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+    qw = quant.quantize4(w, group=INT4_GROUP)
+    x = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+    before = im.launches
+    out = im.qmatvec4(x, qw)
+    ref = im.qmatvec4_ref(x, qw)
+    torch.cuda.synchronize()
+    check(im.launches == before + 1, f"int4 {name}: the wrapper did not "
+                                     "launch")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), f"int4 {name}: "
+                                                    "non-finite")
+    check(within_tol(out, ref), f"int4 {name} rows {rows}: max_abs_err {err}")
+    check(torch.equal(out, im.qmatvec4(x, qw)), f"int4 {name}: two launches "
+                                                "differ")
+    check(torch.equal(quant.mm(x, qw), out), f"int4 {name}: quant.mm took "
+                                             "another route")
+    wb = w.to(torch.bfloat16)
+    del w
+    deq = x @ quant.dequantize4(qw, torch.bfloat16)
+    scale = deq.float().abs().max().item()
+    deq_err = (out.float() - deq.float()).abs().max().item()
+    check(deq_err <= INT4_DEQUANT_RTOL * scale,
+          f"int4 {name}: {deq_err} from the dequantize route (largest "
+          f"output {scale})")
+    n_bytes = nbytes(qw["p"], qw["s"], x, out)
+    copies = max(2, min(64, math.ceil(2.4 * L2_BYTES / n_bytes)))
+    qws = [qw] + [{"p": qw["p"].clone(), "s": qw["s"].clone()}
+                  for _ in range(copies - 1)]
+    ms = ahead_ms(lambda i: im.qmatvec4(x, qws[i % copies]))
+    plain_ms = cuda_ms(lambda: im.qmatvec4_ref(x, qw), iters=3, warmup=1)
+    library_ms = ahead_ms(
+        lambda i: x @ quant.dequantize4(qws[i % copies], torch.bfloat16),
+        iters=10)
+    n_bf16 = max(2, min(copies, math.ceil(2.4 * L2_BYTES / nbytes(wb))))
+    wbs = [wb] + [wb.clone() for _ in range(n_bf16 - 1)]
+    bf16_ms = ahead_ms(lambda i: x @ wbs[i % n_bf16])
+    ops = 2 * rows * k * n
+    bound_ms, bound_by = bound(n_bytes, ops, PEAK_BF16)
+    ksplit = im.k_split(rows, n, k // 2 // INT4_GROUP,
+                        16 if rows <= 16 else 32)
+    print(f"int4 matmul {name} k{k} n{n} rows {rows} (group {INT4_GROUP}, "
+          f"{ksplit} k-slices): max_abs_err {err:.3e} (tol {ATOL} + "
+          f"{RTOL}|plain|), {deq_err:.3e} from dequantize4 + matmul; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, dequantize4 + "
+          f"matmul {library_ms:.4f} ms, bf16 x @ w {bf16_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.2f} GFLOP; {bound_ms / ms:.2f} of the bound; "
+          f"{copies} weight copies in turn)")
+    return dict(shape=f"{name} k{k} n{n} rows {rows}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bf16_matmul_ms=bf16_ms,
+                k_slices=ksplit)
+
+
+def int4_host_and_grid(dev, g):
+    """Two things a decode round feels that one launch's device time does
+    not show: the wrapper's host time a call beside `x @ w`'s (an eager
+    forward makes 225 such calls and is bound by the host), and how the
+    per-layer shapes' times depend on the warps the wrapper asks for (its
+    k slices), as a sum over one forward's 224 per-layer launches."""
+    import torch
+    from procyon_tpu_torch.ops import int4_matmul as im
+    from procyon_tpu_torch.ops import quant
+    w = torch.randn((4096, 4096), generator=g, device=dev) / 64
+    qw, wb = quant.quantize4(w, group=INT4_GROUP), w.to(torch.bfloat16)
+    x = torch.randn((INT4_ROWS, 4096), generator=g, device=dev).to(
+        torch.bfloat16)
+    host_us = {}
+    for name, fn in (("qmatvec4", lambda: im.qmatvec4(x, qw)),
+                     ("quant.mm on an int4 leaf", lambda: quant.mm(x, qw)),
+                     ("bf16 x @ w", lambda: x @ wb)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)      # the host runs ahead of the card
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    print("int4 matmul, host time a call (200 calls queued behind a spin "
+          "kernel): " + ", ".join(f"{k} {v:.1f} us"
+                                  for k, v in host_us.items()))
+    del w, qw, wb
+    kept = im.TARGET_WARPS
+    sums = {}
+    try:
+        for per_sm in (8, 16, 24):
+            im.TARGET_WARPS = 132 * per_sm
+            total = 0.0
+            for name, k, n, per_forward in INT4_SHAPES[:4]:
+                wq = quant.quantize4(
+                    torch.randn((k, n), generator=g, device=dev) * k ** -0.5,
+                    group=INT4_GROUP)
+                xs = torch.randn((INT4_ROWS, k), generator=g,
+                                 device=dev).to(torch.bfloat16)
+                copies = max(2, min(64, math.ceil(
+                    2.4 * L2_BYTES / nbytes(wq["p"], wq["s"]))))
+                qws = [wq] + [{"p": wq["p"].clone(), "s": wq["s"].clone()}
+                              for _ in range(copies - 1)]
+                total += per_forward * ahead_ms(
+                    lambda i: im.qmatvec4(xs, qws[i % copies]))
+                del wq, qws
+            sums[per_sm] = total
+    finally:
+        im.TARGET_WARPS = kept
+    print(f"int4 matmul, the 224 per-layer launches of a {INT4_ROWS}-row "
+          "forward by the warps an SM the wrapper's k split aims at: "
+          + ", ".join(f"{k}: {v:.3f} ms" for k, v in sums.items())
+          + f" (the wrapper keeps {kept // 132})")
+    torch.cuda.empty_cache()
+
+
+def phase_int4(dev):
+    """The int4 unpack + matmul kernel at the five Llama-3-8B weight shapes
+    at a decode round's 16 rows, and at 128 and 256 rows on w_gate. The
+    entry of the JSON line is the w_gate / w_up shape (the largest of a
+    layer); the other shapes and the sum over one forward ride beside it."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    per_shape, forward = [], dict(ms=0.0, bound_ms=0.0, library_ms=0.0,
+                                  bf16_matmul_ms=0.0)
+    for name, k, n, per_forward in INT4_SHAPES:
+        r = int4_case(dev, name, k, n, INT4_ROWS, g)
+        per_shape.append(r)
+        for key in forward:
+            forward[key] += per_forward * r[key]
+        torch.cuda.empty_cache()
+    for rows in INT4_MORE_ROWS:
+        name, k, n, _ = INT4_SHAPES[2]
+        per_shape.append(int4_case(dev, name, k, n, rows, g))
+        torch.cuda.empty_cache()
+    int4_host_and_grid(dev, g)
+    n_calls = sum(c for *_, c in INT4_SHAPES)
+    print(f"int4 matmul, one forward of {INT4_ROWS} rows at Llama-3-8B "
+          f"({n_calls} launches): kernel {forward['ms']:.3f} ms, bound "
+          f"{forward['bound_ms']:.3f} ms, dequantize4 + matmul "
+          f"{forward['library_ms']:.3f} ms, bf16 x @ w "
+          f"{forward['bf16_matmul_ms']:.3f} ms (sums of the shapes' times)")
+    main = per_shape[2]
+    return dict(name="int4_matmul", route="cuda",
+                source="procyon_tpu_torch/csrc/int4_matmul.cu",
+                replaces="procyon_tpu/ops/int4_matmul.py:146",
+                **{k: main[k] for k in ("shape", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                per_shape=per_shape,
+                forward_16_rows={k: round(v, 4) for k, v in forward.items()})
+
+
+class ForwardLog:
+    """Counts the forwards a batcher runs, by patching the name
+    `llama.paged_forward` that inference/serving.py calls: rows of the
+    layers' matmuls, rows of the head's, and the block width."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from procyon_tpu_torch.inference import serving
+        self._llama = serving.llama
+        forward = serving.llama.paged_forward
+
+        def counting(*a, tokens=None, input_embeds=None, logits_at=None,
+                     **kw):
+            x = tokens if tokens is not None else input_embeds
+            B, T = x.shape[0], x.shape[1]
+            self.calls.append((B * T, B if logits_at is not None else B * T,
+                               T))
+            return forward(*a, tokens=tokens, input_embeds=input_embeds,
+                           logits_at=logits_at, **kw)
+
+        self._patch = patched(serving.llama, "paged_forward", counting)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._patch.__exit__(*exc)
+
+    def int4_launches(self, n_layers):
+        """7 matmuls a layer and the head, each through the kernel when its
+        rows are at most 256."""
+        return sum(7 * n_layers * (rows <= 256) + (head <= 256)
+                   for rows, head, _ in self.calls)
+
+    def decode_steps(self):
+        return sum(T == 1 for *_, T in self.calls)
+
+
+def serving_workload(cfg, rng, w):
+    """scripts/bench_serving.py's make_workload with --shared_prefix:
+    [(arrival round, kind, payload, max_new)], sorted by arrival. Token and
+    fused prompts alternate; every prompt starts with one shared
+    instruction prefix (tokens, or embedding rows)."""
+    import numpy as np
+    S = w["shared_prefix"]
+    shared_tok = list(map(int, rng.integers(4, cfg.vocab_size, S)))
+    shared_emb = rng.standard_normal((S, cfg.dim)).astype(np.float32) * 0.02
+    reqs = []
+    for i in range(w["requests"]):
+        plen = int(rng.integers(w["min_prompt"], w["max_prompt"] + 1))
+        arrival = int(rng.integers(0, w["arrival_rounds"]))
+        if i % 2 == 0:
+            payload = shared_tok + list(
+                map(int, rng.integers(4, cfg.vocab_size, plen)))
+            kind = "tok"
+        else:
+            tail = rng.standard_normal((plen, cfg.dim)).astype(
+                np.float32) * 0.02
+            payload = np.concatenate([shared_emb, tail])
+            kind = "fused"
+        reqs.append((arrival, kind, payload, w["max_new"]))
+    return sorted(reqs, key=lambda r: r[0])
+
+
+def drive_serving(batcher, workload):
+    """bench_serving.py's drive loop: submit per schedule between ticks.
+    Returns per-request latencies, per-tick slot utilisation, wall seconds,
+    the seconds spent in decode rounds (ticks less their admissions) and
+    the number of ticks that ran a round."""
+    import numpy as np
+    import torch
+    submit_t, finish_t, util = {}, {}, []
+    pending = list(workload)
+    admit_s = [0.0]
+    admit = batcher._admit
+
+    def timed_admit():
+        t = time.perf_counter()
+        admit()
+        admit_s[0] += time.perf_counter() - t
+
+    batcher._admit = timed_admit
+    round_s, n_rounds, ticks = 0.0, 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        while pending or batcher.live or batcher.queue or batcher._inflight:
+            while pending and pending[0][0] <= ticks:
+                _, kind, payload, mn = pending.pop(0)
+                rid = (batcher.submit(payload, max_new=mn) if kind == "tok"
+                       else batcher.submit_fused(payload, max_new=mn))
+                submit_t[rid] = time.perf_counter()
+            had_live = bool(batcher.live)
+            t1, a1 = time.perf_counter(), admit_s[0]
+            batcher.tick()
+            now = time.perf_counter()
+            if had_live:
+                round_s += (now - t1) - (admit_s[0] - a1)
+                n_rounds += 1
+            for rid in batcher.done:
+                finish_t.setdefault(rid, now)
+            util.append(len(batcher.live) / batcher.pcfg.slots)
+            ticks += 1
+            check(ticks < 100000, "the serving loop did not converge")
+    finally:
+        del batcher._admit              # the method again
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat = np.asarray([finish_t[r] - submit_t[r] for r in submit_t])
+    return lat, np.asarray(util), wall, round_s, n_rounds
+
+
+def serving_pcfg(lcfg, w):
+    """bench_serving.py's pool: a fixed byte budget of bf16 pages."""
+    from procyon_tpu_torch.inference import kv_pool
+    page_bytes = 2 * w["page_size"] * lcfg.n_kv_heads * lcfg.head_dim * 2
+    n_pages = max(int(w["pool_mb"] * 2 ** 20
+                      / (page_bytes * lcfg.n_layers)), 8)
+    max_pages = -(-(w["max_prompt"] + w["shared_prefix"] + w["max_new"]
+                    + w["step_quantum"]) // w["page_size"])
+    return kv_pool.PagedConfig(
+        n_layers=lcfg.n_layers, n_kv_heads=lcfg.n_kv_heads,
+        head_dim=lcfg.head_dim, page_size=w["page_size"], n_pages=n_pages,
+        max_pages_per_seq=max_pages, slots=w["slots"], dtype=lcfg.dtype)
+
+
+def phase_serving_small(dev):
+    """Continuous batching on the card (bf16; int4 weights through the
+    kernel; decode steps through the page-walk kernel; prompts of more than
+    16 tokens through the flash kernel) against the same batcher on the CPU
+    in f32 on the same int4 weights. Random weights put near ties among
+    8192 logits, and one flipped token departs for good, so the card is
+    stepped under the CPU's tokens: every sampled row's logits are held to
+    SERVING_LOGIT_ATOL, and the emitted tokens are then the CPU's. The
+    card's own run is printed beside it. Then the int4 logits by the
+    kernel route against the dequantize route on the card."""
+    import numpy as np
+    import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.inference import kv_pool, serving
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import (flash_attention, int4_matmul,
+                                       paged_attention, quant)
+    c = SERVING_SMALL
+    cfg = llama.LlamaConfig(
+        vocab_size=c["vocab"], dim=c["dim"], n_layers=c["layers"],
+        n_heads=c["heads"], n_kv_heads=c["kv_heads"],
+        intermediate=c["intermediate"], rope_theta=500000.0,
+        max_seq_len=1024, dtype=torch.bfloat16)
+    params = llama.quantize_params(
+        llama.init_params(SEED + 31, cfg, device=dev), cfg, bits=4,
+        group=INT4_GROUP)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = bridge.to_torch(bridge.to_numpy(params), device="cpu")
+    check(quant.is_quantized4(params["layers"]["mlp"]["w_down"])
+          and quant.is_quantized4(params["lm_head"])
+          and p32["lm_head"]["p"].dtype == torch.int8,
+          "the small check's weights are not int4")
+
+    def pcfg(dtype):
+        return kv_pool.PagedConfig(
+            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, page_size=64, n_pages=64,
+            max_pages_per_seq=8, slots=c["slots"], dtype=dtype)
+
+    rng = np.random.default_rng(SEED + 31)
+    prefix = list(map(int, rng.integers(4, cfg.vocab_size, 130)))
+    reqs = [("tok", prefix + list(map(int, rng.integers(
+        4, cfg.vocab_size, n)))) for n in (20, 75, 9)]
+    reqs += [("tok", list(map(int, rng.integers(4, cfg.vocab_size, n))))
+             for n in (12, 40)]
+    reqs.append(("fused", rng.standard_normal((50, cfg.dim)).astype(
+        np.float32) * 0.02))
+    kw = dict(step_quantum=c["quantum"], prefix_cache=True)
+
+    def submit_all(b):
+        return [b.submit(p, max_new=c["new_tokens"]) if kind == "tok"
+                else b.submit_fused(p, max_new=c["new_tokens"])
+                for kind, p in reqs]
+
+    def sampled_rows(b, logits):
+        # a decode round samples every slot: only the live ones mean
+        # anything; a prefill samples its one row
+        return sorted(b.live) if logits.shape[0] == c["slots"] else [0]
+
+    log = []
+    cpu = serving.ContinuousBatcher(p32, cfg32, pcfg(torch.float32),
+                                    device="cpu", **kw)
+    cpu_sample = cpu._sample
+
+    def recording(logits):
+        toks = cpu_sample(logits)
+        log.append((logits[sampled_rows(cpu, logits)].clone(), toks.clone()))
+        return toks
+
+    cpu._sample = recording
+    t0 = time.perf_counter()
+    rids = submit_all(cpu)
+    want = cpu.run()
+    want = [want[r] for r in rids]
+    cpu_s = time.perf_counter() - t0
+
+    errs = []
+    card = serving.ContinuousBatcher(params, cfg, pcfg(torch.bfloat16), **kw)
+
+    def replay(logits):
+        ref_logits, ref_toks = log[len(errs)]
+        rows = sampled_rows(card, logits)
+        check(ref_toks.shape[0] == logits.shape[0]
+              and ref_logits.shape[0] == len(rows),
+              f"serving check: sample {len(errs)} has another shape on the "
+              "card")
+        got = logits[rows].float().cpu()
+        check(torch.isfinite(got).all().item(), "serving check: non-finite "
+                                                "logits")
+        errs.append((got - ref_logits).abs().max().item())
+        return ref_toks.to(dev)
+
+    card._sample = replay
+    int4_matmul.launches = paged_attention.launches = 0
+    flash_attention.launches = 0
+    with ForwardLog() as flog:
+        rids = submit_all(card)
+        got = card.run()
+    got = [got[r] for r in rids]
+    torch.cuda.synchronize()
+    check(len(errs) == len(log), f"the card sampled {len(errs)} times, the "
+                                 f"CPU {len(log)}")
+    check(got == want, "under the CPU's tokens the card emitted others")
+    check(card.waste == cpu.waste
+          and card.pcache.stats == cpu.pcache.stats
+          and card.pcache.stats["hit_tokens"] > 0,
+          f"serving check: waste {card.waste} / {cpu.waste}, prefix cache "
+          f"{card.pcache.stats} / {cpu.pcache.stats}")
+    n_int4, n_walk = int4_matmul.launches, paged_attention.launches
+    check(n_int4 == flog.int4_launches(cfg.n_layers) and n_int4 > 0,
+          f"serving check: {n_int4} int4 launches, expected "
+          f"{flog.int4_launches(cfg.n_layers)}")
+    check(n_walk == cfg.n_layers * flog.decode_steps() and n_walk > 0,
+          f"serving check: {n_walk} paged attention launches for "
+          f"{flog.decode_steps()} decode steps")
+    check(flash_attention.launches > 0, "serving check: no prefill took the "
+                                        "flash kernel")
+    check(max(errs) <= SERVING_LOGIT_ATOL,
+          f"serving check: logits {max(errs)} from the CPU's")
+
+    free = serving.ContinuousBatcher(params, cfg, pcfg(torch.bfloat16), **kw)
+    rids = submit_all(free)
+    own = free.run()
+    own = [own[r] for r in rids]
+    agree = sum(a == b for o, w_ in zip(own, want) for a, b in zip(o, w_)) \
+        / sum(len(w_) for w_ in want)
+
+    # the two int4 routes on the card: the kernel, and dequantize + matmul
+    pool = kv_pool.init_pool(pcfg(torch.bfloat16), device=dev)
+    pool["page_table"][0, :2] = torch.tensor([1, 2], dtype=torch.int32,
+                                             device=dev)
+    tokens = torch.from_numpy(rng.integers(4, cfg.vocab_size, (1, 40))).to(dev)
+    slot = torch.zeros((1,), dtype=torch.long, device=dev)
+    routes = []
+    for kernel_route in (True, False):
+        for t in pool.values():
+            if t is not pool["page_table"]:
+                t.zero_()
+        before = int4_matmul.launches
+        with contextlib.ExitStack() as stack:
+            if not kernel_route:
+                stack.enter_context(patched(quant, "takes_kernel4",
+                                            lambda rows, qw: False))
+            pre, _ = llama.paged_forward(params, cfg, pool, pcfg(
+                torch.bfloat16), slot, tokens=tokens, max_position=39)
+            dec, _ = llama.paged_forward(params, cfg, pool, pcfg(
+                torch.bfloat16), slot, tokens=tokens[:, :1], max_position=40)
+        check((int4_matmul.launches > before) == kernel_route,
+              "the int4 route was not the one asked for")
+        routes.append(torch.cat([pre[0], dec[0]]))
+    route_err = (routes[0] - routes[1]).abs().max().item()
+    check(route_err <= SERVING_LOGIT_ATOL,
+          f"int4 kernel route is {route_err} from the dequantize route")
+    print(f"serving check (int4 weights, {c['layers']} layers, dim "
+          f"{c['dim']}, vocab {c['vocab']}; {len(reqs)} requests, "
+          f"{c['new_tokens']} new tokens, {c['quantum']}-step rounds, "
+          f"prefix cache): card bf16 against CPU f32 (CPU run {cpu_s:.1f} "
+          f"s), stepped under the CPU's tokens: logits of {len(errs)} "
+          f"sampled blocks within {max(errs):.4f} (asserted <= "
+          f"{SERVING_LOGIT_ATOL}), tokens, waste and prefix-cache counters "
+          f"equal; {n_int4} int4 launches = 7 x {cfg.n_layers} + 1 for each "
+          f"of {len(flog.calls)} forwards, {n_walk} paged attention "
+          f"launches = {cfg.n_layers} x {flog.decode_steps()} decode steps, "
+          f"{flash_attention.launches} flash launches; left to its own "
+          f"tokens the card agrees on {agree:.3f} of them; int4 kernel "
+          f"route against dequantize4 + matmul on the card: logits within "
+          f"{route_err:.4f}")
+
+
+def profile_round(batcher, what, untraced_ms, warm=2):
+    """torch.profiler over one decode round of `batcher` (its slots all
+    live) after `warm` untraced rounds: wall, device-busy time and kernels
+    of the round, the device's idle share of the untraced round
+    (`untraced_ms`, from the run above), and the kernels that take most of
+    the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    k = batcher.step_quantum
+
+    def run(n):
+        for _ in range(n):
+            batcher._round(k)
+        torch.cuda.synchronize()
+
+    run(warm)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run(1)                          # pays the tracer's start
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(1)
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    count = sum(e.count for e in kernels)
+    print(f"one {k}-step decode round ({what}, {len(batcher.live)} live "
+          f"slots) under torch.profiler: wall {wall:.1f} ms (tracing on), "
+          f"device busy {busy:.1f} ms in {count} kernels, {count / k:.0f} a "
+          f"step; of the untraced {untraced_ms:.1f} ms per round the device "
+          f"idles {1 - busy / untraced_ms:.2f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"    {e.self_device_time_total / 1e3 / k:8.3f} ms a step in "
+              f"{e.count / k:6.0f} launches  {e.key[:90]}")
+
+
+def phase_serving(dev, service, profile=False):
+    """The slice's main path: continuous-batching serving at Llama-3-8B
+    width on the /retrieve phase's decoder, with bf16 weights, with int4
+    weights, and in bf16 with async rounds. Returns (launches of the int4
+    and the paged attention kernel, results)."""
+    import numpy as np
+    import torch
+    from procyon_tpu_torch.inference import serving
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import (flash_attention, int4_matmul,
+                                       paged_attention)
+    w = SERVING
+    lcfg = service.cfg.llama
+    params = service.params["llama"]
+    pcfg = serving_pcfg(lcfg, w)
+    check((pcfg.n_pages, pcfg.max_ctx) == (128, 640),
+          f"the serving pool changed: {pcfg}")
+    t0 = time.perf_counter()
+    params4 = llama.quantize_params(params, lcfg, bits=4, group=INT4_GROUP)
+    torch.cuda.synchronize()
+    bytes4 = sum(t.numel() * t.element_size() for t in tree_leaves(params4))
+    bytes16 = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"serving: Llama-3-8B ({lcfg.n_layers} layers, dim {lcfg.dim}, "
+          f"vocab {lcfg.vocab_size}); {w['slots']} slots, {w['requests']} "
+          f"requests (token / fused alternating, a shared "
+          f"{w['shared_prefix']}-token prefix + {w['min_prompt']}-"
+          f"{w['max_prompt']}, {w['max_new']} new tokens), "
+          f"{w['step_quantum']}-step rounds, arrivals over "
+          f"{w['arrival_rounds']} rounds, pool {pcfg.n_pages} pages of "
+          f"{w['page_size']} x {lcfg.n_layers} layers, max_ctx "
+          f"{pcfg.max_ctx}; weights {bytes16 / 1e9:.2f} GB bf16, "
+          f"{bytes4 / 1e9:.2f} GB int4 (quantized in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    workload = serving_workload(lcfg, np.random.default_rng(SEED), w)
+    warm = serving_workload(lcfg, np.random.default_rng(SEED + 1),
+                            dict(w, requests=4, max_new=9, arrival_rounds=1))
+    results, launches, batchers, tokens = {}, {}, {}, {}
+    # bf16 and int4 run twice, in turns: the host's speed drifts within a
+    # call, and a round is bound by the host
+    for name, tree, async_rounds in (("bf16", params, False),
+                                     ("int4", params4, False),
+                                     ("bf16 async", params, True),
+                                     ("int4, again", params4, False),
+                                     ("bf16, again", params, False)):
+        b = batchers.get(name.split(",")[0])
+        if b is None:
+            b = serving.ContinuousBatcher(
+                tree, lcfg, pcfg, step_quantum=w["step_quantum"],
+                prefix_cache=True, async_rounds=async_rounds)
+            drive_serving(b, warm)      # first calls of every route
+        b.reset()
+        torch.cuda.reset_peak_memory_stats()
+        int4_matmul.launches = paged_attention.launches = 0
+        flash_attention.launches = 0
+        with ForwardLog() as flog:
+            lat, util, wall, round_s, n_rounds = drive_serving(b, workload)
+        n_int4, n_walk = int4_matmul.launches, paged_attention.launches
+        n_flash = flash_attention.launches
+        done = b.done
+        n_tokens = sum(len(v) for v in done.values())
+        check(len(done) == w["requests"]
+              and all(len(v) == w["max_new"] for v in done.values()),
+              f"serving ({name}): {len(done)} requests finished with "
+              f"{sorted({len(v) for v in done.values()})} tokens")
+        steps = flog.decode_steps()
+        check(n_walk == lcfg.n_layers * steps,
+              f"serving ({name}): {n_walk} paged attention launches for "
+              f"{steps} decode steps")
+        want4 = flog.int4_launches(lcfg.n_layers) if tree is params4 else 0
+        check(n_int4 == want4 and (n_int4 > 0) == (tree is params4),
+              f"serving ({name}): {n_int4} int4 launches, expected {want4}")
+        check(b.pcache.stats["hit_tokens"] > 0, f"serving ({name}): the "
+                                                "prefix cache never hit")
+        long_prefills = sum(rows > 256 for rows, *_ in flog.calls)
+        prefills = sum(T > 1 for *_, T in flog.calls)
+        r = dict(requests_per_sec=w["requests"] / wall,
+                 output_tokens_per_sec=n_tokens / wall,
+                 latency_p50_s=float(np.percentile(lat, 50)),
+                 latency_p95_s=float(np.percentile(lat, 95)),
+                 slot_utilisation=float(util.mean()),
+                 ms_per_round=round_s / n_rounds * 1e3, rounds=n_rounds,
+                 wall_s=wall, waste=dict(b.waste),
+                 prefix_hit_tokens=b.pcache.stats["hit_tokens"],
+                 peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 int4_launches=n_int4, paged_attention_launches=n_walk,
+                 flash_launches=n_flash, decode_steps=steps)
+        results[name] = r
+        launches[name] = (n_int4, n_walk)
+        batchers[name.split(",")[0]] = b
+        tokens[name] = dict(done)
+        print(f"  {name}: {w['requests']}/{w['requests']} requests, "
+              f"{n_tokens} tokens in {wall:.2f} s: "
+              f"{r['requests_per_sec']:.3f} requests/s, "
+              f"{r['output_tokens_per_sec']:.1f} output tokens/s, latency "
+              f"p50 {r['latency_p50_s']:.2f} s p95 "
+              f"{r['latency_p95_s']:.2f} s, slot utilisation "
+              f"{r['slot_utilisation']:.3f}, {r['ms_per_round']:.1f} ms per "
+              f"{w['step_quantum']}-step round over {n_rounds} rounds "
+              f"(ticks less their admissions), waste {b.waste}, prefix "
+              f"cache hit {b.pcache.stats['hit_tokens']} tokens / missed "
+              f"{b.pcache.stats['miss_tokens']}, peak device memory "
+              f"{r['peak_device_gib']:.2f} GiB")
+        print(f"    launches: paged attention {n_walk} = {lcfg.n_layers} x "
+              f"{steps} decode steps; flash {n_flash} over {prefills} "
+              f"prefill forwards; int4 matmul {n_int4}"
+              + (f" = (7 x {lcfg.n_layers} + 1) x "
+                 f"{len(flog.calls) - long_prefills} forwards of at most "
+                 f"256 rows + 1 (the head's row) x {long_prefills} longer "
+                 "prefills, whose layers dequantize"
+                 if tree is params4 else ""))
+    for a, b_ in (("bf16", "bf16 async"), ("bf16", "bf16, again"),
+                  ("int4", "int4, again")):
+        check(tokens[a] == tokens[b_], f"serving: the {b_} run's tokens "
+                                       f"differ from the {a} run's")
+    ms = {k: v["ms_per_round"] for k, v in results.items()}
+    print(f"  async rounds emit the synchronous tokens for all "
+          f"{w['requests']} requests, and both repeats their first run's; "
+          f"ms per round in the order run: bf16 {ms['bf16']:.1f}, int4 "
+          f"{ms['int4']:.1f}, bf16 async {ms['bf16 async']:.1f}, int4 "
+          f"{ms['int4, again']:.1f}, bf16 {ms['bf16, again']:.1f}")
+    if profile:
+        for name in ("bf16", "int4"):
+            b = batchers[name]
+            b.reset()
+            for _, kind, payload, _ in workload[:w["slots"]]:
+                b.submit(payload, max_new=w["max_new"]) if kind == "tok" \
+                    else b.submit_fused(payload, max_new=w["max_new"])
+            b._admit()
+            profile_round(b, f"{name} weights",
+                          results[name]["ms_per_round"])
+            b.reset()
+    del batchers, params4
+    torch.cuda.empty_cache()
+    return dict(int4_matmul=launches["int4"][0],
+                paged_attention_serving=launches["bf16"][1]), results
+
+
+def phase_speculative(dev):
+    """Speculative decoding on the card on the induced-bigram int8
+    checkpoint at Llama-3-8B width and depth: its top-1 margin makes greedy
+    decode the same on every route in bf16, so speculative tokens must
+    equal plain tokens, and the n-gram drafter's acceptance is a property
+    of the period-16 text."""
+    import numpy as np
+    import torch
+    from procyon_tpu_torch.inference import serving
+    from procyon_tpu_torch.models import llama, synthetic
+    c = SPEC
+    cfg = llama.llama3_8b()
+    t0 = time.perf_counter()
+    params, f = synthetic.ngram_quantized_params(cfg, period=c["period"],
+                                                 seed=SEED + 32, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pcfg = serving_pcfg(cfg, SERVING)
+    rng = np.random.default_rng(SEED + 32)
+    prompts = [list(map(int, rng.integers(4, cfg.vocab_size,
+                                          int(rng.integers(*c["prompt"])))))
+               for _ in range(c["requests"])]
+    chains = []
+    for p in prompts:
+        tok, chain = p[-1], []
+        for _ in range(c["max_new"]):
+            tok = int(f[tok])
+            chain.append(tok)
+        chains.append(chain)
+    runs = {}
+    for name, kw in (("plain, 8-step rounds", dict(step_quantum=8)),
+                     ("spec_k 7", dict(spec_k=c["spec_k"])),
+                     ("spec_k 7, spec_quantum 4",
+                      dict(spec_k=c["spec_k"], spec_quantum=4))):
+        b = serving.ContinuousBatcher(params, cfg, pcfg, **kw)
+        rids = [b.submit(p, max_new=c["max_new"]) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ForwardLog() as flog:
+            out = b.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[name] = ([out[r] for r in rids], dt, dict(b.spec_stats),
+                      len(flog.calls) - len(prompts))
+        del b
+    plain = runs["plain, 8-step rounds"][0]
+    check(plain == chains, "plain greedy decode left the checkpoint's chain")
+    print(f"speculative decoding: induced-bigram int8 checkpoint at "
+          f"Llama-3-8B width, {cfg.n_layers} layers (period {c['period']}; "
+          f"built in {build_s:.1f} s), {c['requests']} requests of "
+          f"{c['prompt'][0]}-{c['prompt'][1] - 1} prompt tokens, "
+          f"{c['max_new']} new tokens, 16 slots; plain greedy walks the "
+          f"chain f on all {c['requests']} requests")
+    out = {}
+    for name, (toks, dt, stats, forwards) in runs.items():
+        check(toks == plain, f"{name}: tokens differ from plain greedy")
+        acc = stats["emitted"] / stats["rounds"] if stats["rounds"] else None
+        out[name] = dict(seconds=dt, decode_forwards=forwards,
+                         tokens_per_sec=c["requests"] * c["max_new"] / dt,
+                         acceptance=acc)
+        print(f"  {name}: tokens equal to plain greedy; {dt:.2f} s, "
+              f"{out[name]['tokens_per_sec']:.1f} tokens/s, {forwards} "
+              f"decode forwards"
+              + (f", {stats['emitted']} tokens in {stats['rounds']} "
+                 f"slot-rounds: {acc:.3f} accepted a round (of "
+                 f"{c['spec_k'] + 1})" if acc else ""))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_generate_http(dev, service):
+    """POST /generate from four concurrent HTTP clients against a
+    GenerationService over a bf16 batcher on the serving path's decoder and
+    pool (no prefix cache: a prompt sent again would otherwise skip the
+    prefill it got the first time); each answer equals the tokens the same
+    prompt gets alone, through the same service."""
+    import numpy as np
+    from procyon_tpu_torch.app import server
+    from procyon_tpu_torch.inference import serving
+    from procyon_tpu_torch.ops import paged_attention
+    lcfg = service.cfg.llama
+    batcher = serving.ContinuousBatcher(
+        service.params["llama"], lcfg, serving_pcfg(lcfg, SERVING),
+        step_quantum=SERVING["step_quantum"])
+    rng = np.random.default_rng(SEED + 33)
+    vocab = batcher.cfg.vocab_size
+    prompts = [list(map(int, rng.integers(4, vocab, n)))
+               for n in (40, 120, 75, 18)]
+    max_new = 16
+    gen = server.GenerationService(batcher)
+    httpd = server.serve(None, 0, gen=gen, host="127.0.0.1", background=True)
+    try:
+        port = httpd.server_address[1]
+        answers = [None] * len(prompts)
+
+        def client(i):
+            answers[i] = post_json(port, "/generate", {
+                "tokens": prompts[i], "max_new": max_new})
+
+        before = paged_attention.launches
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        dt = time.perf_counter() - t0
+        check(all(a is not None and a[0] == 200 for a in answers),
+              f"/generate answered {answers}")
+        check(paged_attention.launches > before, "/generate ran no decode "
+                                                 "step on the kernel")
+        solo = [post_json(port, "/generate", {"tokens": p,
+                                              "max_new": max_new})
+                for p in prompts]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    for i, (a, s) in enumerate(zip(answers, solo)):
+        check(len(a[1]["tokens"]) == max_new, f"/generate {i}: "
+                                              f"{len(a[1]['tokens'])} tokens")
+        check(a[1]["tokens"] == s[1]["tokens"],
+              f"/generate {i}: concurrent {a[1]['tokens']} != solo "
+              f"{s[1]['tokens']}")
+    print(f"POST /generate: {len(prompts)} concurrent clients (prompts of "
+          f"{[len(p) for p in prompts]} tokens, {max_new} new tokens) "
+          f"answered in {dt:.2f} s, each equal to the same prompt alone")
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1745,6 +2580,8 @@ def main():
                  for b in PAGED_BATCHES][-1]
         if not quantized:
             kernels.append(paged)
+    kernels.append(phase_int4(dev))
+    torch.cuda.empty_cache()
     phase_small_reference(dev)
     launches, cos_min, state = phase_main_path(dev)
     rates, bench_cos = phase_throughput(dev, *state)
@@ -1755,10 +2592,19 @@ def main():
     torch.cuda.empty_cache()
     phase_caption_small(dev)
     torch.cuda.empty_cache()
+    phase_serving_small(dev)
+    torch.cuda.empty_cache()
     launches["flash_attention_fwd"], qps1, qps16, service = phase_retrieve(
         dev, profile)
     caption_launches, caption = phase_caption(dev, service, profile)
     launches.update(caption_launches)
+    torch.cuda.empty_cache()
+    serving_launches, serving_results = phase_serving(dev, service, profile)
+    launches["int4_matmul"] = serving_launches["int4_matmul"]
+    phase_generate_http(dev, service)
+    del service
+    torch.cuda.empty_cache()
+    spec = phase_speculative(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its "
@@ -1779,6 +2625,14 @@ def main():
         "page_move_launches": launches["page_move"],
         "paged_attention_launches": launches["paged_attention"],
         **caption}}))
+    print(json.dumps({"main_path": {
+        "model": "Llama-3-8B continuous-batching serving (16 slots, 48 "
+                 "requests, shared 256-token prefix, 64 new tokens, 8-step "
+                 "rounds)",
+        "int4_matmul_launches": launches["int4_matmul"],
+        "paged_attention_launches_bf16_run":
+            serving_launches["paged_attention_serving"],
+        **serving_results, "speculative": spec}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

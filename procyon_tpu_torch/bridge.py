@@ -4,7 +4,11 @@ Layout decisions live here and nowhere else:
   * dense weights keep the JAX `[in, out]` layout, so the port computes
     `x @ w` exactly as the reference does (no nn.Linear `[out, in]` flip);
   * int8-quantized leaves keep their JAX form `{"q": int8 [..., in, out],
-    "s": f32 [..., 1, out]}` (procyon_tpu/ops/quant.py);
+    "s": f32 [..., 1, out]}` (procyon_tpu/ops/quant.py), and packed int4
+    leaves theirs, `{"p": int8 [..., in/2, out], "s": f32 [..., in/group,
+    1, out]}`: the same `x @ w` layout, no transpose, bytes and scales as
+    they are (ops/quant.quantize4 of the bridged f32 weights gives the same
+    bytes);
   * the fused LN+int8 MLP kernel multiplies with k-contiguous weights
     (mma.sync's "col" B operand), so `int8_k_major` gives it the
     transposed `[out, in]` copy of a quantized weight.

@@ -1,1 +1,2 @@
-"""Model definitions over parameter trees bridged from procyon_tpu."""
+"""Model definitions over plain parameter trees (nested dicts of tensors in
+the JAX package's layout; tests bridge that package's trees with bridge.py)."""

@@ -18,7 +18,10 @@ prefix (cascade) decode and the gather routes are plain tensor code, as
 they are plain jnp in the reference. The reference's probes
 PROCYON_PAGED_KERNEL and PROCYON_SHORT_BLOCK_T are not ported.
 
-Not ported yet (ROADMAP.md): int4 weights (queue 1, remainder).
+Weights may be bf16 / f32 tensors, int8 leaves {"q", "s"} or packed int4
+leaves {"p", "s"} (`quantize_params`); `ops/quant.mm` dispatches on the
+leaf, and int4 products of at most 256 rows go through the kernel of
+ops/int4_matmul.py.
 """
 
 import dataclasses
@@ -343,16 +346,23 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
     return out
 
 
-def quantize_params(params, cfg: LlamaConfig, *, bits: int = 8):
-    """Weight-only int8 quantization of the decoder (ops/quant.py). LoRA
-    banks, norms and the embedding table stay in their dtype."""
-    if bits != 8:
-        raise NotImplementedError(
-            f"{bits}-bit weights are not ported to procyon_tpu_torch yet "
-            "(ROADMAP.md, queue 1, remainder: the int4 matvec kernel)")
+def quantize_params(params, cfg: LlamaConfig, *, bits: int = 8,
+                    group: int = 128):
+    """Weight-only quantization of the decoder (ops/quant.py). LoRA banks,
+    norms and the embedding table stay in their dtype.
+
+    bits=8: per-channel int8 (half the bf16 bytes); bits=4: group-wise
+    packed int4 (a quarter), whose matmuls of at most 256 rows run in the
+    kernel of ops/int4_matmul.py."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits is 4 or 8, got {bits}")
     out = dict(params)
-    out["layers"] = quant.quantize_tree(params["layers"])
-    out["lm_head"] = quant.quantize(params["lm_head"])
+    if bits == 4:
+        out["layers"] = quant.quantize_tree4(params["layers"], group=group)
+        out["lm_head"] = quant.quantize4(params["lm_head"], group=group)
+    else:
+        out["layers"] = quant.quantize_tree(params["layers"])
+        out["lm_head"] = quant.quantize(params["lm_head"])
     return out
 
 
@@ -488,6 +498,14 @@ def _paged_attention_with_self(q, k_new, v_new, k_pool, v_pool, table, lens,
     return out.to(q.dtype)
 
 
+def _position_bound_from_device(start, T: int) -> int:
+    """The largest position of a [B, T] block that starts at `start` [B],
+    read from the device: the host waits for the stream. Callers that know
+    their lengths pass `max_position` and never come here (the continuous
+    batcher's test patches this to raise)."""
+    return int(start.max()) + T - 1
+
+
 def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
                   tokens=None, input_embeds=None, seg_ids=None,
                   lora_expert=0, share_gsz: int = 0,
@@ -550,7 +568,7 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
     positions = start[:, None] + torch.arange(T, dtype=torch.int32,
                                               device=dev)[None, :]
     if max_position is None:
-        max_position = int(start.max()) + T - 1
+        max_position = _position_bound_from_device(start, T)
     if max_position >= cfg.max_seq_len:
         raise ValueError(f"position {max_position} >= max_seq_len "
                          f"{cfg.max_seq_len}")

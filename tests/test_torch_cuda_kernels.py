@@ -4,7 +4,9 @@ tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
 16-row block (d=2560) and its G=256 group; the flash forward at ragged
 lengths, every head dim, strided views, a cache shape and ESM2-35M's route;
 the page move on bf16, int8 and f32 rows; the paged decode attention at
-other head dims, groups and page sizes, bf16 and int8 pools.
+other head dims, groups and page sizes, bf16 and int8 pools; the int4
+matmul at the five Llama-3-8B weight shapes (n cut where it can be), rows
+1 to 256, groups of 64 and 128, and one batcher run with int4 weights.
 
 Marked `cuda`: needs a CUDA device, and without one every test skips (the
 fixture decides, at run time). This file imports torch only (the machine
@@ -21,6 +23,7 @@ import torch
 from procyon_tpu_torch.ops import attention_rowblock as rb
 from procyon_tpu_torch.ops import flash_attention as fa
 from procyon_tpu_torch.ops import fused_mlp as fm
+from procyon_tpu_torch.ops import int4_matmul as i4
 from procyon_tpu_torch.ops import page_move as pm
 from procyon_tpu_torch.ops import paged_attention as pa
 from procyon_tpu_torch.ops import quant
@@ -480,3 +483,104 @@ def test_caption_cli_writes_captions_on_the_card(cuda, tmp_path, flags):
     assert all(r[1] for r in rows[1:])
     assert fa.launches > before[0]
     assert (pm.launches > before[1]) == bool(flags)
+
+
+# ---- the int4 unpack + matmul kernel ----
+
+
+@pytest.mark.parametrize("k,n,group", [
+    (4096, 4096, 128),        # wq / wo
+    (4096, 1024, 128),        # wk / wv: 16 slices of k
+    (4096, 1792, 128),        # w_gate / w_up, n cut from 14336
+    (14336, 512, 128),        # w_down: the high half of x starts at 7168
+    (4096, 2048 + 128, 128),  # lm_head, n cut; not a multiple of 512
+    (512, 128, 64),           # groups of 64
+])
+@pytest.mark.parametrize("rows", [1, 16, 100, 256])
+def test_int4_matmul_matches_plain(cuda, k, n, group, rows):
+    g = torch.Generator(device=cuda).manual_seed(k + n + rows)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    qw = quant.quantize4(w, group=group)
+    x = torch.randn((rows, k), generator=g, device=cuda).to(torch.bfloat16)
+    before = i4.launches
+    out = i4.qmatvec4(x, qw)
+    ref = i4.qmatvec4_ref(x, qw)
+    torch.cuda.synchronize()
+    assert i4.launches == before + 1
+    assert out.shape == (rows, n) and out.dtype == torch.bfloat16
+    assert _close(out, ref)
+    assert torch.equal(out, i4.qmatvec4(x, qw))      # no atomics: repeatable
+    # through the dispatch, and against the dequantize route (another
+    # function: it rounds q * s to bf16 first), loosely
+    assert torch.equal(quant.mm(x, qw), out)
+    deq = x @ quant.dequantize4(qw, torch.bfloat16)
+    assert (out.float() - deq.float()).abs().max() \
+        <= 4 * 2.0 ** -8 * deq.float().abs().max()
+
+
+def test_int4_matmul_layer_slices_and_3d_x(cuda):
+    """A layer's slice of a stacked leaf goes in as it is; x may be
+    [B, T, k] and a column slice of a wider tensor."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((3, 512, 256), generator=g, device=cuda) * 512 ** -0.5
+    st = quant.quantize4(w, group=128)
+    wide = torch.randn((2, 5, 1024), generator=g, device=cuda).to(
+        torch.bfloat16)
+    x = wide[..., 256:768]
+    for i in range(3):
+        qw = {"p": st["p"][i], "s": st["s"][i]}
+        assert _close(i4.qmatvec4(x, qw), i4.qmatvec4_ref(x, qw))
+        assert i4.qmatvec4(x, qw).shape == (2, 5, 256)
+
+
+def test_int4_matmul_refuses_what_it_cannot_take(cuda):
+    qw = quant.quantize4(torch.randn((512, 256), device=cuda), group=128)
+    x = torch.randn((4, 512), device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        i4.qmatvec4(x, qw)
+    with pytest.raises(ValueError, match="rows"):
+        i4.qmatvec4(torch.zeros((257, 512), dtype=torch.bfloat16,
+                                device=cuda), qw)
+    with pytest.raises(ValueError, match="devices"):
+        i4.qmatvec4(x.to(torch.bfloat16),
+                    {"p": qw["p"].cpu(), "s": qw["s"].cpu()})
+    # more than 256 rows take the dequantize route in the dispatch
+    big = torch.randn((300, 512), device=cuda).to(torch.bfloat16)
+    before = i4.launches
+    assert quant.mm(big, qw).shape == (300, 256)
+    assert i4.launches == before
+
+
+def test_batcher_with_int4_weights_on_the_card(cuda):
+    """One ContinuousBatcher run on the card in bf16 with int4 weights:
+    every matmul of every forward through the int4 kernel, decode steps
+    through the page-walk kernel (max_ctx 512), tokens equal with and
+    without async rounds (the same routes, so bit for bit)."""
+    from procyon_tpu_torch.inference import kv_pool, serving
+    from procyon_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=512, n_layers=2, n_heads=4,
+                            n_kv_heads=1, intermediate=1024,
+                            max_seq_len=1024, dtype=torch.bfloat16)
+    params = llama.quantize_params(llama.init_params(0, cfg, device=cuda),
+                                   cfg, bits=4)
+    pcfg = kv_pool.PagedConfig(n_layers=2, n_kv_heads=1, head_dim=128,
+                               page_size=64, n_pages=32, max_pages_per_seq=8,
+                               slots=4, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(4, 1024, (n,), generator=g).tolist()
+               for n in (5, 40, 17, 9, 70)]
+    outs = []
+    for async_rounds in (False, True):
+        b = serving.ContinuousBatcher(params, cfg, pcfg, step_quantum=4,
+                                      prefix_cache=True,
+                                      async_rounds=async_rounds)
+        i4.launches = pa.launches = 0
+        rids = [b.submit(p, max_new=9) for p in prompts]
+        out = b.run()
+        outs.append([out[r] for r in rids])
+        assert all(len(o) == 9 for o in outs[-1])
+        assert i4.launches % (7 * cfg.n_layers + 1) == 0 and i4.launches > 0
+        assert pa.launches % cfg.n_layers == 0 and pa.launches > 0
+    assert outs[0] == outs[1]
+    with pytest.raises(ValueError, match="device"):
+        serving.ContinuousBatcher(params, cfg, pcfg, device="cpu")

@@ -12,6 +12,7 @@ MODULES = [
     "procyon_tpu_torch.ops.attention_rowblock",
     "procyon_tpu_torch.ops.flash_attention",
     "procyon_tpu_torch.ops.fused_mlp",
+    "procyon_tpu_torch.ops.int4_matmul",
     "procyon_tpu_torch.ops.norms",
     "procyon_tpu_torch.ops.page_move",
     "procyon_tpu_torch.ops.paged_attention",
@@ -23,6 +24,7 @@ MODULES = [
     "procyon_tpu_torch.models.llama",
     "procyon_tpu_torch.models.lora",
     "procyon_tpu_torch.models.pooling",
+    "procyon_tpu_torch.models.synthetic",
     "procyon_tpu_torch.models.projectors",
     "procyon_tpu_torch.models.unified",
     "procyon_tpu_torch.data.collators",
@@ -39,6 +41,8 @@ MODULES = [
     "procyon_tpu_torch.inference.paged_beam",
     "procyon_tpu_torch.inference.prompts",
     "procyon_tpu_torch.inference.retrieval_service",
+    "procyon_tpu_torch.inference.serving",
+    "procyon_tpu_torch.inference.speculative",
     "procyon_tpu_torch.app.main",
     "procyon_tpu_torch.app.server",
     "procyon_tpu_torch.scripts.caption_bulk",
@@ -65,8 +69,9 @@ def test_import_builds_nothing():
     happens at a wrapper's first launch on a CUDA tensor."""
     from procyon_tpu_torch.ops import _build
     from procyon_tpu_torch.ops import (attention_rowblock, flash_attention,
-                                       fused_mlp, page_move, paged_attention)
+                                       fused_mlp, int4_matmul, page_move,
+                                       paged_attention)
     assert attention_rowblock.launches >= 0 and fused_mlp.launches >= 0 \
         and flash_attention.launches >= 0 and page_move.launches >= 0 \
-        and paged_attention.launches >= 0
+        and paged_attention.launches >= 0 and int4_matmul.launches >= 0
     assert not _build._libs

@@ -154,8 +154,9 @@ def test_int8_weights(mode):
         tol = TOL if mode == "dequant" else dict(atol=5e-3, rtol=5e-3)
         np.testing.assert_allclose(got["logits"].numpy(),
                                    np.asarray(want["logits"]), **tol)
-    with pytest.raises(NotImplementedError, match="remainder"):
-        tllama.quantize_params(tq, tcfg, bits=4)
+    # bits is 8 or 4 (tests/test_torch_int4.py holds the int4 tree to JAX's)
+    with pytest.raises(ValueError, match="bits"):
+        tllama.quantize_params(bridge.to_torch(params), tcfg, bits=3)
 
 
 def test_lora_expert_and_lora_helpers():
