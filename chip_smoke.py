@@ -90,7 +90,30 @@ source, all started together), then:
      requests, tokens equal, acceptance per round;
  13. POST /generate from four concurrent HTTP clients against a
      GenerationService over the bf16 batcher: each answer equals the
-     tokens the same prompt gets alone.
+     tokens the same prompt gets alone;
+ 14. holds the flash backward kernels (dq; dk and dv) against their plain
+     version at Llama-3-8B widths (Hq 32, Hkv 8, D 128, causal): the
+     training shape B2 x S2048, B4 x 512 with a right-padded, a dead and a
+     packed row, and B2 x 512 with positions given; each kernel's device
+     time from torch.profiler, the pair's from CUDA events, the backward of
+     scaled_dot_product_attention beside them;
+ 15. checks one QLoRA QA train step on the card (bf16, ProCyon-Full widths
+     cut to 2 layers, vocabulary 8192 for this check only, int8 frozen
+     base, LoRA r16 x 4 with nonzero B) against the same step on the CPU in
+     f32 from the same weights: the loss, the cosine of every trainable
+     leaf's gradient and of its update, the parameters after the update;
+ 16. trains at Llama-3-8B width on the /retrieve phase's decoder quantized
+     to int8, with LoRA banks r16 x 4, the projectors and the contrastive
+     temperature trained (scripts/bench_train.py --flagship's recipe: B2 x
+     S2048, labels over the second half, one soft token, remat): two warm
+     and six timed QA steps, then the combined QA + retrieval step on
+     expert 3, warmed and timed alike; ms per step, tokens/s, MFU, peak
+     memory, first and last loss, launches of the flash kernels a step
+     (64 forward, 32 dq, 32 dkv a pass), frozen leaves unchanged and every
+     trainable leaf changed;
+ 17. runs `python -m procyon_tpu_torch.scripts.run_pretrain --synthetic true
+     --max_steps 20` in its own process on the card and restores the
+     checkpoint it wrote.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -100,9 +123,11 @@ run's masks allow, and its bytes the q, k and v rows that are not padding;
 the paged attention counts the live tokens of this run's lengths, the page
 move each moved row read once and written once, the int4 matmul its packed
 weights, scales, x and out.
+The flash backward's operations are five products over the allowed pairs
+(the dq kernel's least work three, the dk / dv kernel's four).
 --profile adds one torch.profiler trace of a request, of five beam steps
-of each caption route and of one 8-step decode round of the serving path
-with bf16 and with int4 weights.
+of each caption route, of one 8-step decode round of the serving path
+with bf16 and with int4 weights, and of one QA train step.
 
 Stdout ends with a JSON line of per-kernel results, the card's nvidia-smi
 line, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero.
@@ -207,6 +232,37 @@ SERVING = dict(slots=16, requests=48, min_prompt=64, max_prompt=256,
 SPEC = dict(period=16, spec_k=7, requests=16, max_new=64, prompt=(8, 40))
 QUALITY_GATE_COS = 0.999   # bench.py's gate, printed beside cos_min
 SANITY_COS = 0.99          # random weights: asserted bound
+# the flash backward (rows 8 and 9) at Llama-3-8B widths: the training
+# shape, and a B4 batch with padded, dead and packed rows. Kernel against
+# plain, both bf16 out of f32 sums that run in another order (and ds may
+# round to the neighbouring bf16 value): each element within GRAD_ROW_TOL
+# of the largest gradient in its own row (a query's dq, a key's dk or dv:
+# under causal attention late rows' and keys' gradients are far smaller
+# than the first ones'), GRAD_FLOOR of the tensor's largest (f32 noise
+# where ds cancels, as in a row that sees one key) and one bf16 ulp of
+# itself; and ||kernel - plain|| / ||plain|| within GRAD_FRO_TOL
+FLASH_BWD_TRAIN = dict(B=2, S=2048)
+FLASH_BWD_MASKED = dict(B=4, S=512)
+GRAD_ROW_TOL = 1e-2
+GRAD_FLOOR = 1e-4
+GRAD_FRO_TOL = 1e-2
+# QLoRA training, bench_train.py --flagship's recipe: int8 frozen base,
+# LoRA r16 x 4 on wq / wv, B2 x S2048, remat. The learning rate is 1e-3
+# after a 2-step warm-up (the bench's 1e-4 moves few bf16 values in 8
+# steps; the rate does not change the time of a step)
+TRAIN = dict(B=2, S=2048, soft_tokens=8, lora_rank=16, lora_experts=4,
+             warm=2, timed=6, lr=1e-3, warmup=2)
+# the training check: card bf16 against CPU f32, 2 layers, vocab 8192;
+# LoRA B ~ N(0, 0.02^2) so that the gradient of A does not vanish
+TRAIN_SMALL = dict(layers=2, vocab=8192, B=2, S=256)
+TRAIN_SMALL_B = 0.02
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_COS = 0.99
+TRAIN_UPDATE_COS = 0.9
+# the card's parameters after the update against the same update in f32
+# from the card's start and gradients: bf16 moments move an Adam step (lr)
+# by a few percent; an update left out is 1 lr off, a flipped one 2
+TRAIN_PARAM_STEPS = 0.25
 
 
 def fail(msg):
@@ -313,7 +369,8 @@ def sdpa_ms(q, k, v, ok, kernel_out):
 def phase_build():
     from procyon_tpu_torch.ops import _build
     names = ("rowblock_attention", "fused_ln_mlp_int8", "flash_attention_fwd",
-             "page_move", "paged_attention", "int4_matmul")
+             "page_move", "paged_attention", "int4_matmul",
+             "flash_attention_bwd")
     t0 = time.perf_counter()
     errors = {}
 
@@ -2469,6 +2526,632 @@ def phase_generate_http(dev, service):
           f"answered in {dt:.2f} s, each equal to the same prompt alone")
 
 
+def grad_errors(out, ref):
+    """A gradient of the backward kernels [B, S, H, D] against the plain
+    version's: (the largest ratio of an element's error to its allowance,
+    GRAD_ROW_TOL of its row's largest |plain| + GRAD_FLOOR of the tensor's
+    + one bf16 ulp of itself; ||out - ref|| / ||ref||). Close when the
+    first is at most 1 and the second at most GRAD_FRO_TOL."""
+    out, ref = out.float(), ref.float()
+    allow = (GRAD_ROW_TOL * ref.abs().amax(-1, keepdim=True)
+             + GRAD_FLOOR * ref.abs().max() + RTOL * ref.abs())
+    err = (out - ref).abs()
+    ratio = (err / allow.clamp_min(1e-30)).max().item()
+    fro = (err.norm() / ref.norm().clamp_min(1e-30)).item()
+    return ratio, fro
+
+
+def grad_close(out, ref):
+    ratio, fro = grad_errors(out, ref)
+    return ratio <= 1.0 and fro <= GRAD_FRO_TOL
+
+
+def device_ms_by_kernel(fn, names, reps=5):
+    """Device time a call of fn spends in each kernel whose name holds one
+    of `names`, from one torch.profiler trace of `reps` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key and e.device_type == DeviceType.CUDA:
+                found[n] = found.get(n, 0.0) \
+                    + e.self_device_time_total / 1e3 / reps
+    check(set(found) == set(names), f"the profiler saw {sorted(found)} of "
+                                    f"{list(names)}")
+    return found
+
+
+def sdpa_bwd_ms(q, k, v, do, mask):
+    """The backward of F.scaled_dot_product_attention (the library call,
+    used nowhere in the port) on the same tensors: forward + backward less
+    the forward alone. mask None is is_causal=True, else a boolean
+    [B, Sq, Skv] mask."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    kw = dict(is_causal=True) if mask is None else dict(
+        attn_mask=mask[:, None])
+    gqa = qt.shape[1] != kt.shape[1]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=gqa,
+                                              **kw)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None):
+    """One shape of the backward kernels (causal): dq, dk and dv against
+    flash_bwd_ref on the same bf16 inputs, rows and keys nothing allows
+    exactly 0; times for the pair (CUDA events, the wrapper's delta
+    pre-pass included), for each kernel (the profiler's device time), the
+    plain version and the library call; the bounds from this run's masks.
+    Returns the two kernels' entries of the JSON line."""
+    import torch
+    from procyon_tpu_torch.ops import flash_attention as fa
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    sm = D ** -0.5
+    ints = fa.mask_inputs(q, k, seg, seg, q_pos, kv_pos)
+    bounded = q_pos is None
+    out, lse = fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=sm,
+                            bounded=bounded, want_lse=True)
+    g = torch.Generator(device=q.device).manual_seed(SEED + 31)
+    do = torch.randn(out.shape, generator=g, device=q.device).to(
+        torch.bfloat16)
+
+    def kernel():
+        return fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=True,
+                            sm_scale=sm, bounded=bounded)
+
+    def plain():
+        return fa.flash_bwd_ref(q, k, v, *ints, out, lse, do, causal=True,
+                                sm_scale=sm)
+
+    before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check((fa.launches_bwd_dq, fa.launches_bwd_dkv)
+          == (before[0] + 1, before[1] + 1),
+          f"{name}: the wrapper did not launch both kernels")
+    errs, held = {}, {}
+    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[what] = (a.float() - b.float()).abs().max().item()
+        held[what] = grad_errors(a, b)
+        check(torch.isfinite(a.float()).all().item(),
+              f"{name}: {what} not finite")
+        check(grad_close(a, b), f"{name}: {what} max_abs_err {errs[what]}, "
+                                f"(error / allowance, relative norm) "
+                                f"{held[what]}")
+    dq, dk, dv = got
+    if seg is None:
+        # the check must see a fault confined to the last tile, where the
+        # gradients are smallest: the last 64 queries' dq lost, the last 64
+        # keys' dv doubled (they get their whole value from the diagonal
+        # tile). Beside it, the error against GRAD_ROW_TOL of the tensor's
+        # largest |plain| (+ one ulp) alone, without the rows' own scale
+        for what, i, f in (("dq of the last 64 queries lost", 0, 0.0),
+                           ("dv of the last 64 keys doubled", 2, 2.0)):
+            a = torch.cat([got[i][:, :-64], f * got[i][:, -64:]], 1).float()
+            b = want[i].float()
+            ratio, fro = grad_errors(a, b)
+            whole = ((a - b).abs() / (GRAD_ROW_TOL * b.abs().max()
+                                      + RTOL * b.abs())).max().item()
+            check(not grad_close(a, b), f"{name}: the check passes a fault "
+                                        f"in the last tile: {what}")
+            print(f"{name}, a fault, {what}: error / allowance {ratio:.2f}, "
+                  f"relative norm {fro:.2e} (caught); against "
+                  f"{GRAD_ROW_TOL} of the tensor's largest alone {whole:.2f}")
+    dead_q = (lse <= -1e29).permute(0, 2, 1)                 # [B, S, Hq]
+    check(not dq[ints[0] == 0].any().item() and not dq[dead_q].any().item()
+          and not dk[ints[1] == 0].any().item()
+          and not dv[ints[1] == 0].any().item(),
+          f"{name}: a padded or dead row's gradient is not 0")
+    pair_ms, plain_ms = paired_ms(kernel, plain)
+    split = device_ms_by_kernel(kernel, ("flash_bwd_dq", "flash_bwd_dkv"))
+    pairs, ok = allowed_pairs(ints[0], ints[1], True, ints[2], ints[3])
+    library_ms = sdpa_bwd_ms(q, k, v, do, None if seg is None else ok)
+    # inputs each kernel reads: the live q, do, k, v rows, lse and delta
+    # (f32 [B, Hq, S]) and the four int arrays
+    n_in = (live_bytes(q, ints[0]) + live_bytes(do, ints[0])
+            + live_bytes(k, ints[1]) + live_bytes(v, ints[1])
+            + 2 * nbytes(lse) + nbytes(*ints))
+    flop = 2 * D * Hq * pairs                # one product over the pairs
+    b_dq = bound(n_in + nbytes(dq), 3 * flop, PEAK_BF16)
+    b_dkv = bound(n_in + nbytes(dk, dv), 4 * flop, PEAK_BF16)
+    b_all = bound(n_in - nbytes(lse) + nbytes(out, dq, dk, dv), 5 * flop,
+                  PEAK_BF16)
+    shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D}"
+    print(f"{name} {shape} causal{' bounded' if bounded else ''}: "
+          f"max_abs_err dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
+          f"{errs['dv']:.3e}; largest error / allowance ({GRAD_ROW_TOL} "
+          f"row max|plain| + {GRAD_FLOOR} max|plain| + {RTOL}|plain|) dq "
+          f"{held['dq'][0]:.4f} dk {held['dk'][0]:.4f} dv "
+          f"{held['dv'][0]:.4f} (<= 1), ||kernel - plain|| / ||plain|| dq "
+          f"{held['dq'][1]:.3e} dk {held['dk'][1]:.3e} dv "
+          f"{held['dv'][1]:.3e} (<= {GRAD_FRO_TOL}); both kernels {pair_ms:.4f} ms (events, with the "
+          f"delta pre-pass), dq {split['flash_bwd_dq']:.4f} ms, dkv "
+          f"{split['flash_bwd_dkv']:.4f} ms (device); plain {plain_ms:.4f} "
+          f"ms, sdpa backward {library_ms:.4f} ms; bound of the backward "
+          f"{b_all[0]:.4f} ms by {b_all[1]} ({5 * flop / 1e9:.1f} GFLOP "
+          f"over {pairs} allowed pairs), dq {b_dq[0]:.4f} ms, dkv "
+          f"{b_dkv[0]:.4f} ms")
+    common = dict(route="cuda",
+                  source="procyon_tpu_torch/csrc/flash_attention_bwd.cu",
+                  shape=shape, pair_ms=pair_ms, plain_ms=plain_ms,
+                  library_ms=library_ms, whole_bound_ms=b_all[0],
+                  plain_and_library_of="the whole backward (dq, dk, dv)")
+    return [dict(name="flash_attention_bwd_dq",
+                 replaces="procyon_tpu/ops/flash_attention.py:388",
+                 max_abs_err=errs["dq"], ms=split["flash_bwd_dq"],
+                 bound_ms=b_dq[0], bound_by=b_dq[1], **common),
+            dict(name="flash_attention_bwd_dkv",
+                 replaces="procyon_tpu/ops/flash_attention.py:443",
+                 max_abs_err=max(errs["dk"], errs["dv"]),
+                 ms=split["flash_bwd_dkv"], bound_ms=b_dkv[0],
+                 bound_by=b_dkv[1], **common)]
+
+
+def phase_flash_bwd(dev):
+    """Kernel rows 8 and 9 at Llama-3-8B widths (Hq 32, Hkv 8, D 128,
+    causal): the training shape B2 x S2048; B4 x 512 with a right-padded,
+    a dead and a packed row; B2 x 512 with positions given (a left-padded
+    row), which the kernels may not bound. Returns the training shape's
+    entries."""
+    import torch
+    Hq, Hkv, D = (FLASH_SHAPE[k] for k in ("Hq", "Hkv", "D"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def qkv(B, S):
+        return [torch.randn((B, S, H, D), generator=g, device=dev).to(
+            torch.bfloat16) for H in (Hq, Hkv, Hkv)]
+
+    entries = flash_bwd_case("flash bwd (training shape)",
+                             *qkv(FLASH_BWD_TRAIN["B"], FLASH_BWD_TRAIN["S"]),
+                             None)
+    B, S = FLASH_BWD_MASKED["B"], FLASH_BWD_MASKED["S"]
+    seg = torch.ones((B, S), dtype=torch.int32, device=dev)
+    seg[1, S - 150:] = 0              # right-padded
+    seg[2] = 0                        # dead
+    seg[3, S // 2 + 7:] = 2           # a second packed segment
+    flash_bwd_case("flash bwd (padded, dead, packed rows)", *qkv(B, S), seg)
+    seg = torch.ones((2, S), dtype=torch.int32, device=dev)
+    seg[1, :100] = 0                  # a left-padded prompt
+    pos = torch.stack([torch.arange(S, device=dev) + 37,
+                       (torch.arange(S, device=dev) - 100).clamp_min(0)]).to(
+        torch.int32)
+    flash_bwd_case("flash bwd (positions given)", *qkv(2, S), seg,
+                   q_pos=pos, kv_pos=pos)
+    return entries
+
+
+def train_flops_per_token(lcfg, seq, *, frozen_base, remat):
+    """scripts/bench_train.py's count, restated: matmul weights P (layers
+    and lm_head); forward 2P, dL/dx 2P, dL/dW 2P for trained weights only,
+    remat's recompute 2P; attention 2 * 2 * S * d a token and layer, halved
+    for causality, in the forward, the backward and the recompute."""
+    d, hd = lcfg.dim, lcfg.head_dim
+    per_layer = (d * lcfg.n_heads * hd + 2 * d * lcfg.n_kv_heads * hd
+                 + lcfg.n_heads * hd * d + 3 * d * lcfg.intermediate)
+    P = lcfg.n_layers * per_layer + d * lcfg.vocab_size
+    factor = 2 + 2 + (0 if frozen_base else 2) + (2 if remat else 0)
+    attn = 2 * seq * d * lcfg.n_layers
+    return factor * P + (1 + 1 + (1 if remat else 0)) * attn
+
+
+def train_batch(B, S, vocab, embed_dim, seed):
+    """bench_train.py --flagship's batch: random tokens, labels masked over
+    the first half, one soft token at position 2 (8 protein embeddings),
+    the retrieval position at the last token."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    U = TRAIN["soft_tokens"]
+    soft_map = np.full((B, S), -1, np.int32)
+    soft_map[:, 2] = np.arange(B) % U
+    labels = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    labels[:, :S // 2] = -100
+    return {"input_ids": rng.integers(4, vocab, (B, S)).astype(np.int32),
+            "seg_ids": np.ones((B, S), np.int32),
+            "positions": np.broadcast_to(np.arange(S, dtype=np.int32),
+                                         (B, S)).copy(),
+            "soft_map": soft_map,
+            "protein_embeds": rng.standard_normal(
+                (U, embed_dim)).astype(np.float32),
+            "labels": labels,
+            "ret_pos": np.full((B,), S - 1, np.int32),
+            "ret_target_pos": (np.arange(B) % U).astype(np.int32),
+            "ret_valid": np.ones((B,), bool)}
+
+
+def qlora_config(cfg):
+    """cfg with LoRA r16 x 4 on wq / wv and remat on (the one-card recipe
+    of bench_train.py --flagship)."""
+    from procyon_tpu_torch.models import lora
+    return dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, remat=True, lora=lora.LoRAConfig(
+            rank=TRAIN["lora_rank"], num_experts=TRAIN["lora_experts"],
+            dtype=cfg.llama.dtype)))
+
+
+def qlora_params(params, cfg, g, b_scale=0.0):
+    """params with LoRA banks added to the decoder (A ~ N(0, 1/dim); B 0,
+    or N(0, b_scale^2) for a check where the gradient of A must not vanish)
+    and the decoder's matrices quantized to int8."""
+    import torch
+    from procyon_tpu_torch.models import llama, lora
+    lcfg = cfg.llama
+    layers = dict(params["llama"]["layers"])
+    for name, out in (("lora_wq", lcfg.n_heads * lcfg.head_dim),
+                      ("lora_wv", lcfg.n_kv_heads * lcfg.head_dim)):
+        banks = [lora.init_params(g, lcfg.lora, lcfg.dim, out,
+                                  device=g.device)
+                 for _ in range(lcfg.n_layers)]
+        layers[name] = {k: torch.stack([b[k] for b in banks])
+                        for k in ("A", "B")}
+        if b_scale:
+            layers[name]["B"] = (b_scale * torch.randn(
+                layers[name]["B"].shape, generator=g, device=g.device)).to(
+                lcfg.dtype)
+    decoder = llama.quantize_params(dict(params["llama"], layers=layers),
+                                    lcfg, bits=8)
+    return dict(params, llama=decoder)
+
+
+def trainable_grads(opt, state, cfg, batch):
+    """(loss, {path: gradient}) of the QA loss on expert 0, as the step
+    computes them, over the state's trainable leaves."""
+    from procyon_tpu_torch.training import train_step as ts
+    loss, _, items, grads = ts.value_and_grad(
+        opt, state, True,
+        lambda p: ts.lm_loss_fn(p, cfg, batch, 1.0, lora_expert=0))
+    return loss, {"/".join(p): g for (p, _), g in zip(items, grads)}
+
+
+def leaves_by_path(tree):
+    """{path: leaf as f32 on the CPU}, a copy."""
+    from procyon_tpu_torch.training import optimizer as topt
+    return {"/".join(p): t.detach().float().cpu().clone()
+            for p, t in topt.tree_items(tree)}
+
+
+def phase_train_small(dev):
+    """One QA train step (make_train_step(..., "qa", frozen_base=True)) on
+    the card in bf16 against the same step on the CPU in f32 from the same
+    weights: ProCyon-Full widths cut to 2 layers and vocab 8192, an int8
+    frozen base, LoRA r16 x 4 with nonzero B. Checks the loss, the cosine of
+    every trainable leaf's gradient and update against the CPU's, and the
+    card's parameters after the update against the same update computed in
+    f32 from the card's start and gradients."""
+    import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.app.main import procyon_full_config
+    from procyon_tpu_torch.models import unified
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.training import optimizer as topt
+    from procyon_tpu_torch.training import train_step as ts
+    s = TRAIN_SMALL
+    full = procyon_full_config(s["layers"])
+    cfg = qlora_config(dataclasses.replace(full, llama=dataclasses.replace(
+        full.llama, vocab_size=s["vocab"])))
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    params = qlora_params(unified.init_params(SEED + 32, cfg, device=dev),
+                          cfg, g, b_scale=TRAIN_SMALL_B)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                llama=dataclasses.replace(
+                                    cfg.llama, dtype=torch.float32,
+                                    lora=dataclasses.replace(
+                                        cfg.llama.lora,
+                                        dtype=torch.float32)))
+    p32 = bridge.to_torch(bridge.to_numpy(params), device="cpu")
+    batch = train_batch(s["B"], s["S"], s["vocab"], cfg.protein_embed_dim,
+                        SEED + 33)
+    ocfg = topt.OptimizerConfig(lr=TRAIN["lr"], warmup_steps=0,
+                                total_steps=1000)
+    runs, seen = {}, {}
+    t0 = time.perf_counter()
+    for where, c, p in (("card", cfg, params), ("cpu", cfg32, p32)):
+        opt = topt.build_optimizer(ocfg)
+        state = ts.init_train_state(
+            p, opt, trainable_predicate=ts.lora_trainable_predicate)
+        if where == "card":
+            update, start32 = opt.update, topt.tree_map(
+                lambda t: t.detach().float().cpu().clone(), state["params"])
+
+            def record(items, grads, st):
+                # the gradients the card's step hands its optimizer
+                seen.update({"/".join(q): g.detach().float().cpu()
+                             for (q, _), g in zip(items, grads)})
+                update(items, grads, st)
+            opt.update = record
+        b = ts.batch_to_device(batch, dev if where == "card" else "cpu")
+        before = fa.launches_bwd_dq
+        loss, grads = trainable_grads(opt, state, c, b)
+        if where == "card":
+            check(fa.launches_bwd_dq - before == s["layers"],
+                  "small training check: the card run did not take the "
+                  "backward kernels")
+        start = leaves_by_path(state["params"])
+        state, m = ts.make_train_step(c, opt, "qa", frozen_base=True)(state,
+                                                                      b)
+        check(abs(float(m["loss"]) - float(loss)) <= 1e-6 * abs(float(loss))
+              + 1e-6, "the step's loss differs from the loss function's")
+        after = leaves_by_path(state["params"])
+        runs[where] = (float(loss), {k: v.float().cpu()
+                                     for k, v in grads.items()},
+                       start, after)
+    cpu_s = time.perf_counter() - t0
+    (l_gpu, g_gpu, s_gpu, a_gpu), (l_cpu, g_cpu, s_cpu, a_cpu) = \
+        runs["card"], runs["cpu"]
+    check(abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu),
+          f"small training: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    cos_min, upd_min, worst = 1.0, 1.0, 0.0
+    lr = TRAIN["lr"]
+    for k, gc in g_cpu.items():
+        gg = g_gpu[k]
+        check(torch.isfinite(gg).all().item(), f"{k}: gradient not finite")
+        # a leaf the QA loss does not reach has no gradient on either side
+        if not gc.any():
+            check(not gg.any(), f"{k}: a gradient on the card only")
+            continue
+        cos = torch.nn.functional.cosine_similarity(
+            gg.flatten(), gc.flatten(), dim=0).item()
+        check(cos >= TRAIN_GRAD_COS, f"{k}: gradient cosine {cos}")
+        cos_min = min(cos_min, cos)
+        du_gpu, du_cpu = a_gpu[k] - s_gpu[k], a_cpu[k] - s_cpu[k]
+        upd = torch.nn.functional.cosine_similarity(
+            du_gpu.flatten(), du_cpu.flatten(), dim=0).item()
+        check(upd >= TRAIN_UPDATE_COS, f"{k}: update cosine {upd}")
+        upd_min = min(upd_min, upd)
+    opt32 = topt.build_optimizer(ocfg)
+    items32 = opt32.trainable_items(start32)
+    opt32.update(items32, [seen["/".join(q)] for q, _ in items32],
+                 opt32.init(start32))
+    for q, want in items32:
+        # bf16 rounds the card's value (half an ulp, at most 2^-8 of it)
+        k = "/".join(q)
+        dev_ = (a_gpu[k] - want).abs() - RTOL * want.abs()
+        worst = max(worst, dev_.max().item() / lr)
+    check(worst <= TRAIN_PARAM_STEPS, f"a parameter after the update is "
+                                      f"{worst} lr from the f32 update of "
+                                      f"the card's gradients")
+    print(f"training check (ProCyon-Full widths, {s['layers']} layers, vocab "
+          f"{s['vocab']} for this check only, int8 base, LoRA "
+          f"r{TRAIN['lora_rank']}x{TRAIN['lora_experts']} with B ~ "
+          f"N(0, {TRAIN_SMALL_B}^2), B{s['B']} x S{s['S']}, one QA step at lr "
+          f"{lr}): loss card bf16 {l_gpu:.5f}, CPU f32 {l_cpu:.5f} (rtol "
+          f"{TRAIN_LOSS_RTOL}); gradient cosine min {cos_min:.6f} (>= "
+          f"{TRAIN_GRAD_COS}), update cosine min {upd_min:.4f} (>= "
+          f"{TRAIN_UPDATE_COS}), parameters after the update at most "
+          f"{worst:.4f} lr beyond bf16 rounding from the f32 update of the "
+          f"card's gradients (<= {TRAIN_PARAM_STEPS}); both runs "
+          f"{cpu_s:.1f} s")
+
+
+def frozen_checksums(tree):
+    """Bit checksums of every frozen leaf (int64 sums of its bits)."""
+    import torch
+    from procyon_tpu_torch.training import optimizer as topt
+    out = {}
+    for path, leaf in topt.tree_items(tree):
+        parts = leaf.values() if isinstance(leaf, dict) else [leaf]
+        sums = []
+        for t in parts:
+            bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+                t.element_size()]
+            sums.append(t.view(bits).sum(dtype=torch.int64))
+        out["/".join(path)] = torch.stack(sums).cpu()
+    return out
+
+
+def timed_steps(step, state, batch, n):
+    """n steps back to back; (ms a step on the host clock, the last
+    metrics, launches of rows 3, 8 and 9 a step)."""
+    import torch
+    from procyon_tpu_torch.ops import flash_attention as fa
+    counts = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    per = [(c1 - c0) / n for c0, c1 in zip(
+        counts, (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv))]
+    check(math.isfinite(loss), f"training loss {loss}")
+    return ms, m, per
+
+
+def profile_train_step(step, state, batch, untraced_ms):
+    """torch.profiler over one QA step (after a traced one, which pays the
+    tracer's start): wall, device-busy time and kernels of the step, the
+    device's idle share of the untraced step (`untraced_ms`, from the
+    timed steps), and the kernels that take most of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        step(state, batch)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"one QA train step under torch.profiler: wall {wall:.1f} ms "
+          f"(tracing on), device busy {busy:.1f} ms in "
+          f"{sum(e.count for e in kernels)} kernels; of the untraced "
+          f"{untraced_ms:.1f} ms the device idles "
+          f"{1 - busy / untraced_ms:.2f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms in "
+              f"{e.count:5d} launches  {e.key[:90]}")
+
+
+def phase_train(dev, service, profile=False):
+    """The slice's main path: QLoRA training at full Llama-3-8B width on
+    the /retrieve phase's decoder, quantized to int8, with LoRA banks
+    r16 x 4, the projectors and the contrastive temperature trained
+    (train_step.lora_trainable_predicate), bench_train.py --flagship's
+    B2 x S2048 batch, remat on: two warm and six timed QA steps
+    (make_train_step(..., "qa", frozen_base=True)), then the combined QA +
+    retrieval step on expert 3 (make_combined_step), warmed and timed the
+    same way. Returns the launches of rows 3, 8 and 9 over the run."""
+    import torch
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.training import combined_step as tcs
+    from procyon_tpu_torch.training import optimizer as topt
+    from procyon_tpu_torch.training import train_step as ts
+    t = TRAIN
+    cfg = qlora_config(service.cfg)
+    lcfg = cfg.llama
+    g = torch.Generator(device=dev).manual_seed(SEED + 34)
+    params = qlora_params(service.params, cfg, g)
+    opt = topt.build_optimizer(topt.OptimizerConfig(
+        lr=t["lr"], warmup_steps=t["warmup"], total_steps=1000))
+    state = ts.init_train_state(
+        params, opt, trainable_predicate=ts.lora_trainable_predicate)
+    del params
+    n_train = sum(x.numel() for _, x in topt.tree_items(state["params"]))
+    start = {"/".join(p): x.clone() for p, x in
+             topt.tree_items(state["params"])}
+    frozen = frozen_checksums(state["frozen"])
+    batch = ts.batch_to_device(train_batch(t["B"], t["S"], lcfg.vocab_size,
+                                           cfg.protein_embed_dim, SEED + 35),
+                               dev)
+    fpt = train_flops_per_token(lcfg, t["S"], frozen_base=True, remat=True)
+    tokens = t["B"] * t["S"]
+    supervised = int((batch["labels"][:, 1:] != -100).sum().item())
+    print(f"training: Llama-3-8B (int8 frozen base, {lcfg.n_layers} layers) "
+          f"+ LoRA r{t['lora_rank']}x{t['lora_experts']} on wq / wv, "
+          f"{n_train / 1e6:.1f} M trainable parameters, B{t['B']} x "
+          f"S{t['S']} ({supervised} supervised tokens), remat; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card "
+          f"with the /retrieve service's bf16 weights")
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    qa = ts.make_train_step(cfg, opt, "qa", frozen_base=True)
+    results = {}
+    state, m = qa(state, batch)
+    first_loss = float(m["loss"])
+    combined = tcs.make_combined_step(cfg, opt, expert_override=3,
+                                      frozen_base=True)
+
+    def joint(s, b):
+        return combined(s, {"qa": b, "retrieval": b})
+
+    for name, step, passes in (("qa", qa, 1), ("combined", joint, 2)):
+        timed_steps(step, state, batch, t["warm"] - (name == "qa"))
+        ms, m, per = timed_steps(step, state, batch, t["timed"])
+        check(per == [64 * passes, 32 * passes, 32 * passes],
+              f"{name} step: launches of rows 3, 8, 9 a step {per}, "
+              f"expected {[64 * passes, 32 * passes, 32 * passes]}")
+        mfu = fpt * tokens * passes / (ms / 1e3) / PEAK_BF16
+        results[name] = dict(ms_per_step=ms,
+                             tokens_per_sec=tokens * passes / (ms / 1e3),
+                             supervised_tokens_per_sec=supervised * passes
+                             / (ms / 1e3),
+                             mfu=mfu, last_loss=float(m["loss"]),
+                             flash_fwd_launches_per_step=per[0],
+                             flash_bwd_dq_launches_per_step=per[1],
+                             flash_bwd_dkv_launches_per_step=per[2])
+        print(f"  {name} step: {ms:.1f} ms a step (host clock, mean of "
+              f"{t['timed']}), {tokens * passes / (ms / 1e3):.0f} tokens/s, "
+              f"{supervised * passes / (ms / 1e3):.0f} supervised tokens/s, "
+              f"MFU {mfu:.1%} ({fpt * tokens * passes:.3e} FLOP a step at "
+              f"{PEAK_BF16:.3g}); last loss {float(m['loss']):.4f}; "
+              f"launches a step: flash fwd {per[0]:g}, dq {per[1]:g}, dkv "
+              f"{per[2]:g}")
+    results["qa"]["first_loss"] = first_loss
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_bwd_dq": fa.launches_bwd_dq,
+                "flash_attention_bwd_dkv": fa.launches_bwd_dkv}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    results["peak_gib"] = peak
+    print(f"  peak memory {peak:.1f} GiB (the service's bf16 weights "
+          f"included); loss first {first_loss:.4f}, last "
+          f"{results['combined']['last_loss']:.4f}")
+    after = frozen_checksums(state["frozen"])
+    check(all(torch.equal(frozen[k], after[k]) for k in frozen),
+          "a frozen leaf changed")
+    unchanged = [k for k, x in ((("/".join(p)), x) for p, x in
+                                topt.tree_items(state["params"]))
+                 if torch.equal(x, start[k])]
+    check(not unchanged, f"trainable leaves that did not change: {unchanged}")
+    if profile:
+        profile_train_step(qa, state, batch, results["qa"]["ms_per_step"])
+    return launches, results
+
+
+def phase_train_cli(dev):
+    """run_pretrain --synthetic true --max_steps 20 on the card, in its own
+    process: exit 0, final_step 20 on its JSON line, and its last
+    checkpoint restores onto a live state of the same run's setup."""
+    import tempfile
+
+    import torch
+    from procyon_tpu_torch.scripts import run_pretrain
+    from procyon_tpu_torch.training import checkpointing
+    from procyon_tpu_torch.training import optimizer as topt
+    from procyon_tpu_torch.training import train_step as ts
+    steps = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "run")
+        argv = ["--synthetic", "true", "--max_steps", str(steps),
+                "--output_dir", out_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "procyon_tpu_torch.scripts.run_pretrain",
+             *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"run_pretrain exited {proc.returncode}"
+                                    f": {proc.stderr[-3000:]}")
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(last.get("final_step") == steps, f"run_pretrain said {last}")
+        path = checkpointing.latest_checkpoint(out_dir)
+        check(path is not None and path.endswith(f"checkpoint-{steps}"),
+              f"last checkpoint {path}")
+        run = run_pretrain.setup(argv)
+        like = ts.init_train_state(run["params"], run["optimizer"])
+        state = checkpointing.restore_checkpoint(path, like)
+        leaves = [x for _, x in topt.tree_items(state["params"])]
+        check(state["step"] > 0
+              and state["opt_state"]["count"] == state["step"]
+              and all(x.device.type == "cuda" for x in leaves)
+              and all(torch.isfinite(x.float()).all().item() for x in leaves),
+              "the restored checkpoint is not a live state on the card")
+        changed = sum(not torch.equal(a, b) for (_, a), (_, b) in zip(
+            topt.tree_items(state["params"]),
+            topt.tree_items(like["params"])))
+        check(changed > 0, "the checkpoint holds the initial parameters")
+        tstate = checkpointing.load_training_state(path)
+        check(tstate["global_step"] == steps, f"training state {tstate}")
+    print(f"run_pretrain --synthetic true --max_steps {steps}: exit 0 in "
+          f"{wall:.1f} s, final_step {last['final_step']}; checkpoint-{steps} "
+          f"restored onto the card ({state['step']} updates, {changed} of "
+          f"{len(leaves)} leaves changed from the initial state)")
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2581,6 +3264,7 @@ def main():
         if not quantized:
             kernels.append(paged)
     kernels.append(phase_int4(dev))
+    kernels.extend(phase_flash_bwd(dev))
     torch.cuda.empty_cache()
     phase_small_reference(dev)
     launches, cos_min, state = phase_main_path(dev)
@@ -2594,6 +3278,8 @@ def main():
     torch.cuda.empty_cache()
     phase_serving_small(dev)
     torch.cuda.empty_cache()
+    phase_train_small(dev)
+    torch.cuda.empty_cache()
     launches["flash_attention_fwd"], qps1, qps16, service = phase_retrieve(
         dev, profile)
     caption_launches, caption = phase_caption(dev, service, profile)
@@ -2602,9 +3288,16 @@ def main():
     serving_launches, serving_results = phase_serving(dev, service, profile)
     launches["int4_matmul"] = serving_launches["int4_matmul"]
     phase_generate_http(dev, service)
+    torch.cuda.empty_cache()
+    train_launches, train = phase_train(dev, service, profile)
+    launches["flash_attention_bwd_dq"] = train_launches[
+        "flash_attention_bwd_dq"]
+    launches["flash_attention_bwd_dkv"] = train_launches[
+        "flash_attention_bwd_dkv"]
     del service
     torch.cuda.empty_cache()
     spec = phase_speculative(dev)
+    phase_train_cli(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its "
@@ -2633,6 +3326,13 @@ def main():
         "paged_attention_launches_bf16_run":
             serving_launches["paged_attention_serving"],
         **serving_results, "speculative": spec}}))
+    print(json.dumps({"main_path": {
+        "model": "Llama-3-8B QLoRA training (int8 frozen base, LoRA r16x4, "
+                 "B2 x S2048, remat)",
+        "flash_fwd_launches": train_launches["flash_attention_fwd"],
+        "flash_bwd_dq_launches": launches["flash_attention_bwd_dq"],
+        "flash_bwd_dkv_launches": launches["flash_attention_bwd_dkv"],
+        **train}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ Layout decisions live here and nowhere else:
 
 Leaves may be numpy arrays or anything `np.asarray` accepts (a JAX array
 converts without this module importing jax). bfloat16 leaves (ml_dtypes
-bfloat16 in numpy) cross bit-exactly through an int16 view.
+bfloat16 in numpy) cross bit-exactly through an int16 view. A JAX train
+state (params, optax Adam moments, step) maps to the port's with
+`train_state_to_torch`; `to_numpy` brings the port's trees back.
 """
 
 from typing import Any
@@ -46,6 +48,70 @@ def to_torch(tree: Any, *, device=None) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device=device) for v in tree)
     return _leaf_to_tensor(tree, device)
+
+
+def _is_masked(x) -> bool:
+    """optax's MaskedNode: a leaf that another label group owns."""
+    return type(x).__name__ == "MaskedNode"
+
+
+def _adam_states(node, found):
+    """Every optax ScaleByAdamState (count, mu, nu) inside an optimizer
+    state of nested namedtuples, tuples and dicts, in order."""
+    fields = getattr(node, "_fields", None)
+    if fields is not None and {"count", "mu", "nu"} <= set(fields):
+        found.append(node)
+    elif fields is not None:
+        for f in fields:
+            _adam_states(getattr(node, f), found)
+    elif isinstance(node, dict):
+        for v in node.values():
+            _adam_states(v, found)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _adam_states(v, found)
+    return found
+
+
+def _overlay(trees, device):
+    """One tree from the per-group moment trees: at each leaf the group
+    that owns it (the others hold MaskedNode); leaves no group owns drop
+    out, and so do dicts left empty."""
+    first = trees[0]
+    if isinstance(first, dict):
+        out = {}
+        for k in first:
+            v = _overlay([t[k] for t in trees], device)
+            if v is not None:
+                out[k] = v
+        return out or None
+    if isinstance(first, (list, tuple)) and not _is_masked(first):
+        items = [_overlay([t[i] for t in trees], device)
+                 for i in range(len(first))]
+        return items if any(x is not None for x in items) else None
+    owned = [t for t in trees if not _is_masked(t)]
+    return _leaf_to_tensor(owned[0], device) if owned else None
+
+
+def train_state_to_torch(state: dict, *, device=None) -> dict:
+    """A JAX train state (training/train_step.init_train_state, with or
+    without a trainable predicate; optax's multi_transform of per-group
+    chain(clip_by_global_norm, adamw), optionally under a freeze mask) ->
+    the port's {"params"[, "frozen"], "opt_state": {"count", "mu", "nu"},
+    "step"}. Parameters and moments keep their dtypes (bf16 LoRA banks and
+    their moments stay bf16; int8 leaves stay {"q", "s"})."""
+    adams = _adam_states(state["opt_state"], [])
+    if not adams:
+        raise ValueError("no Adam state found in opt_state")
+    out = {"params": to_torch(state["params"], device=device),
+           "opt_state": {
+               "count": int(np.asarray(adams[0].count)),
+               "mu": _overlay([a.mu for a in adams], device) or {},
+               "nu": _overlay([a.nu for a in adams], device) or {}},
+           "step": int(np.asarray(state["step"]))}
+    if "frozen" in state:
+        out["frozen"] = to_torch(state["frozen"], device=device)
+    return out
 
 
 def to_numpy(tree: Any) -> Any:

@@ -1,11 +1,12 @@
 """Contrastive heads: in-batch InfoNCE (counterpart of
-procyon_tpu/models/contrastive.py), forward values on one device.
+procyon_tpu/models/contrastive.py) on one device, differentiable.
 
 Learnable temperature clamped to [0.001, 0.5], L2-normalized embeddings, an
-optional negatives mask, a symmetric (seq->text + text->seq)/2 loss. The
-cross-device global batch (`axis_name`, an all-gather of both sides) belongs
-to training and raises NotImplementedError here (ROADMAP.md, queue 1,
-training slice).
+optional negatives mask, a symmetric (seq->text + text->seq)/2 loss; the
+explicit-negative InfoNCE, the max-margin loss and the projection head. The
+cross-device global batch (`axis_name`, an all-gather of both sides) needs
+more than one card and raises NotImplementedError (ROADMAP.md, queue 1,
+the multi-GPU training slice).
 """
 
 import dataclasses
@@ -14,8 +15,12 @@ from typing import Optional
 
 import torch
 
+from procyon_tpu_torch.models._init import Seed, make_generator
+from procyon_tpu_torch.ops.norms import layer_norm
+
 _NOT_PORTED = ("the cross-device InfoNCE batch (axis_name) is not ported to "
-               "procyon_tpu_torch yet (ROADMAP.md, queue 1, training slice)")
+               "procyon_tpu_torch yet (ROADMAP.md, queue 1: multi-GPU "
+               "training, parallel/ over NCCL)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,3 +129,41 @@ def info_nce_explicit(params, cfg: InfoNCEConfig, seq_embeds, text_embeds,
     loss = torch.where(valid, ce, 0.0).sum() / _count(valid)
     acc = ((logits.argmax(-1) == 0) & valid).sum() / _count(valid)
     return loss, {"contrastive_acc": acc, "temperature": temp}
+
+
+def max_margin_loss(seq_embeds, text_embeds, neg_text_embeds, *,
+                    margin=1.0):
+    """MaxMarginContrastiveLoss analogue: hinge on cosine(pos) -
+    cosine(neg) with explicit negatives [N, K, D]."""
+    z_s = _normalize(seq_embeds)[:, None, :]
+    z_p = _normalize(text_embeds)[:, None, :]
+    z_n = _normalize(neg_text_embeds)
+    pos = (z_s * z_p).sum(-1)  # [N, 1]
+    neg = (z_s * z_n).sum(-1)  # [N, K]
+    return torch.clamp(margin - pos + neg, min=0.0).mean()
+
+
+def projection_head_init(seed: Seed, dim, proj_dim, dtype=torch.float32, *,
+                         device="cuda"):
+    """ProjectionHead analogue: linear-GELU-linear with residual + layer
+    norm. N(0, 1/fan_in) weights from `seed` (models/_init.py)."""
+    generator, device = make_generator(seed, device)
+
+    def normal(shape, fan_in):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) / fan_in ** 0.5).to(dtype)
+
+    return {
+        "proj_w": normal((dim, proj_dim), dim),
+        "fc_w": normal((proj_dim, proj_dim), proj_dim),
+        "fc_b": torch.zeros((proj_dim,), dtype=dtype, device=device),
+        "norm_w": torch.ones((proj_dim,), dtype=dtype, device=device),
+        "norm_b": torch.zeros((proj_dim,), dtype=dtype, device=device),
+    }
+
+
+def projection_head_apply(params, x):
+    proj = x @ params["proj_w"]
+    h = torch.nn.functional.gelu(proj, approximate="none") @ params["fc_w"] \
+        + params["fc_b"]
+    return layer_norm(h + proj, params["norm_w"], params["norm_b"])

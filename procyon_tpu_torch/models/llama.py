@@ -1,14 +1,23 @@
-"""Llama-2 / Llama-3 decoder (counterpart of procyon_tpu/models/llama.py),
-limited to the inference paths: the dense KV cache and the paged pool.
+"""Llama-2 / Llama-3 decoder (counterpart of procyon_tpu/models/llama.py):
+the training / prefill forward, the dense KV cache and the paged pool.
 
 Takes token ids or pre-built input embeddings (the soft-token fusion path),
 returns hidden states and LM logits, and supports an incremental KV cache.
 Parameters are the JAX package's tree, bridged to torch (bridge.py):
 stacked `[L, ...]` leaves read per layer in a Python loop where JAX used
 `lax.scan`. Attention goes through ops/flash_attention.flash_attention
-with `attn_backend` as its backend (the flash kernel on a CUDA tensor);
-single-token decode over the cache is plain tensor code, as it is plain
-jnp in the reference. `remat` is a training matter and is ignored.
+with `attn_backend` as its backend (the flash kernel on a CUDA tensor, and
+under autograd its backward kernels); rotary is applied outside it and
+torch differentiates it. Single-token decode over the cache is plain
+tensor code, as it is plain jnp in the reference.
+
+`forward` is differentiable without a cache: gradients reach the stacked
+LoRA banks and every float leaf that requires grad, while int8 / int4
+leaves stay frozen and the gradient flows through x. With `cfg.remat`, a
+forward under autograd checkpoints each layer
+(`torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`, the
+counterpart of `jax.checkpoint(scan_body)`): only the layer inputs are
+kept, and the backward recomputes each layer, attention included.
 
 `paged_forward` runs T tokens per slot against the paged pool
 (inference/kv_pool.py) and updates the pool in place. Its one-token decode
@@ -29,6 +38,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from procyon_tpu_torch.models import lora as lora_mod
 from procyon_tpu_torch.models._init import Seed, make_generator
@@ -173,6 +183,22 @@ def _layer(layers, i: int):
     return layers[i]
 
 
+def _needs_grad(x, tree) -> bool:
+    """Grad mode is on and x or a tensor of the tree requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, torch.Tensor) and node.requires_grad:
+            return True
+    return False
+
+
 def _decode_attention_step(q, cache_k, cache_v, seg_ids, cache_seg,
                            positions, cache_pos, k_scale=None,
                            v_scale=None):
@@ -284,7 +310,8 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
     that to dead-code elimination under jit; eager PyTorch has none).
     """
     if input_embeds is None:
-        input_embeds = params["embed"][tokens.long()]
+        input_embeds = torch.nn.functional.embedding(tokens.long(),
+                                                     params["embed"])
     x = input_embeds.to(cfg.dtype)
     B, S, _ = x.shape
     dev = x.device
@@ -315,8 +342,14 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
     new_cache = None
     if kv_cache is None:
         for i in range(cfg.n_layers):
-            x = _block(x, _layer(layers, i), seg_ids, positions, rot, cfg,
-                       lora_expert=lora_expert)
+            lp = _layer(layers, i)
+            if cfg.remat and _needs_grad(x, lp):
+                x = torch.utils.checkpoint.checkpoint(
+                    _block, x, lp, seg_ids, positions, rot, cfg,
+                    lora_expert=lora_expert, use_reentrant=False)
+            else:
+                x = _block(x, lp, seg_ids, positions, rot, cfg,
+                           lora_expert=lora_expert)
     else:
         cache_len = int(kv_cache["length"])
         if cache_len + S > kv_cache["seg"].shape[1]:

@@ -3,8 +3,9 @@ of procyon_tpu/models/lora.py).
 
 N parallel (A, B) low-rank pairs behind a leading [E, ...] axis; the active
 expert is an index (`bank[idx]`), chosen per task phase, or per batch row
-with a one-hot in `apply_routed`. The router's auxiliary losses belong to
-training and are not ported yet (ROADMAP.md, queue 1, training slice).
+with a one-hot in `apply_routed`; `top1_router_losses` are the router's
+auxiliary losses. With a host int `expert_idx`, `apply` reads one slice of
+each bank, so a gradient reaches A[e] and B[e] and no other expert.
 """
 
 import dataclasses
@@ -64,3 +65,16 @@ def merged_delta(params, cfg: LoRAConfig):
     deltas = torch.einsum("eir,ero->eio", params["A"].float(),
                           params["B"].float())
     return cfg.scaling * deltas.mean(0)
+
+
+def top1_router_losses(router_logits, expert_assignment, num_experts):
+    """Router auxiliary losses (mlora.py:50-75): z-loss and load-balance.
+    router_logits [T, E]; expert_assignment [T] argmax assignments."""
+    z = torch.logsumexp(router_logits, dim=-1)
+    z_loss = (z * z).mean()
+    probs = torch.softmax(router_logits, dim=-1)
+    density = torch.nn.functional.one_hot(
+        expert_assignment.long(), num_experts).to(probs.dtype).mean(0)
+    density_proxy = probs.mean(0)
+    balance_loss = num_experts * (density * density_proxy).sum()
+    return {"z_loss": z_loss, "balance_loss": balance_loss}

@@ -16,9 +16,11 @@ Forward modes:
                `protein_embed_fn` (the target side; `llama=None`
                describes a deployment of that side alone, with no decoder)
 
-Batches are dicts of tensors on the parameters' device. Not ported yet
-(ROADMAP.md): the ESM2 masked-LM head of the fusion model and the
-cross-device contrastive batch (queue 1, training slice).
+Batches are dicts of tensors on the parameters' device. `forward` is
+differentiable (the training losses, train steps in training/). Not ported
+yet (ROADMAP.md, queue 1): the ESM2 masked-LM head of the fusion model
+(`protein_mlm_logits` raises) and the cross-device contrastive batch
+(multi-GPU training).
 """
 
 import dataclasses
@@ -193,7 +195,10 @@ def _inject_soft_tokens(params, cfg, input_ids, soft_map, soft_bank):
     """Input embeddings with soft tokens scattered over the placeholder
     positions. soft_bank [P, dim]: projected modality embeddings (row k
     answers soft_map == k)."""
-    tok_embeds = params["llama"]["embed"][input_ids.long()].to(cfg.dtype)
+    # F.embedding, not indexing: its backward sums repeated rows in a fixed
+    # order (indexing's accumulating scatter does not on the CPU)
+    tok_embeds = torch.nn.functional.embedding(
+        input_ids.long(), params["llama"]["embed"]).to(cfg.dtype)
     if soft_bank is None or soft_map is None:
         return tok_embeds
     gathered = soft_bank[soft_map.long().clamp(0, soft_bank.shape[0] - 1)]
@@ -323,6 +328,14 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
         # per-row loss for caption weighting
         result["lm_loss_per_row"] = nll.sum(-1) / mask.sum(-1).clamp_min(1)
     return result
+
+
+def protein_mlm_logits(params, cfg: UnifiedConfig, protein_tokens, *,
+                       lora_expert=0):
+    """The ESM2 masked-LM head of the fusion model: not ported."""
+    raise NotImplementedError(
+        "the ESM2 masked-LM head (protein_mlm_logits) is not ported to "
+        "procyon_tpu_torch yet (ROADMAP.md, queue 1, item 2 remainder)")
 
 
 def retrieval_query_embedding(params, cfg: UnifiedConfig, batch):

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "procyon_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -85,3 +87,16 @@ def build_log(name: str) -> str:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel without a backward would hand back an output cut from the
+    autograd graph. Its wrapper calls this before it dispatches: with grad
+    mode on and an input off the CPU that requires grad, it raises instead
+    (on the CPU the plain versions are differentiated by torch)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            and t.device.type != "cpu" for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward, and an input requires "
+            "grad; run it under torch.no_grad() or detach the inputs")

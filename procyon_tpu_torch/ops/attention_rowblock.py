@@ -132,6 +132,7 @@ def rowblock_attention(q, k, v, seg, *, head_dim: int, score_scale: float,
     version for CPU tensors, nothing else. rope tables are already folded
     (`fold_rope`); with rope the scale lives in the tables and
     score_scale is 1."""
+    _build.refuse_grad("rowblock attention", q, k, v)
     if q.is_cuda:
         return _launch(q, k, v, seg, head_dim, score_scale, rope)
     if q.device.type != "cpu":

@@ -15,11 +15,20 @@ masked query rows produce zeros.
     hand-written kernel in csrc/flash_attention_fwd.cu (bf16 only) or
     raises; on a CPU tensor it runs `flash_fwd_ref`. `launches` counts
     kernel launches.
+  * `flash_bwd_ref`: the plain PyTorch version of the backward kernels,
+    with their cast points: p against the forward's lse in base 2,
+    bf16(p) before dv, ds rounded to q's dtype before dq and dk, f32 sums,
+    dk and dv summed over a GQA group in f32 and rounded once.
+  * `flash_bwd`: the one wrapper of the two backward kernels in
+    csrc/flash_attention_bwd.cu (dq; dk and dv), with the same dispatch;
+    `launches_bwd_dq` and `launches_bwd_dkv` count their launches.
+  * `FlashAttention`: the torch.autograd.Function (the reference's
+    custom VJP): forward `flash_fwd(want_lse=True)`, backward `flash_bwd`.
   * `flash_attention`: the public entry with the reference's arguments. The
-    kernel takes Sq and Skv as they are, so nothing is padded to 128.
-
-The backward kernels (training) are not ported yet (ROADMAP.md, queue 2,
-rows 8 and 9).
+    kernels take Sq and Skv as they are, so nothing is padded to 128. With
+    grad mode on and an input that requires grad it goes through
+    `FlashAttention`; rotary tables are applied outside it and torch
+    differentiates them.
 """
 
 import ctypes
@@ -37,11 +46,19 @@ LN2 = 0.6931471805599453
 KERNEL_HEAD_DIMS = (16, 24, 32, 64, 128)
 
 launches = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 
 _SIG = {"flash_attention_fwd_bf16":
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
         + [ctypes.c_longlong] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+_BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float,
+                                  ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p]
+_SIG_BWD = {"flash_attention_bwd_dq_bf16": [ctypes.c_void_p] * 11 + _BWD_TAIL,
+            "flash_attention_bwd_dkv_bf16":
+                [ctypes.c_void_p] * 12 + _BWD_TAIL}
 
 Rope = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -191,6 +208,7 @@ def flash_fwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, *,
     version for CPU tensors, nothing else. seg/positions int32 [B, S].
     `bounded` (positions are the row indices, Sq == Skv) lets the kernel
     skip causal key tiles above the diagonal. Returns (out, lse or None)."""
+    _build.refuse_grad("flash forward (use flash_attention)", q, k, v)
     if q.is_cuda:
         return _launch(q, k, v, seg_q, seg_kv, q_positions, kv_positions,
                        causal, sm_scale, bounded, want_lse)
@@ -199,6 +217,134 @@ def flash_fwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, *,
     out, lse = flash_fwd_ref(q, k, v, seg_q, seg_kv, q_positions,
                              kv_positions, causal=causal, sm_scale=sm_scale)
     return out, (lse if want_lse else None)
+
+
+def flash_bwd_ref(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out,
+                  lse, do, *, causal: bool, sm_scale: float):
+    """Plain PyTorch version of the backward kernels. out / lse are the
+    forward's (lse natural log, [B, Hq, Sq]); do the gradient of out.
+    Returns (dq [B, Sq, Hq, D], dk, dv [B, Skv, Hkv, D]) in the inputs'
+    dtypes; a row or key nothing allows gets zeros."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kf = k.repeat_interleave(group, dim=2) if group > 1 else k
+    vf = v.repeat_interleave(group, dim=2) if group > 1 else v
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf.float()) \
+        * (sm_scale * LOG2E)
+    allowed = _allowed(seg_q, seg_kv, causal, q_positions,
+                       kv_positions)[:, None]
+    lse2 = (lse.float() * LOG2E)[..., None]
+    p = torch.where(allowed, torch.exp2(s - lse2), 0.0)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf.float())
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf.float()) * sm_scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = dk.reshape(B, Skv, Hkv, group, D).sum(3) * sm_scale
+    dv = dv.reshape(B, Skv, Hkv, group, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out, lse,
+                do, causal, sm_scale, bounded):
+    global launches_bwd_dq, launches_bwd_dkv
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
+        raise TypeError("flash backward kernels take bf16 q/k/v/do, got "
+                        f"{q.dtype} {k.dtype} {v.dtype} {do.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash backward kernels: head_dim {D} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    if (k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or Hq % Hkv
+            or do.shape != q.shape or out.shape != q.shape
+            or lse.shape != (B, Hq, Sq) or min(B, Sq, Skv) == 0):
+        raise ValueError(
+            f"shapes do not fit: q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} do {tuple(do.shape)} lse "
+            f"{tuple(lse.shape)}")
+    ints = (seg_q, seg_kv, q_positions, kv_positions)
+    for t, S in zip(ints, (Sq, Skv, Sq, Skv)):
+        if (t.shape != (B, S) or t.dtype != torch.int32
+                or not t.is_contiguous()):
+            raise ValueError("segment ids and positions must be contiguous "
+                             f"int32 [B, S], got {t.dtype} {tuple(t.shape)}")
+    dev = q.device
+    if any(t.device != dev for t in (k, v, out, lse, do) + ints):
+        raise ValueError("flash backward inputs on different devices")
+    # the reference computes delta and the base-2 lse outside its kernels
+    # too (flash_attention.py _bwd)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    lse2 = (lse.float() * LOG2E).contiguous()
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Skv, Hkv, D), dtype=k.dtype, device=dev)
+    dv = torch.empty((B, Skv, Hkv, D), dtype=v.dtype, device=dev)
+    strides = (ctypes.c_longlong * 12)(
+        *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
+        *_strides(do, "do"))
+    lib = _build.load("flash_attention_bwd", _SIG_BWD)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse2.data_ptr(), delta.data_ptr(),
+              *(t.data_ptr() for t in ints))
+    dims = (B, Sq, Skv, Hq, Hkv, D, strides, sm_scale * LOG2E, sm_scale,
+            int(causal), int(bounded))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_bwd_dq_bf16(*common, dq.data_ptr(), *dims,
+                                              stream)
+        _build.check(err, "flash_attention_bwd_dq_bf16")
+        launches_bwd_dq += 1
+        err = lib.flash_attention_bwd_dkv_bf16(*common, dk.data_ptr(),
+                                               dv.data_ptr(), *dims, stream)
+        _build.check(err, "flash_attention_bwd_dkv_bf16")
+        launches_bwd_dkv += 1
+    return dq, dk, dv
+
+
+def flash_bwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out, lse,
+              do, *, causal: bool, sm_scale: float, bounded: bool = False):
+    """Dispatch on the device: the two CUDA kernels for CUDA tensors, the
+    plain version for CPU tensors, nothing else. Arguments as
+    `flash_fwd`'s, plus its out and lse (want_lse=True) and do, the
+    gradient of out. Returns (dq, dk, dv)."""
+    if q.is_cuda:
+        return _launch_bwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions,
+                           out, lse, do.contiguous(), causal, sm_scale,
+                           bounded)
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash backward for device {q.device}")
+    return flash_bwd_ref(q, k, v, seg_q, seg_kv, q_positions, kv_positions,
+                         out, lse, do, causal=causal, sm_scale=sm_scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward (the reference's `_flash` custom
+    VJP). The residuals are q, k, v, the masks, out and lse; the backward
+    recomputes the scores from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, q_positions, kv_positions,
+                causal, sm_scale, bounded):
+        out, lse = flash_fwd(q, k, v, seg_q, seg_kv, q_positions,
+                             kv_positions, causal=causal, sm_scale=sm_scale,
+                             bounded=bounded, want_lse=True)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, q_positions,
+                              kv_positions, out, lse)
+        ctx.cfg = (causal, sm_scale, bounded)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, sm_scale, bounded = ctx.cfg
+        dq, dk, dv = flash_bwd(*ctx.saved_tensors, do, causal=causal,
+                               sm_scale=sm_scale, bounded=bounded)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _apply_rope_4d(x, cos, sin_signed):
@@ -219,7 +365,11 @@ def flash_attention(q, k, v, seg_q=None, seg_kv=None, *, causal=False,
     a CPU tensor), "rowblock" (the packed row-block kernel with fused
     rotary where it applies, else the same as None: the single-pass
     row-block function is the one the flash kernel computes) or "ref"
-    (`mha_reference`, for CPU tensors only). q_positions / kv_positions
+    (`mha_reference`, for CPU tensors only, differentiated by torch).
+    Under grad (grad mode on, an input that requires grad) None and
+    "rowblock" go through `FlashAttention`: the flash forward, then the
+    backward kernels (the packed kernel has no backward; the reference's
+    "rowblock" also takes the flash backward). q_positions / kv_positions
     [B, S] override the index-based causal comparison (KV-cache prefill,
     left-padded prompts). rope: optional (cos_q, sin_q, cos_k, sin_k) flat
     sign-folded tables; q and k are then given pre-rotary and rotated
@@ -237,7 +387,9 @@ def flash_attention(q, k, v, seg_q=None, seg_kv=None, *, causal=False,
         sm_scale = 1.0 / math.sqrt(D)
     bounded = q_positions is None and kv_positions is None and Sq == Skv
 
-    if (backend == "rowblock" and not causal and bounded and Hq == Hkv
+    grad = _wants_grad(q, k, v)
+    if (backend == "rowblock" and not grad and not causal and bounded
+            and Hq == Hkv
             and (seg_kv is None or seg_kv is seg_q)
             and (Hq * D) % 128 == 0 and 128 % D == 0):
         from procyon_tpu_torch.ops.attention_rowblock import \
@@ -258,5 +410,8 @@ def flash_attention(q, k, v, seg_q=None, seg_kv=None, *, causal=False,
         return mha_reference(q, k, v, ints[0], ints[1], causal=causal,
                              sm_scale=sm_scale, q_positions=ints[2],
                              kv_positions=ints[3])
+    if grad:
+        return FlashAttention.apply(q, k, v, *ints, causal, sm_scale,
+                                    bounded)
     return flash_fwd(q, k, v, *ints, causal=causal, sm_scale=sm_scale,
                      bounded=bounded)[0]

@@ -148,6 +148,7 @@ def fused_ln_mlp_int8(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, *,
                       add_residual: bool = False) -> torch.Tensor:
     """x [M, d] -> LN -> int8 GELU MLP -> [M, d] (+ x when add_residual).
     The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    _build.refuse_grad("fused LN + int8 MLP", x, ln_w, ln_b, b1, b2)
     if x.is_cuda:
         return _launch(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps,
                        add_residual)

@@ -172,6 +172,7 @@ def qmatvec4(x, qw):
     decode-shaped x: at most 256 rows in all. Dispatch on the device: the
     CUDA kernel for CUDA tensors (bf16 x), the plain version for CPU
     tensors, nothing else."""
+    _build.refuse_grad("int4 matmul", x)
     if x.is_cuda:
         return _launch(x, qw)
     if x.device.type != "cpu":

@@ -98,6 +98,7 @@ def move_pages_direct(pool_arr, src, dst):
     CUDA device). Dispatch on the device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors, nothing else. Returns pool_arr."""
     _check_indices(pool_arr, src, dst)
+    _build.refuse_grad("page move", pool_arr)
     if pool_arr.is_cuda:
         return _launch(pool_arr, src, dst)
     if pool_arr.device.type != "cpu":

@@ -193,6 +193,7 @@ def paged_decode_attention_fullpage(q, k_pool, v_pool, page_table,
            k_scale_pool, v_scale_pool)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(head_dim)
+    _build.refuse_grad("paged attention", q, k_pool, v_pool)
     if q.is_cuda:
         return _launch(q, k_pool, v_pool, page_table, seq_lens, n_kv_heads,
                        head_dim, k_scale_pool, v_scale_pool, sm_scale)

@@ -69,14 +69,32 @@ def apply_rope_flat(x: torch.Tensor, cos: torch.Tensor,
     return x * c + x[..., perm] * s
 
 
+class _LanePermutation(torch.autograd.Function):
+    """x[..., perm] for rope_perm's perm, differentiated by a gather with the
+    same perm: rotating each head's lanes by D/2 twice is the identity, so
+    perm is its own inverse. Indexing's own backward is an accumulating
+    scatter: a sort and about 2 ms a call at the Llama-3-8B training shape
+    on the H100, a fifth of a train step's device time."""
+
+    @staticmethod
+    def forward(ctx, x, perm):
+        ctx.save_for_backward(perm)
+        return x[..., perm]
+
+    @staticmethod
+    def backward(ctx, grad):
+        perm, = ctx.saved_tensors
+        return grad[..., perm], None
+
+
 def apply_rotary_flat(x_flat: torch.Tensor, cos_g: torch.Tensor,
                       sin_signed_g: torch.Tensor,
                       perm: torch.Tensor) -> torch.Tensor:
     """x_flat [B, S, H*D]; cos_g / sin_signed_g [B, S, H*D], the tables
     gathered at each token's position, in x's dtype; perm [H*D] the lane
     permutation of flat_rotary_tables."""
-    return x_flat * cos_g + x_flat[..., perm.to(x_flat.device)] \
-        * sin_signed_g
+    rotated = _LanePermutation.apply(x_flat, perm.to(x_flat.device))
+    return x_flat * cos_g + rotated * sin_signed_g
 
 
 def apply_rotary_flat_decode(x_flat: torch.Tensor, cos_g: torch.Tensor,

@@ -1,0 +1,177 @@
+"""Instruction pretraining CLI (counterpart of scripts/run_pretrain.py), on
+one card.
+
+Parses (TrainArgs, DataArgs, ModelArgs) with the --from_yaml override,
+builds the dataset mix, collators and model, and runs the multi-task
+trainer; prints one JSON line {"final_step", "output_dir"} at the end.
+
+Synthetic smoke run (no DATA_DIR needed; the tiny model, bf16 on the card,
+f32 with --device cpu):
+  python -m procyon_tpu_torch.scripts.run_pretrain --synthetic true \\
+      --max_steps 20 --output_dir /tmp/run1 [--device cpu]
+Recipe run (needs the ProCyon-Instruct data):
+  python -m procyon_tpu_torch.scripts.run_pretrain \\
+      --from_yaml configs/llama3-full.yml
+
+Not on one card, each raising NotImplementedError (ROADMAP.md, queue 1):
+a mesh axis > 1 and the dist_* flags (multi-GPU training, parallel/ over
+NCCL), and --eval_steps > 0 (mid-train eval, training/evaluation.py, which
+needs evaluate/metrics.py).
+"""
+
+import json
+import sys
+
+import torch
+
+_MULTI_GPU = ("{} needs more than one card: multi-GPU training (parallel/, "
+              "FSDP / DDP over NCCL) is not ported to procyon_tpu_torch yet "
+              "(ROADMAP.md, queue 1)")
+
+
+def _check_one_card(targs):
+    for name in ("mesh_data", "mesh_fsdp", "mesh_model"):
+        if getattr(targs, name) > 1:
+            raise NotImplementedError(_MULTI_GPU.format(f"--{name} > 1"))
+    if (targs.dist_num_processes > 1 or targs.dist_coordinator
+            or targs.dist_process_id >= 0):
+        raise NotImplementedError(_MULTI_GPU.format("the dist_* flags"))
+    if targs.eval_steps > 0:
+        raise NotImplementedError(
+            "--eval_steps > 0: mid-train evaluation (training/evaluation.py)"
+            " needs evaluate/metrics.py, which is not ported to "
+            "procyon_tpu_torch yet (ROADMAP.md, queue 1, slice 6)")
+
+
+def setup(argv=None):
+    """Parse the arguments and build everything the run needs. Returns a
+    dict: targs, dargs, margs, ucfg, params, optimizer, loop, weights,
+    streams, stream_states, device."""
+    from procyon_tpu_torch import config as cfg_mod
+    from procyon_tpu_torch.data import data_config
+    from procyon_tpu_torch.data.datasets import ProCyonDataStore, \
+        SyntheticStore
+    from procyon_tpu_torch.data.text_tokenizer import load_tokenizer
+    from procyon_tpu_torch.models import unified
+    from procyon_tpu_torch.training import checkpointing
+    from procyon_tpu_torch.training.optimizer import (
+        build_frozen_mask_optimizer, build_optimizer)
+
+    targs, dargs, margs = cfg_mod.parse_all(argv)
+    _check_one_card(targs)
+    device = torch.device(targs.device)
+
+    if dargs.synthetic:
+        # shrink the model for the integration path
+        margs.text_model = "tiny"
+        margs.protein_embed_dim = 64
+        margs.hidden_size_token_projector = 64
+        margs.retrieval_dim = 32
+        # the flash kernels take bf16; the CPU runs the plain versions in f32
+        margs.dtype = "float32" if device.type == "cpu" else "bfloat16"
+        dargs.max_text_len = min(dargs.max_text_len, 256)
+        store = SyntheticStore(n_proteins=128, n_texts=128, embed_dim=64)
+        tokenizer = load_tokenizer(vocab_size=4096)
+        mix = data_config.MultiDatasetConfig.load_from_yaml(
+            dargs.it_data_config_yml) if dargs.it_data_config_yml \
+            else data_config.MultiDatasetConfig(entries=[
+                data_config.DatasetEntry(text_type="go",
+                                         relations=["process"]),
+            ])
+    else:
+        store = ProCyonDataStore(dargs.data_dir or None)
+        tokenizer = load_tokenizer(margs.tokenizer_path)
+        mix = data_config.MultiDatasetConfig.load_from_yaml(
+            dargs.it_data_config_yml) if dargs.it_data_config_yml \
+            else data_config.DEFAULT_FULL_MIX
+
+    ucfg = cfg_mod.build_model_config(margs, dargs)
+    ocfg = cfg_mod.build_optimizer_config(targs)
+    loop = cfg_mod.build_loop_config(targs)
+    weights = cfg_mod.build_task_weights(targs)
+    ccfg = cfg_mod.build_collator_config(margs, dargs, targs)
+
+    # exact resume: rebuild streams at the checkpointed position
+    resume_states = None
+    if targs.resume:
+        tstate = checkpointing.peek_resume_state(targs.output_dir)
+        if tstate:
+            resume_states = tstate.get("stream_states")
+
+    aaseq_embeds = {k: v for k, v in
+                    (("peptide", dargs.peptide_embeddings_path),
+                     ("domain", dargs.domain_embeddings_path)) if v}
+    streams, _, stream_states = data_config.build_task_streams(
+        mix, store=store, tokenizer=tokenizer, collator_cfg=ccfg,
+        batch_sizes={"qa": dargs.qa_batch_size,
+                     "retrieval": dargs.retrieval_batch_size,
+                     "caption": dargs.caption_batch_size},
+        data_dir=dargs.data_dir, synthetic=dargs.synthetic,
+        seed=targs.seed, resume_states=resume_states,
+        aaseq_embedding_files=aaseq_embeds)
+    # drop disabled tasks (skip_frequency == 0)
+    for task in list(streams):
+        if getattr(targs, f"{task}_skip_frequency") == 0:
+            del streams[task]
+    if targs.mlm_skip_frequency > 0 and ucfg.esm is not None:
+        streams["mlm"] = data_config.build_mlm_stream(
+            store, batch_size=dargs.mlm_batch_size,
+            n_proteins=getattr(store, "n_proteins", 1024),
+            max_protein_len=margs.max_protein_len, seed=targs.seed)
+
+    params = unified.init_params(targs.seed, ucfg, device=device)
+    if margs.freeze_protein_encoder or margs.freeze_text_encoder:
+        optimizer = build_frozen_mask_optimizer(
+            ocfg, cfg_mod.freeze_fn(margs))
+    else:
+        optimizer = build_optimizer(ocfg)
+    return dict(targs=targs, dargs=dargs, margs=margs, ucfg=ucfg,
+                params=params, optimizer=optimizer, loop=loop,
+                weights=weights, streams=streams,
+                stream_states=stream_states, device=device)
+
+
+def main(argv=None):
+    from procyon_tpu_torch.training.logging_utils import MetricsLogger
+    from procyon_tpu_torch.training.prefetch import DeviceCopier, \
+        wrap_streams
+    from procyon_tpu_torch.training.trainer import Trainer
+
+    run = setup(argv)
+    targs = run["targs"]
+    to_device = DeviceCopier(run["device"])
+    metrics_logger = MetricsLogger(
+        targs.output_dir, use_wandb=targs.use_wandb,
+        wandb_project=targs.wandb_project)
+
+    # background host->device pipeline: batches arrive on the device, and
+    # the trainer-visible stream states reflect only consumed batches
+    # (exact-resume contract, training/prefetch.py)
+    run_streams, run_states, run_to_device = (
+        run["streams"], run["stream_states"], to_device)
+    close_prefetch = None
+    if targs.prefetch_depth > 0:
+        run_streams, run_states, close_prefetch = wrap_streams(
+            run["streams"], to_device=to_device,
+            source_states=run["stream_states"], depth=targs.prefetch_depth)
+        run_to_device = None
+    try:
+        trainer = Trainer(cfg=run["ucfg"], params=run["params"],
+                          optimizer=run["optimizer"], loop=run["loop"],
+                          task_streams=run_streams, weights=run["weights"],
+                          metrics_logger=metrics_logger,
+                          stream_states=run_states, to_device=run_to_device)
+        if targs.resume:
+            trainer.maybe_resume()
+        trainer.train()
+    finally:
+        if close_prefetch is not None:
+            close_prefetch()
+        metrics_logger.close()
+    print(json.dumps({"final_step": trainer.global_step,
+                      "output_dir": targs.output_dir}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

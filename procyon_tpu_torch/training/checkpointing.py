@@ -1,0 +1,164 @@
+"""Checkpoint save / restore + training-state snapshots (counterpart of
+procyon_tpu/training/checkpointing.py), torch-native:
+
+  * checkpoint-{step}/state.pt: `torch.save` of the train state tree
+    ({params[, frozen], opt_state: {count, mu, nu}, step}; nested dicts and
+    lists of tensors in the bridge's layout, ints), read back with
+    `weights_only=True`;
+  * configs.json: config/args snapshot as JSON next to it;
+  * training_state.json: step, mixer state and per-task progress for exact
+    resume;
+  * best_model_checkpoint: the early-stopping marker, which pruning keeps.
+"""
+
+import dataclasses
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional
+
+import torch
+
+STATE_FILE = "state.pt"
+
+
+def _config_to_jsonable(obj):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _config_to_jsonable(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_config_to_jsonable(x) for x in obj]
+    if isinstance(obj, dict):
+        return {k: _config_to_jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (type, torch.dtype)):
+        return str(obj)
+    if isinstance(obj, torch.Tensor):
+        return repr(obj)
+    if callable(obj):
+        return getattr(obj, "__name__", repr(obj))
+    return obj
+
+
+def checkpoint_dir(base: str, step: int) -> str:
+    return os.path.join(base, f"checkpoint-{step}")
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def save_checkpoint(base: str, step: int, state: Dict, *,
+                    configs: Optional[Dict[str, Any]] = None,
+                    training_state: Optional[Dict] = None,
+                    keep_last: int = 0) -> str:
+    """Save the train state + JSON sidecars under checkpoint-{step}/."""
+    path = os.path.abspath(checkpoint_dir(base, step))
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(_to_cpu(state), tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if configs:
+        with open(os.path.join(path, "configs.json"), "w") as f:
+            json.dump({k: _config_to_jsonable(v) for k, v in configs.items()},
+                      f, indent=2, default=str)
+    if training_state is not None:
+        with open(os.path.join(path, "training_state.json"), "w") as f:
+            json.dump(training_state, f, indent=2)
+    if keep_last:
+        prune_checkpoints(base, keep_last)
+    return path
+
+
+def list_checkpoints(base: str):
+    if not os.path.isdir(base):
+        return []
+    steps = []
+    for d in os.listdir(base):
+        if d.startswith("checkpoint-"):
+            try:
+                steps.append(int(d.split("-", 1)[1]))
+            except ValueError:
+                pass
+    return sorted(steps)
+
+
+def prune_checkpoints(base: str, keep_last: int):
+    steps = list_checkpoints(base)
+    best = best_checkpoint_step(base)
+    for s in steps[:-keep_last] if keep_last else []:
+        if s != best:
+            shutil.rmtree(checkpoint_dir(base, s), ignore_errors=True)
+
+
+def latest_checkpoint(base: str) -> Optional[str]:
+    steps = list_checkpoints(base)
+    return checkpoint_dir(base, steps[-1]) if steps else None
+
+
+def _onto(saved, like, where: str):
+    """saved (CPU tree) shaped, typed and placed like `like`."""
+    if isinstance(like, dict):
+        if not isinstance(saved, dict) or set(saved) != set(like):
+            got = sorted(saved) if isinstance(saved, dict) else type(saved)
+            raise ValueError(f"checkpoint tree differs at {where or '/'}: "
+                             f"{got} against {sorted(like)}")
+        return {k: _onto(saved[k], v, f"{where}/{k}")
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        if len(saved) != len(like):
+            raise ValueError(f"checkpoint list differs at {where}")
+        return type(like)(_onto(s, l, f"{where}/{i}")
+                          for i, (s, l) in enumerate(zip(saved, like)))
+    if isinstance(like, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != like.shape:
+            raise ValueError(f"checkpoint leaf {where}: "
+                             f"{getattr(saved, 'shape', type(saved))} "
+                             f"against {tuple(like.shape)}")
+        return saved.to(device=like.device, dtype=like.dtype)
+    return saved
+
+
+def restore_checkpoint(path: str, like_state: Dict) -> Dict:
+    """The state saved under `path`, each tensor on the device and in the
+    dtype of the matching leaf of `like_state` (a live state of the same
+    structure)."""
+    saved = torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    return _onto(saved, like_state, "")
+
+
+def load_training_state(path: str) -> Optional[Dict]:
+    p = os.path.join(path, "training_state.json")
+    if os.path.exists(p):
+        with open(p) as f:
+            return json.load(f)
+    return None
+
+
+def mark_best(base: str, step: int):
+    with open(os.path.join(base, "best_model_checkpoint"), "w") as f:
+        f.write(str(step))
+
+
+def best_checkpoint_step(base: str) -> Optional[int]:
+    p = os.path.join(base, "best_model_checkpoint")
+    if os.path.exists(p):
+        with open(p) as f:
+            return int(f.read().strip())
+    return None
+
+
+def peek_resume_state(base: str):
+    """Training-state of the latest checkpoint (None if no checkpoint): lets
+    callers rebuild data streams at the right position before constructing
+    the trainer."""
+    path = latest_checkpoint(base)
+    return load_training_state(path) if path else None

@@ -1,0 +1,54 @@
+"""Combined multi-task step (counterpart of
+procyon_tpu/training/combined_step.py): one optimizer update over the summed
+task losses, one global step of the reference's interleaved loop as one
+callable, and the joint phase of LoRA phase training.
+"""
+
+from procyon_tpu_torch.models import unified
+from procyon_tpu_torch.training import optimizer as opt_mod
+from procyon_tpu_torch.training import train_step as ts
+
+
+def make_combined_step(cfg: unified.UnifiedConfig, optimizer,
+                       weights: ts.TaskWeights = ts.TaskWeights(),
+                       expert_override=None,
+                       frozen_base: bool = False):
+    """step(state, batches) with batches a dict of optional qa / caption /
+    retrieval / mlm batches.
+
+    expert_override: run every task through this LoRA expert index (the
+    reference's joint phase sets group 3 for the all-task step).
+    frozen_base: QLoRA state layout, as make_train_step's. The update is
+    in place."""
+    n_experts = max(ts.lora_num_experts(cfg), 1)
+
+    def expert(task):
+        if expert_override is not None:
+            return expert_override % n_experts
+        return ts.TASK_LORA_EXPERT.get(task, 0) % n_experts
+
+    def step(state, batches):
+        def lf(params):
+            total = 0.0
+            metrics = {}
+            for task, fn, w in (("qa", ts.lm_loss_fn, weights.qa),
+                                ("caption", ts.lm_loss_fn, weights.caption),
+                                ("retrieval", ts.retrieval_loss_fn,
+                                 weights.retrieval)):
+                if task in batches:
+                    l, m = fn(params, cfg, batches[task], w,
+                              lora_expert=expert(task))
+                    total = total + l
+                    metrics.update({f"{task}/{k}": v for k, v in m.items()})
+            if "mlm" in batches and cfg.esm is not None:
+                ts.mlm_loss_fn(params, cfg, batches["mlm"], weights.mlm)
+            return total, metrics
+
+        loss, metrics, items, grads = ts.value_and_grad(optimizer, state,
+                                                        frozen_base, lf)
+        ts._apply_updates(state, optimizer, items, grads)
+        metrics["loss"] = loss
+        metrics["grad_norm"] = opt_mod.global_norm(grads)
+        return state, metrics
+
+    return step

@@ -1,0 +1,348 @@
+"""Per-task train steps (counterpart of procyon_tpu/training/train_step.py).
+
+One step function per task family (qa / retrieval / caption; mlm raises),
+each computing its weighted loss and updating the trainable parameters.
+The host trainer interleaves them per global step with skip frequencies
+(trainer.py).
+
+Eager PyTorch has no jit and no buffer donation: a "step" is a plain
+callable `step(state, batch) -> (state, metrics)` that runs the forward
+and `torch.autograd.grad` over the trainable leaves, then one optimizer
+update in place (the same state dict comes back, its params, moments and
+step changed). Metrics are device tensors; nothing in a step reads the
+device, provided the batch carries `max_position`, the host's bound of its
+positions (`batch_to_device` adds it).
+
+State: {"params": tree, "opt_state": ..., "step": int} for a full
+fine-tune, plus "frozen": tree with a trainable predicate (the QLoRA
+layout: quantized towers frozen, LoRA banks, projectors and the
+contrastive temperature trained).
+"""
+
+import dataclasses
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from procyon_tpu_torch.models import esm2, unified
+from procyon_tpu_torch.training import optimizer as opt_mod
+from procyon_tpu_torch.training.optimizer import is_quantized_leaf
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskWeights:
+    """Per-task loss weights (TrainArgs.*_loss_weight)."""
+    qa: float = 1.0
+    retrieval: float = 1.0
+    caption: float = 1.0
+    mlm: float = 1.0
+
+
+def _is_atomic(node) -> bool:
+    """Quantized weight dicts and anything that is not a dict (tensors,
+    projector lists) are single leaves for freezing purposes."""
+    return not isinstance(node, dict) or is_quantized_leaf(node)
+
+
+def partition_params(params, predicate):
+    """Split a nested-dict param tree into (trainable, frozen) by path:
+    predicate("llama/layers/lora_wq/A") -> True keeps that leaf trainable.
+    The subtrees share the tensors of `params` (nothing is copied)."""
+    def walk(node, path):
+        if _is_atomic(node):
+            return (node, None) if predicate(path) else (None, node)
+        t, f = {}, {}
+        for k, v in node.items():
+            tv, fv = walk(v, f"{path}/{k}" if path else k)
+            if tv is not None:
+                t[k] = tv
+            if fv is not None:
+                f[k] = fv
+        return (t or None, f or None)
+
+    t, f = walk(params, "")
+    return t or {}, f or {}
+
+
+def merge_params(trainable, frozen):
+    """Inverse of partition_params (tree overlay)."""
+    if trainable is None:
+        return frozen
+    if frozen is None:
+        return trainable
+    if _is_atomic(trainable) or _is_atomic(frozen):
+        return trainable
+    return {k: merge_params(trainable.get(k), frozen.get(k))
+            for k in set(trainable) | set(frozen)}
+
+
+def lora_trainable_predicate(path: str) -> bool:
+    """The ProCyon-QLoRA recipe: LoRA expert banks, projectors, and the
+    contrastive temperature train; the (quantized) towers stay frozen."""
+    return ("lora" in path or path.startswith("projectors")
+            or path.startswith("contrastive"))
+
+
+def init_train_state(params, optimizer, trainable_predicate=None):
+    if trainable_predicate is None:
+        return {"params": params, "opt_state": optimizer.init(params),
+                "step": 0}
+    trainable, frozen = partition_params(params, trainable_predicate)
+    return {"params": trainable, "frozen": frozen,
+            "opt_state": optimizer.init(trainable), "step": 0}
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def lm_loss_fn(params, cfg, batch, weight, lora_expert=0):
+    out = unified.forward(params, cfg, batch, retrieval=False,
+                          lora_expert=lora_expert,
+                          max_position=batch.get("max_position"))
+    # optional per-batch loss rescale (per-dataset caption loss weights)
+    batch_w = batch.get("loss_weight", 1.0)
+    loss = out["lm_loss"] * weight * batch_w
+    logits = out["logits"][:, :-1]
+    labels = batch["labels"][:, 1:].long()
+    mask = labels != -100
+    correct = (logits.argmax(-1) == labels) & mask
+    acc = correct.sum() / mask.sum().clamp_min(1)
+    ppl = torch.exp(torch.clamp(out["lm_loss"], max=20.0))
+    metrics = {"lm_loss": out["lm_loss"], "token_acc": acc, "ppl": ppl}
+    if batch.get("qa_labels") is not None and \
+            batch.get("answer_pos") is not None and \
+            batch.get("yes_token") is not None:
+        # train-time QA yes/no accuracy at the [ANSWER] position
+        logits_all = out["logits"]
+        B = logits_all.shape[0]
+        at = logits_all[torch.arange(B, device=logits_all.device),
+                        batch["answer_pos"].long()]
+        pred_yes = _column(at, batch["yes_token"]) \
+            > _column(at, batch["no_token"])
+        metrics["qa_acc"] = (pred_yes == (batch["qa_labels"] > 0)).float() \
+            .mean()
+    return loss, metrics
+
+
+def _column(x, token):
+    """x[:, token] for a host int / 0-d array or a 0-d device tensor (a
+    micro-batch's slice), without reading the device."""
+    if isinstance(token, torch.Tensor):
+        return x.index_select(1, token.reshape(1).long())[:, 0]
+    return x[:, int(token)]
+
+
+def retrieval_loss_fn(params, cfg, batch, weight, lora_expert=0):
+    # the LM head and loss are dead code here (the reference's jit drops
+    # them); eager PyTorch is told so
+    batch = {k: v for k, v in batch.items() if k != "labels"}
+    out = unified.forward(params, cfg, batch, retrieval=True,
+                          lora_expert=lora_expert, want_logits=False,
+                          max_position=batch.get("max_position"))
+    loss = out["retrieval_loss"] * weight
+    return loss, {"retrieval_loss": out["retrieval_loss"],
+                  **out["retrieval_metrics"]}
+
+
+def mlm_loss_fn(params, cfg, batch, weight, lora_expert=0):
+    """ESM2 masked-LM loss: needs the fusion model's MLM head, which is not
+    ported (unified.protein_mlm_logits raises)."""
+    unified.protein_mlm_logits(params, cfg, batch["protein_tokens"],
+                               lora_expert=lora_expert)
+
+
+_LOSS_FNS = {
+    "qa": lm_loss_fn,
+    "caption": lm_loss_fn,
+    "retrieval": retrieval_loss_fn,
+    "mlm": mlm_loss_fn,
+}
+
+# task-indexed LoRA expert selection (the reference's manual expert cycling:
+# qa=0, retrieval=1, mlm/caption=2, joint=3)
+TASK_LORA_EXPERT = {"qa": 0, "retrieval": 1, "caption": 2, "mlm": 2}
+
+
+def lora_num_experts(cfg: unified.UnifiedConfig) -> int:
+    """Bank size for expert cycling over both towers."""
+    n = cfg.llama.lora.num_experts if cfg.llama.lora is not None else 1
+    if cfg.esm is not None and cfg.esm.lora is not None:
+        n = max(n, cfg.esm.lora.num_experts)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+
+def value_and_grad(optimizer, state, frozen_base, loss_of):
+    """(loss, metrics, items, grads): loss_of(params) differentiated over
+    the optimizer's trainable leaves of state["params"] (requires_grad is
+    switched on for the call only; with frozen_base, loss_of gets the
+    trainable tree merged with state["frozen"]). items are the (path,
+    leaf) pairs of `optimizer.trainable_items`, grads theirs in order;
+    unreached leaves get zero grads."""
+    params = state["params"]
+    items = optimizer.trainable_items(params)
+    leaves = [t for _, t in items]
+    with torch.enable_grad():
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            full = merge_params(params, state.get("frozen")) \
+                if frozen_base else params
+            loss, metrics = loss_of(full)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, items, grads
+
+
+def _apply_updates(state, optimizer, items, grads):
+    optimizer.update(items, grads, state["opt_state"])
+    state["step"] = int(state["step"]) + 1
+    return state
+
+
+def _micro(batch, i: int):
+    """Micro-batch i of a stacked batch (tensors carry a leading [N] axis;
+    host values such as max_position pass through)."""
+    return {k: v[i] if isinstance(v, (torch.Tensor, np.ndarray))
+            and v.ndim > 0 else v for k, v in batch.items()}
+
+
+def make_train_step(cfg: unified.UnifiedConfig, optimizer, task: str,
+                    weight: float = 1.0,
+                    accumulation_steps: int = 1, frozen_base: bool = False):
+    """A train step for one task family.
+
+    accumulation_steps > 1: the step takes a batch whose leaves carry a
+    leading [N, ...] micro-batch axis (`stack_microbatches`), runs forward
+    and backward per micro-batch (each one's activations freed before the
+    next), sums the grads in f32, divides by N, casts them to the params'
+    dtypes and applies one update.
+
+    frozen_base=True is the QLoRA surface: the state comes from
+    init_train_state(..., trainable_predicate=...), grads flow only to the
+    trainable subtree and the frozen (possibly int8 / int4) towers merge in
+    as constants. The update is in place.
+
+    Metrics: the loss's, "loss", and "grad_norm", the global norm of all
+    trainable grads before clipping."""
+    loss_fn = _LOSS_FNS[task]
+    expert = TASK_LORA_EXPERT.get(task, 0) % max(lora_num_experts(cfg), 1)
+
+    def run(state, batch):
+        return value_and_grad(optimizer, state, frozen_base,
+                              lambda p: loss_fn(p, cfg, batch, weight,
+                                                lora_expert=expert))
+
+    if accumulation_steps <= 1:
+        def step(state, batch):
+            loss, metrics, items, grads = run(state, batch)
+            _apply_updates(state, optimizer, items, grads)
+            metrics = dict(metrics)
+            metrics["loss"] = loss
+            metrics["grad_norm"] = opt_mod.global_norm(grads)
+            return state, metrics
+        return step
+
+    def step(state, batches):
+        acc = None
+        losses: List[torch.Tensor] = []
+        mstack: Dict[str, list] = {}
+        for i in range(accumulation_steps):
+            loss, metrics, items, grads = run(state, _micro(batches, i))
+            acc = [g.float() for g in grads] if acc is None else \
+                [a + g.float() for a, g in zip(acc, grads)]
+            losses.append(loss)
+            for k, v in metrics.items():
+                mstack.setdefault(k, []).append(v)
+        grads = [(a / accumulation_steps).to(t.dtype)
+                 for a, (_, t) in zip(acc, items)]
+        _apply_updates(state, optimizer, items, grads)
+        metrics = {k: torch.stack([torch.as_tensor(x) for x in v]).float()
+                   .mean() for k, v in mstack.items()}
+        metrics["loss"] = torch.stack(losses).float().mean()
+        metrics["grad_norm"] = opt_mod.global_norm(grads)
+        return state, metrics
+
+    return step
+
+
+def stack_microbatches(batches):
+    """Host-side: list of collator batches -> one batch with a leading
+    micro-batch axis for the accumulating train step. reference_indices
+    (host bookkeeping) is dropped."""
+    keys = [k for k in batches[0] if k != "reference_indices"]
+    return {k: np.stack([np.asarray(b[k]) for b in batches]) for k in keys}
+
+
+def make_eval_step(cfg: unified.UnifiedConfig, task: str):
+    loss_fn = _LOSS_FNS[task]
+
+    @torch.no_grad()
+    def step(params, batch):
+        loss, metrics = loss_fn(params, cfg, batch, 1.0)
+        metrics = dict(metrics)
+        metrics["loss"] = loss
+        return metrics
+
+    return step
+
+
+def batch_to_device(batch, device, *, non_blocking: bool = False):
+    """A collator batch (numpy arrays and scalars) -> tensors on `device`.
+    reference_indices (host bookkeeping) is dropped; numpy scalars stay
+    host values; "max_position", the largest of the batch's positions, is
+    added as a host int so the step need not read it from the device."""
+    out = {}
+    for k, v in batch.items():
+        if k == "reference_indices":
+            continue
+        if isinstance(v, np.ndarray) and v.ndim > 0:
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if non_blocking and torch.device(device).type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=non_blocking)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.to(device, non_blocking=non_blocking)
+        else:
+            out[k] = v.item() if isinstance(v, np.generic) else v
+    positions = batch.get("positions")
+    if "max_position" not in out and isinstance(positions, np.ndarray) \
+            and positions.size:
+        out["max_position"] = int(positions.max())
+    return out
+
+
+def encode_proteins_with_mlm_mask(generator: torch.Generator,
+                                  protein_tokens: torch.Tensor, *,
+                                  mask_prob=0.15):
+    """BERT-style residue masking: of the selected 15%, 80% -> <mask>,
+    10% -> a random residue, 10% unchanged. The draws come from
+    `generator` (on the tokens' device). Returns (masked_tokens, labels
+    with -100 on unselected positions)."""
+    shape = protein_tokens.shape
+    dev = protein_tokens.device
+    special = (protein_tokens == esm2.PAD_IDX) | \
+              (protein_tokens == esm2.CLS_IDX) | \
+              (protein_tokens == esm2.EOS_IDX)
+    sel = (torch.rand(shape, generator=generator, device=dev) < mask_prob) \
+        & ~special
+    labels = torch.where(sel, protein_tokens, -100)
+    r = torch.rand(shape, generator=generator, device=dev)
+    masked = torch.where(sel & (r < 0.8), esm2.MASK_IDX, protein_tokens)
+    random_tok = torch.randint(4, 24, shape, generator=generator, device=dev,
+                               dtype=protein_tokens.dtype)
+    masked = torch.where(sel & (r >= 0.8) & (r < 0.9), random_tok, masked)
+    return masked, labels

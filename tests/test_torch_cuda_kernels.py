@@ -3,6 +3,8 @@ at shapes beyond chip_smoke.py's: ESM2's full S=1026 (a ragged last key
 tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
 16-row block (d=2560) and its G=256 group; the flash forward at ragged
 lengths, every head dim, strided views, a cache shape and ESM2-35M's route;
+the flash backward (dq; dk and dv) at the same shapes and at the training
+shape, and through the autograd Function;
 the page move on bf16, int8 and f32 rows; the paged decode attention at
 other head dims, groups and page sizes, bf16 and int8 pools; the int4
 matmul at the five Llama-3-8B weight shapes (n cut where it can be), rows
@@ -214,6 +216,118 @@ def test_flash_forward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
     assert torch.equal(lse > -1e29, live)
     assert (lse[~live] == -1e30).all()
     assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+
+
+def _grad_close(out, ref):
+    """The backward kernels against their plain version, both in bf16 out
+    of f32 sums: the kernels add the key (or query) tiles in another order
+    and may round ds to the neighbouring bf16 value. Each element of a
+    [B, S, H, D] gradient is held to 1% of the largest |plain| in its own
+    row (a query's dq, a key's dk or dv: causal gradients shrink along the
+    sequence, so a share of the tensor's largest would pass a fault in the
+    late tiles) plus 1e-4 of the tensor's largest (f32 noise where ds
+    cancels) plus one bf16 ulp (2^-7) of itself, and the error's norm to
+    1% of the plain gradient's."""
+    out, ref = out.float(), ref.float()
+    allow = (1e-2 * ref.abs().amax(-1, keepdim=True)
+             + 1e-4 * ref.abs().max() + 2.0 ** -7 * ref.abs())
+    err = (out - ref).abs()
+    return bool((err <= allow).all()) and \
+        err.norm().item() <= 1e-2 * ref.norm().item()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal", [
+    (3, 200, 200, 8, 2, 128, True),     # ragged tiles, GQA 4
+    (3, 130, 130, 4, 4, 16, False),
+    (2, 257, 257, 6, 3, 24, True),
+    (3, 512, 512, 4, 2, 32, False),
+    (2, 300, 300, 4, 1, 64, True),
+    (2, 48, 333, 8, 2, 128, True),      # new tokens over a cache
+    (1, 3, 20, 2, 1, 16, True),         # a few rows in one ragged tile
+    (5, 70, 70, 1, 1, 32, False),
+])
+def test_flash_backward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
+    """Kernel rows 8 and 9 (dq; dk and dv) against flash_bwd_ref on the
+    same bf16 inputs, bounded and with the positions given; padded and
+    dead rows and keys exactly 0."""
+    q, k, v, seg_q, seg_kv = _flash_inputs(cuda, B, Sq, Skv, Hq, Hkv, D,
+                                           Sq + D + 1)
+    q_pos = kv_pos = None
+    if Sq != Skv:
+        q_pos = torch.arange(Skv - 17 - Sq, Skv - 17,
+                             device=cuda).expand(B, Sq)
+        kv_pos = torch.arange(Skv, device=cuda).expand(B, Skv)
+    ints = fa.mask_inputs(q, k, seg_q, seg_kv, q_pos, kv_pos)
+    sm = 1.0 / math.sqrt(D)
+    out, lse = fa.flash_fwd(q, k, v, *ints, causal=causal, sm_scale=sm,
+                            want_lse=True)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    do = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    want = fa.flash_bwd_ref(q, k, v, *ints, out, lse, do, causal=causal,
+                            sm_scale=sm)
+    for bounded in ((False, True) if q_pos is None else (False,)):
+        before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        got = fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=causal,
+                           sm_scale=sm, bounded=bounded)
+        torch.cuda.synchronize()
+        assert (fa.launches_bwd_dq, fa.launches_bwd_dkv) == (
+            before[0] + 1, before[1] + 1)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == b.shape and a.dtype == torch.bfloat16
+            assert torch.isfinite(a.float()).all(), name
+            assert _grad_close(a, b), (name, bounded,
+                                       (a.float() - b.float()).abs().max())
+        dq, dk, dv = got
+        assert not dq[ints[0] == 0].any().item()
+        assert not dk[ints[1] == 0].any().item()
+        assert not dv[ints[1] == 0].any().item()
+
+
+def test_flash_attention_under_grad_takes_the_backward_kernels(cuda):
+    """flash_attention with inputs that require grad goes through the
+    autograd Function: one forward launch (with lse), one launch of each
+    backward kernel, and the gradients flash_bwd gives directly."""
+    B, S, Hq, Hkv, D = 2, 160, 8, 2, 64
+    q, k, v, seg, _ = _flash_inputs(cuda, B, S, S, Hq, Hkv, D, 11)
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    out = fa.flash_attention(q, k, v, seg, seg, causal=True)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    do = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fa.launches_bwd_dq - before[1],
+            fa.launches_bwd_dkv - before[2]) == (1, 1, 1)
+    ints = fa.mask_inputs(q, k, seg, seg, None, None)
+    with torch.no_grad():
+        o2, lse = fa.flash_fwd(q, k, v, *ints, causal=True,
+                               sm_scale=D ** -0.5, bounded=True,
+                               want_lse=True)
+        want = fa.flash_bwd(q, k, v, *ints, o2, lse, do, causal=True,
+                            sm_scale=D ** -0.5, bounded=True)
+    for a, b in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError):   # the kernel alone has no backward
+        fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=D ** -0.5)
+
+
+def test_flash_backward_at_the_training_shape(cuda):
+    """B2 x S2048, Hq 32, Hkv 8, D 128, causal, bounded: the shape every
+    layer of the Llama-3-8B training step gives the kernels."""
+    B, S, Hq, Hkv, D = 2, 2048, 32, 8, 128
+    q, k, v, _, _ = _flash_inputs(cuda, B, S, S, Hq, Hkv, D, 12)
+    ints = fa.mask_inputs(q, k, None, None, None, None)
+    sm = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=sm,
+                            bounded=True, want_lse=True)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    do = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    got = fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=True,
+                       sm_scale=sm, bounded=True)
+    want = fa.flash_bwd_ref(q, k, v, *ints, out, lse, do, causal=True,
+                            sm_scale=sm)
+    for a, b in zip(got, want):
+        assert _grad_close(a, b), (a.float() - b.float()).abs().max()
 
 
 def test_rowblock_fwd_esm2_35m_shape_and_model_route(cuda):

@@ -7,6 +7,7 @@ import sys
 MODULES = [
     "procyon_tpu_torch",
     "procyon_tpu_torch.bridge",
+    "procyon_tpu_torch.config",
     "procyon_tpu_torch.ops._build",
     "procyon_tpu_torch.ops.activations",
     "procyon_tpu_torch.ops.attention_rowblock",
@@ -28,8 +29,10 @@ MODULES = [
     "procyon_tpu_torch.models.projectors",
     "procyon_tpu_torch.models.unified",
     "procyon_tpu_torch.data.collators",
+    "procyon_tpu_torch.data.data_config",
     "procyon_tpu_torch.data.datasets",
     "procyon_tpu_torch.data.instruct",
+    "procyon_tpu_torch.data.mixing",
     "procyon_tpu_torch.data.protein_tokenizer",
     "procyon_tpu_torch.data.registry",
     "procyon_tpu_torch.data.text_tokenizer",
@@ -46,6 +49,14 @@ MODULES = [
     "procyon_tpu_torch.app.main",
     "procyon_tpu_torch.app.server",
     "procyon_tpu_torch.scripts.caption_bulk",
+    "procyon_tpu_torch.scripts.run_pretrain",
+    "procyon_tpu_torch.training.checkpointing",
+    "procyon_tpu_torch.training.combined_step",
+    "procyon_tpu_torch.training.logging_utils",
+    "procyon_tpu_torch.training.optimizer",
+    "procyon_tpu_torch.training.prefetch",
+    "procyon_tpu_torch.training.train_step",
+    "procyon_tpu_torch.training.trainer",
 ]
 
 
@@ -73,5 +84,7 @@ def test_import_builds_nothing():
                                        paged_attention)
     assert attention_rowblock.launches >= 0 and fused_mlp.launches >= 0 \
         and flash_attention.launches >= 0 and page_move.launches >= 0 \
-        and paged_attention.launches >= 0 and int4_matmul.launches >= 0
+        and paged_attention.launches >= 0 and int4_matmul.launches >= 0 \
+        and flash_attention.launches_bwd_dq >= 0 \
+        and flash_attention.launches_bwd_dkv >= 0
     assert not _build._libs

@@ -280,3 +280,26 @@ def test_rotary_at_positions_matches_gathered_tables(n_heads):
     got1 = trot.apply_rotary_flat_decode(torch.from_numpy(x1), c1, s1, D)
     np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=1e-6)
     np.testing.assert_allclose(got1.numpy(), got.numpy()[:, :1], atol=1e-6)
+
+
+@pytest.mark.parametrize("n_heads", [4, 2])
+def test_rotary_gradient_matches_jax(n_heads):
+    """apply_rotary_flat's backward (a gather with the self-inverse lane
+    permutation) gives jax.grad's input gradient of the reference's rotary,
+    to 1e-6."""
+    D, theta = 16, 5e5
+    rng = np.random.default_rng(10 + n_heads)
+    pos = rng.integers(0, 128, (2, 9)).astype(np.int32)
+    x = rng.standard_normal((2, 9, n_heads * D)).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    cos, sin, perm = jrot.flat_rotary_tables(D, n_heads, 128, theta)
+    want = jax.grad(lambda a: jnp.sum(jrot.apply_rotary_flat(
+        a, cos[pos], sin[pos], perm) * w))(jnp.asarray(x))
+    cos_g, sin_g, tperm = trot.flat_rotary_at(torch.from_numpy(pos), D,
+                                              n_heads, theta)
+    np.testing.assert_array_equal(tperm[tperm].numpy(),
+                                  np.arange(n_heads * D))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (trot.apply_rotary_flat(xt, cos_g, sin_g, tperm)
+     * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-6)
