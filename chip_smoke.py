@@ -113,7 +113,24 @@ source, all started together), then:
      trainable leaf changed;
  17. runs `python -m procyon_tpu_torch.scripts.run_pretrain --synthetic true
      --max_steps 20` in its own process on the card and restores the
-     checkpoint it wrote.
+     checkpoint it wrote;
+ 18. holds the staged page move (gather into a scratch buffer, then
+     scatter) against its plain version, exactly, at the caption pool's
+     shape with 2,560 moves whose sources overlap their destinations (a
+     swap, a 3-cycle, a chain, 64 destinations permuted, repeated
+     sources), for bf16, int8 and f32 slabs; the same plan through the
+     direct move must differ; index_select + index_copy_ beside it;
+ 19. holds the LN + row quantization (codes, scales) and the two-pass int8
+     MLP (with and without the residual) against their plain versions at
+     ESM2-3B's MLP on a B64 x L512 batch, and the fused int8 decode MLP at
+     Llama-3-8B width at 8 and 16 rows (each of its two kernels' device
+     time from torch.profiler);
+ 20. drives the two probe entry points at full width:
+     `probe_fused_decode` (Llama-3-8B MLP, 32 distinct int8 layers, 16 and
+     8 rows: us a layer for the port's int8 route, the kernel and bf16
+     `x @ w`, beside the weight-streaming floor) and
+     `probe_fused_mlp_blocks` (ESM2-3B: the one-pass kernel against the
+     two passes).
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -121,8 +138,10 @@ operations over the peak for their type (989 TFLOP/s bf16, 1979 TOP/s
 int8); an attention kernel's operations count the (query, key) pairs this
 run's masks allow, and its bytes the q, k and v rows that are not padding;
 the paged attention counts the live tokens of this run's lengths, the page
-move each moved row read once and written once, the int4 matmul its packed
-weights, scales, x and out.
+moves each moved row read once (a source that repeats once) and written
+once, the int4 matmul its packed weights, scales, x and out, the row
+quantization x, its affine, the codes and the scales, the fused decode MLP
+its int8 weights, scales, x, the norm weight and out.
 The flash backward's operations are five products over the allowed pairs
 (the dq kernel's least work three, the dk / dv kernel's four).
 --profile adds one torch.profiler trace of a request, of five beam steps
@@ -179,6 +198,21 @@ PEAK_INT8 = 1979e12
 POOL_SHAPE = dict(L=32, n_pages=881, page=64, KD=1024)
 PAGE_MOVES = 32 * 80
 PAGED_SHAPE = dict(Hq=32, Hkv=8, D=128, page=64, P=12)
+# the two-pass int8 MLP (rows 5 and 6) at ESM2-3B, ProCyon-Full's protein
+# encoder, on a B64 x L512 batch; the row pass's codes may differ from the
+# plain version's at rounding ties only (f32 sums in another order)
+ESM3B_MLP = dict(M=64 * 512, d=2560, H=10240)
+CODE_FLIPS = 1e-3
+SX_RTOL = 1e-6
+# the fused decode MLP (row 14) at Llama-3-8B: one bf16 output rounding on
+# both sides; a (bf16 after sums in another order) may take the
+# neighbouring value, which moves the output by far less than DECODE_ATOL
+DECODE_SHAPE = dict(d=4096, I=14336, layers=32)
+DECODE_ROWS = (8, 16)
+DECODE_ATOL = 2e-3
+# probe_fused_decode: after 32 layers the kernel's chain against the int8
+# route's (bf16 scales, bf16 products), a share of the largest output
+PROBE_CHAIN_RTOL = 5e-2
 PAGED_BATCHES = (8, 80)
 CAPTION_PROTEINS = 8
 CAPTION_SMALL = dict(layers=2, vocab=8192, prompts=2, beam=4, new_tokens=8)
@@ -319,6 +353,15 @@ def bound(n_bytes, ops, peak_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def decode_bound_ms(M):
+    """Row 14's least time at M rows: the three int8 weights, their f32
+    scales, x, the norm weight and the output, against the bf16 products
+    of the gate, up and down matrices."""
+    d, I = DECODE_SHAPE["d"], DECODE_SHAPE["I"]
+    n_bytes = 3 * d * I + 4 * (2 * I + d) + 2 * (2 * M * d + d)
+    return bound(n_bytes, 2 * M * 3 * d * I, PEAK_BF16)
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -370,7 +413,7 @@ def phase_build():
     from procyon_tpu_torch.ops import _build
     names = ("rowblock_attention", "fused_ln_mlp_int8", "flash_attention_fwd",
              "page_move", "paged_attention", "int4_matmul",
-             "flash_attention_bwd")
+             "flash_attention_bwd", "fused_decode_mlp")
     t0 = time.perf_counter()
     errors = {}
 
@@ -1145,6 +1188,289 @@ def phase_page_move(dev):
         del pool, got
         torch.cuda.empty_cache()
     return result
+
+
+def staged_moves(dev, N, M, g):
+    """M moves over N rows with distinct destinations whose sources hold a
+    swap, a 3-cycle, a chain (a row that is a source and a destination),
+    64 destinations moved among themselves, and sources that repeat; in a
+    random order, so that a move that reads a row another one writes is
+    mostly far from it in the grid, where a copy without staging reads
+    the row after it was written."""
+    import torch
+    p = torch.randperm(N, generator=g, device=dev)
+    dst = p[:M]
+    src = torch.cat([
+        p[torch.tensor([1, 0, 3, 4, 2, M + 7, 5], device=dev)],
+        p[7:71][torch.randperm(64, generator=g, device=dev)],
+        p[M:][torch.randint(0, M // 4, (M - 71,), generator=g, device=dev)]])
+    order = torch.randperm(M, generator=g, device=dev)
+    return src[order].to(torch.int32), dst[order].to(torch.int32)
+
+
+def phase_staged_move(dev):
+    """The staged page move (kernel row 11) at the caption path's shape:
+    the session's bf16 pool (32 layers x 881 pages of [64, 1024]), 2,560
+    moves whose sources overlap their destinations (staged_moves), then an
+    int8 pool and an f32 scale slab [.., 64, 8]. Its path: the three moves,
+    counted; each equal to the plain version, exactly. Interpret mode on
+    the CPU cannot tell a kernel that writes before every source is read,
+    so this is the check of that order."""
+    import torch
+    from procyon_tpu_torch.ops import page_move as pm
+    L, n_pages, page, KD = (POOL_SHAPE[k] for k in ("L", "n_pages", "page",
+                                                    "KD"))
+    N, M = L * n_pages, PAGE_MOVES
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    src, dst = staged_moves(dev, N, M, g)
+    check(torch.isin(src, dst).any().item()
+          and src.unique().numel() < M, "staged move: the plan has no "
+                                        "overlap or no repeated source")
+    slabs = {dtype: torch.randint(-100, 100, (N, *tail), generator=g,
+                                  device=dev, dtype=torch.int32).to(dtype)
+             for dtype, tail in ((torch.bfloat16, (page, KD)),
+                                 (torch.int8, (page, KD)),
+                                 (torch.float32, (page, KD // 128)))}
+    starts = {dtype: pool.clone() for dtype, pool in slabs.items()}
+    pm.launches_staged = 0
+    for pool in slabs.values():
+        pm.move_pages(pool, src, dst)
+    torch.cuda.synchronize()
+    path_launches = pm.launches_staged
+    check(path_launches == len(slabs), f"staged move: {path_launches} "
+          f"launches on its path, not {len(slabs)}")
+    result = None
+    for dtype, pool in slabs.items():
+        start = starts.pop(dtype)
+        want = pm.move_pages_ref(start.clone(), src, dst)
+        check(torch.equal(pool, want),
+              f"staged page move ({dtype}): differs from the plain version")
+        # the same plan through the direct kernel, which copies without
+        # staging: the check above would have seen that order
+        pm.move_pages_direct(start, src, dst)
+        check(not torch.equal(start, want), "staged move: the plan does "
+              "not tell a copy without staging from the staged one")
+        del want, start
+        ms, plain_ms = paired_ms(lambda: pm.move_pages(pool, src, dst),
+                                 lambda: pm.move_pages_ref(pool, src, dst))
+        srcl, dstl = src.long(), dst.long()
+        library_ms = cuda_ms(lambda: pool.index_copy_(
+            0, dstl, pool.index_select(0, srcl)))
+        row_bytes = pool[0].numel() * pool.element_size()
+        n_src = src.unique().numel()
+        n_bytes = (n_src + M) * row_bytes + nbytes(src, dst)
+        bound_ms, bound_by = bound(n_bytes, 0, PEAK_BF16)
+        name = str(dtype).split(".")[1]
+        print(f"staged page move {name} pool {list(pool.shape)}, {M} moves "
+              f"of {row_bytes} bytes, {n_src} distinct sources, swap, "
+              f"3-cycle, chain and 64 destinations permuted: equal to the "
+              f"plain version (the in-place copy is not); kernel {ms:.4f} "
+              f"ms (gather + scatter), plain {plain_ms:.4f} ms, "
+              f"index_select + index_copy_ {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB)")
+        if result is None:
+            result = dict(
+                name="page_move_staged", route="cuda",
+                source="procyon_tpu_torch/csrc/page_move.cu",
+                replaces="procyon_tpu/ops/page_move.py:46",
+                shape=f"pool [{N}, {page}, {KD}] bf16, {M} overlapping "
+                      "moves", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    del slabs, pool
+    torch.cuda.empty_cache()
+    result["path_launches"] = path_launches
+    return result
+
+
+def esm3b_mlp_args(dev, M, seed):
+    """ESM2-3B's MLP at M rows: bf16 x, f32 LayerNorm affine (the row
+    pass's operands as the reference hands them to its kernel), int8
+    weights, bf16 biases."""
+    import torch
+    from procyon_tpu_torch.ops import quant
+    d, H = ESM3B_MLP["d"], ESM3B_MLP["H"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    w1 = quant.quantize(randn(d, H, scale=d ** -0.5))
+    w2 = quant.quantize(randn(H, d, scale=H ** -0.5))
+    return (randn(M, d).to(torch.bfloat16), 1 + randn(d, scale=0.1),
+            randn(d, scale=0.1), w1["q"], w1["s"],
+            randn(H, scale=0.1).to(torch.bfloat16), w2["q"], w2["s"],
+            randn(d, scale=0.1).to(torch.bfloat16))
+
+
+def phase_prequant_mlp(dev):
+    """Kernel rows 5 and 6 at ESM2-3B's MLP (d 2560, H 10240) on a B64 x
+    L512 batch (32768 rows): the LN + row quantization against its plain
+    version (codes equal but at rounding ties, at most CODE_FLIPS of them
+    and each by one step; scales within SX_RTOL), the two-pass MLP with
+    and without the residual within the one-pass kernel's tolerance."""
+    import torch
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    M = ESM3B_MLP["M"]
+    args = esm3b_mlp_args(dev, M, SEED + 23)
+    x, lnw, lnb = args[:3]
+    d, H = x.shape[1], args[3].shape[1]
+    xq, sx = fm.ln_quant_rows(x, lnw, lnb)
+    rq, rs = fm.ln_quant_rows_ref(x, lnw, lnb)
+    torch.cuda.synchronize()
+    diff = (xq.int() - rq.int()).abs()
+    flips = (diff > 0).float().mean().item()
+    sx_err = ((sx - rs).abs() / rs).max().item()
+    check(diff.max().item() <= 1 and flips <= CODE_FLIPS
+          and sx_err <= SX_RTOL, f"ln_quant_rows: {flips} of the codes "
+          f"differ (largest {diff.max().item()}), scales {sx_err} relative")
+    ms, plain_ms = paired_ms(lambda: fm.ln_quant_rows(x, lnw, lnb),
+                             lambda: fm.ln_quant_rows_ref(x, lnw, lnb))
+    n_bytes = nbytes(x, lnw, lnb, xq, sx)
+    bound_ms, bound_by = bound(n_bytes, 0, PEAK_INT8)
+    print(f"LN + row quantization M{M} d{d}: {flips:.2e} of the codes "
+          f"differ by one (tol {CODE_FLIPS}), scales within {sx_err:.2e} "
+          f"(tol {SX_RTOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB); "
+          "no single PyTorch call computes it")
+    rows = dict(name="ln_quant_rows", route="cuda",
+                source="procyon_tpu_torch/csrc/fused_ln_mlp_int8.cu",
+                replaces="procyon_tpu/ops/fused_mlp.py:203",
+                shape=f"M{M} d{d}", max_abs_err=float(diff.max().item()),
+                code_flips=flips, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    del rq, rs, diff
+    errs = []
+    for residual in (False, True):
+        out = fm.fused_mlp_int8_prequant(*args, add_residual=residual)
+        ref = fm.fused_mlp_int8_prequant_ref(*args, add_residual=residual)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        check(torch.isfinite(out.float()).all().item(),
+              "two-pass mlp: non-finite")
+        errs.append(err.max().item())
+        check(within_tol(out, ref) and err.mean().item() <= MLP_MEAN_TOL,
+              f"two-pass mlp (residual={residual}): max_abs_err {errs[-1]}, "
+              f"mean {err.mean().item()}")
+        del out, ref, err
+
+    def two_pass():
+        return fm.fused_mlp_int8_prequant(*args, add_residual=True)
+
+    ms_pq = device_ms_by_kernel(two_pass, ["fused_ln_mlp_int8_kernel"],
+                                reps=3)["fused_ln_mlp_int8_kernel"]
+    total_ms, plain_ms = paired_ms(
+        two_pass, lambda: fm.fused_mlp_int8_prequant_ref(*args,
+                                                         add_residual=True))
+    ops = 4 * M * d * H
+    n_bytes = nbytes(xq, sx, *args[3:]) + nbytes(x)
+    bound_ms, bound_by = bound(n_bytes, ops, PEAK_INT8)
+    print(f"two-pass int8 mlp M{M} d{d} H{H} G{fm.prequant_group(H)} "
+          f"(BM {fm.row_block('two_pass', M, d, H)}): max_abs_err "
+          f"{errs[0]:.3e} / {errs[1]:.3e} (no residual / residual; tol "
+          f"{ATOL} + {RTOL}|plain|, mean {MLP_MEAN_TOL}); MLP kernel "
+          f"{ms_pq:.4f} ms (device time), the two passes with the "
+          f"residual {total_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({ops / 1e12:.2f} T int8 ops); "
+          "no single PyTorch call computes it")
+    pq = dict(name="fused_mlp_int8_prequant", route="cuda",
+              source="procyon_tpu_torch/csrc/fused_ln_mlp_int8.cu",
+              replaces="procyon_tpu/ops/fused_mlp.py:255",
+              shape=f"M{M} d{d} H{H}", max_abs_err=max(errs), ms=ms_pq,
+              two_pass_ms=total_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=None)
+    return rows, pq
+
+
+def decode_args(dev, M, seed):
+    """One Llama-3-8B decode MLP at M rows, the reference probe's scales
+    varied per column."""
+    import torch
+    d, I = DECODE_SHAPE["d"], DECODE_SHAPE["I"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sc = 1.0 / (127.0 * math.sqrt(d))
+
+    def leaf(rows, cols):
+        return {"q": torch.randint(-127, 128, (rows, cols), generator=g,
+                                   device=dev, dtype=torch.int8),
+                "s": torch.rand((1, cols), generator=g, device=dev) * 2 * sc}
+
+    x = torch.randn((M, d), generator=g, device=dev).to(torch.bfloat16)
+    nw = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(
+        torch.bfloat16)
+    return x, nw, leaf(d, I), leaf(d, I), leaf(I, d)
+
+
+def phase_fused_decode(dev):
+    """Kernel row 14 at Llama-3-8B width (d 4096, I 14336) at 8 and 16
+    rows: against its plain version within DECODE_ATOL + one bf16 ulp,
+    bitwise the same on a second launch; the plain version's time and each
+    of the two kernels' device time at 16 rows."""
+    import torch
+    from procyon_tpu_torch.ops import fused_decode as fd
+    errs = {}
+    for M in DECODE_ROWS:
+        args = decode_args(dev, M, SEED + 24 + M)
+        out = fd.fused_decode_mlp(*args)
+        ref = fd.fused_decode_mlp_ref(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        delta = (ref.float() - args[0].float()).abs().max().item()
+        errs[M] = err.max().item()
+        check(bool((err <= DECODE_ATOL + RTOL * ref.float().abs()).all()),
+              f"fused decode M{M}: max_abs_err {errs[M]}")
+        check(torch.equal(out, fd.fused_decode_mlp(*args)),
+              f"fused decode M{M}: two launches differ")
+        print(f"fused decode mlp M{M} d{DECODE_SHAPE['d']} "
+              f"I{DECODE_SHAPE['I']}: max_abs_err {errs[M]:.3e} (tol "
+              f"{DECODE_ATOL} + {RTOL}|plain|; the MLP moves the output by "
+              f"up to {delta:.3f}), bitwise the same twice")
+    plain_ms = cuda_ms(lambda: fd.fused_decode_mlp_ref(*args), iters=3,
+                       warmup=1)
+    split = device_ms_by_kernel(lambda: fd.fused_decode_mlp(*args),
+                                ["decode_gate_up_kernel",
+                                 "decode_down_kernel"])
+    print(f"fused decode mlp M{M}: plain {plain_ms:.4f} ms; device time "
+          f"(weights re-read, 176 MB > L2) gate / up "
+          f"{split['decode_gate_up_kernel']:.4f} ms, down "
+          f"{split['decode_down_kernel']:.4f} ms")
+    return dict(max_abs_err=max(errs.values()), plain_ms=plain_ms,
+                gate_up_ms=split["decode_gate_up_kernel"],
+                down_ms=split["decode_down_kernel"])
+
+
+def phase_probes(dev):
+    """The two probe entry points at full width, each with its kernels'
+    counts zeroed just before and read just after:
+    probe_fused_decode at Llama-3-8B (d 4096, I 14336, 32 distinct layers)
+    at 16 and 8 rows, probe_fused_mlp_blocks at ESM2-3B (M 32768)."""
+    import torch
+    from procyon_tpu_torch.ops import fused_decode as fd
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    from procyon_tpu_torch.scripts import probe_fused_decode as pfd
+    from procyon_tpu_torch.scripts import probe_fused_mlp_blocks as pmb
+    fd.launches = 0
+    decode = {}
+    for M in reversed(DECODE_ROWS):
+        res = pfd.main(["--dim", str(DECODE_SHAPE["d"]), "--inter",
+                        str(DECODE_SHAPE["I"]), "--layers",
+                        str(DECODE_SHAPE["layers"]), "--m", str(M)])
+        check(res["finite"] and res["kernel_us"] > 0, f"probe_fused_decode "
+              f"M{M}: {res}")
+        check(res["max_abs_diff"] <= PROBE_CHAIN_RTOL * res["ref_max"],
+              f"probe_fused_decode M{M}: the kernel's chain is "
+              f"{res['max_abs_diff']} from the int8 route's")
+        decode[M] = res
+        torch.cuda.empty_cache()
+    decode_launches = fd.launches
+    fm.launches_ln_quant = fm.launches_prequant = 0
+    blocks = pmb.main(["--dim", str(ESM3B_MLP["d"]), "--ffn",
+                       str(ESM3B_MLP["H"]), "--rows", str(ESM3B_MLP["M"])])
+    check(blocks["finite"], f"probe_fused_mlp_blocks: {blocks}")
+    launches = {"fused_decode_mlp": decode_launches,
+                "ln_quant_rows": fm.launches_ln_quant,
+                "fused_mlp_int8_prequant": fm.launches_prequant}
+    torch.cuda.empty_cache()
+    return launches, decode, blocks
 
 
 def paged_lens(B, max_ctx, page, rng):
@@ -3266,6 +3592,29 @@ def main():
     kernels.append(phase_int4(dev))
     kernels.extend(phase_flash_bwd(dev))
     torch.cuda.empty_cache()
+    staged = phase_staged_move(dev)
+    kernels.extend(phase_prequant_mlp(dev))
+    torch.cuda.empty_cache()
+    decode_check = phase_fused_decode(dev)
+    torch.cuda.empty_cache()
+    probe_launches, decode_probe, blocks_probe = phase_probes(dev)
+    kernels.append(staged)
+    kernels.append(dict(
+        name="fused_decode_mlp", route="cuda",
+        source="procyon_tpu_torch/csrc/fused_decode_mlp.cu",
+        replaces="scripts/probe_fused_decode.py:74",
+        shape=f"M{DECODE_ROWS[-1]} d{DECODE_SHAPE['d']} "
+              f"I{DECODE_SHAPE['I']}, weights cold",
+        max_abs_err=decode_check["max_abs_err"],
+        ms=decode_probe[DECODE_ROWS[-1]]["kernel_us"] / 1e3,
+        plain_ms=decode_check["plain_ms"],
+        **dict(zip(("bound_ms", "bound_by"),
+                   decode_bound_ms(DECODE_ROWS[-1]))), library_ms=None,
+        gate_up_ms=decode_check["gate_up_ms"],
+        down_ms=decode_check["down_ms"],
+        int8_route_us={M: decode_probe[M]["int8_us"] for M in DECODE_ROWS},
+        bf16_route_us={M: decode_probe[M]["bf16_us"] for M in DECODE_ROWS},
+        kernel_us={M: decode_probe[M]["kernel_us"] for M in DECODE_ROWS}))
     phase_small_reference(dev)
     launches, cos_min, state = phase_main_path(dev)
     rates, bench_cos = phase_throughput(dev, *state)
@@ -3298,6 +3647,8 @@ def main():
     torch.cuda.empty_cache()
     spec = phase_speculative(dev)
     phase_train_cli(dev)
+    launches.update(probe_launches)
+    launches["page_move_staged"] = staged.pop("path_launches")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its "
@@ -3333,6 +3684,19 @@ def main():
         "flash_bwd_dq_launches": launches["flash_attention_bwd_dq"],
         "flash_bwd_dkv_launches": launches["flash_attention_bwd_dkv"],
         **train}}))
+    print(json.dumps({"main_path": {
+        "model": "probe_fused_decode (Llama-3-8B MLP, int8 weights, 32 "
+                 "distinct layers), probe_fused_mlp_blocks (ESM2-3B MLP, "
+                 "B64 x L512)",
+        "fused_decode_launches": launches["fused_decode_mlp"],
+        "ln_quant_launches": launches["ln_quant_rows"],
+        "prequant_launches": launches["fused_mlp_int8_prequant"],
+        "decode_us_per_layer": {
+            M: {k: decode_probe[M][k] for k in ("int8_us", "kernel_us",
+                                               "bf16_us", "floor_us")}
+            for M in DECODE_ROWS},
+        "esm3b_mlp_ms": {k: blocks_probe[k] for k in
+                         ("one_pass_ms", "two_pass_ms", "ln_quant_ms")}}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@ tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
 lengths, every head dim, strided views, a cache shape and ESM2-35M's route;
 the flash backward (dq; dk and dv) at the same shapes and at the training
 shape, and through the autograd Function;
-the page move on bf16, int8 and f32 rows; the paged decode attention at
+the page move on bf16, int8 and f32 rows, direct and staged (swaps,
+cycles, chains: the only test of the staged move's order); the LN + row
+quantization and the two-pass MLP at ESM2-3B's widths and every group
+they take; the fused decode MLP at 1 to 16 rows; the paged decode attention at
 other head dims, groups and page sizes, bf16 and int8 pools; the int4
 matmul at the five Llama-3-8B weight shapes (n cut where it can be), rows
 1 to 256, groups of 64 and 128, and one batcher run with int4 weights.
@@ -24,6 +27,7 @@ import torch
 
 from procyon_tpu_torch.ops import attention_rowblock as rb
 from procyon_tpu_torch.ops import flash_attention as fa
+from procyon_tpu_torch.ops import fused_decode as fd
 from procyon_tpu_torch.ops import fused_mlp as fm
 from procyon_tpu_torch.ops import int4_matmul as i4
 from procyon_tpu_torch.ops import page_move as pm
@@ -138,6 +142,102 @@ def test_fused_mlp_matches_plain(cuda, M, d, H, add_residual):
     torch.cuda.synchronize()
     assert _close(out, ref)
     assert (out.float() - ref.float()).abs().mean().item() <= 2e-3
+
+
+def _mlp_args(dev, M, d, H, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    w1 = quant.quantize(randn(d, H, scale=d ** -0.5))
+    w2 = quant.quantize(randn(H, d, scale=H ** -0.5))
+    return (randn(M, d).to(torch.bfloat16),
+            (1 + randn(d, scale=0.1)).to(torch.bfloat16),
+            randn(d, scale=0.1).to(torch.bfloat16), w1["q"], w1["s"],
+            randn(H, scale=0.1).to(torch.bfloat16), w2["q"], w2["s"],
+            randn(d, scale=0.1).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("M,d", [(512, 256), (1024, 2560), (40, 5120)])
+def test_ln_quant_rows_matches_plain(cuda, M, d):
+    """Codes equal but at rounding ties (at most 1e-3 of them, one step),
+    scales within 1e-6 relative."""
+    x, lnw, lnb = _mlp_args(cuda, M, d, 256, M + d)[:3]
+    before = fm.launches_ln_quant
+    xq, sx = fm.ln_quant_rows(x, lnw, lnb)
+    assert fm.launches_ln_quant == before + 1
+    rq, rs = fm.ln_quant_rows_ref(x, lnw, lnb)
+    torch.cuda.synchronize()
+    assert sx.shape == (M, 1) and xq.dtype == torch.int8
+    diff = (xq.int() - rq.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+    assert ((sx - rs).abs() <= 1e-6 * rs).all()
+
+
+@pytest.mark.parametrize("M,d,H", [(512, 128, 1024), (1024, 2560, 10240),
+                                   (512, 128, 768), (256, 512, 1920)])
+@pytest.mark.parametrize("add_residual", [False, True])
+def test_prequant_mlp_matches_plain(cuda, M, d, H, add_residual):
+    """Groups 256 (two a step), 128 (two a step) and 128 (one a step);
+    the one-pass kernel's tolerance."""
+    args = _mlp_args(cuda, M, d, H, M + H)
+    before = (fm.launches_ln_quant, fm.launches_prequant)
+    out = fm.fused_mlp_int8_prequant(*args, add_residual=add_residual)
+    assert (fm.launches_ln_quant, fm.launches_prequant) == (
+        before[0] + 1, before[1] + 1)
+    ref = fm.fused_mlp_int8_prequant_ref(*args, add_residual=add_residual)
+    torch.cuda.synchronize()
+    assert _close(out, ref)
+    assert (out.float() - ref.float()).abs().mean().item() <= 2e-3
+    assert torch.equal(out, fm.fused_mlp_int8_prequant(
+        *args, add_residual=add_residual))
+
+
+def _decode_args(dev, M, d, I, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sc = 1.0 / (127.0 * math.sqrt(d))
+
+    def leaf(rows, cols):
+        return {"q": torch.randint(-127, 128, (rows, cols), generator=g,
+                                   device=dev, dtype=torch.int8),
+                "s": torch.rand((1, cols), generator=g, device=dev) * 2 * sc}
+
+    x = torch.randn((M, d), generator=g, device=dev).to(torch.bfloat16)
+    nw = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(
+        torch.bfloat16)
+    return x, nw, leaf(d, I), leaf(d, I), leaf(I, d)
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 16])
+@pytest.mark.parametrize("d,I", [(128, 512), (4096, 14336)])
+def test_fused_decode_mlp_matches_plain(cuda, M, d, I):
+    """|kernel - plain| <= 2e-3 + one bf16 ulp of the value: both round
+    the output once; a, rounded to bf16 after sums in another order, may
+    take the neighbouring value. Bitwise the same on a second launch."""
+    args = _decode_args(cuda, M, d, I, M + d)
+    before = fd.launches
+    out = fd.fused_decode_mlp(*args)
+    assert fd.launches == before + 1
+    ref = fd.fused_decode_mlp_ref(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    assert (err <= 2e-3 + 2.0 ** -7 * ref.float().abs()).all()
+    assert torch.equal(out, fd.fused_decode_mlp(*args))
+
+
+def test_fused_decode_mlp_refuses_what_it_cannot_take(cuda):
+    x, nw, wg, wu, wd = _decode_args(cuda, 17, 128, 512, 0)
+    with pytest.raises(ValueError, match="M <= 16"):
+        fd.fused_decode_mlp(x, nw, wg, wu, wd)
+    with pytest.raises(TypeError, match="bf16"):
+        fd.fused_decode_mlp(x[:4].float(), nw, wg, wu, wd)
+    with pytest.raises(ValueError, match="int8"):
+        fd.fused_decode_mlp(x[:4], nw, {"q": wg["q"].to(torch.int16),
+                                        "s": wg["s"]}, wu, wd)
+    with pytest.raises(RuntimeError, match="grad"):
+        fd.fused_decode_mlp(x[:4].requires_grad_(), nw, wg, wu, wd)
 
 
 def test_int_mm_short_inputs_are_exact(cuda):
@@ -444,6 +544,35 @@ def test_page_move_matches_plain(cuda, dtype, tail):
     got = pm.move_pages_direct(pool, src, dst)
     torch.cuda.synchronize()
     assert pm.launches == before + 1 and got is pool
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,tail", [
+    (torch.bfloat16, (64, 1024)),
+    (torch.int8, (64, 1024)),
+    (torch.float32, (64, 8)),
+])
+def test_staged_page_move_is_safe_on_chains(cuda, dtype, tail):
+    """Every destination gets the OLD source row: swaps, a 3-cycle, a
+    chain, a permutation of 64 destinations among themselves and repeated
+    sources. A kernel that writes before all reads (the direct move on
+    these plans) fails this."""
+    N, M = 400, 160
+    g = torch.Generator(device=cuda).manual_seed(N + tail[1])
+    pool = torch.randint(-100, 100, (N, *tail), generator=g,
+                         device=cuda).to(dtype)
+    p = torch.randperm(N, generator=g, device=cuda)
+    dst = p[:M]
+    src = torch.cat([
+        p[[1, 0, 3, 4, 2, 200, 5]],                # swap, 3-cycle, chain
+        p[7:71][torch.randperm(64, generator=g, device=cuda)],
+        p[M:][torch.randint(0, 20, (M - 71,), generator=g, device=cuda)]])
+    dst, src = dst.to(torch.int32), src.to(torch.int32)
+    want = pm.move_pages_ref(pool.clone(), src, dst)
+    before = pm.launches_staged
+    got = pm.move_pages(pool, src, dst)
+    torch.cuda.synchronize()
+    assert pm.launches_staged == before + 1 and got is pool
     assert torch.equal(got, want)
 
 

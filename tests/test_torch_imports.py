@@ -12,6 +12,7 @@ MODULES = [
     "procyon_tpu_torch.ops.activations",
     "procyon_tpu_torch.ops.attention_rowblock",
     "procyon_tpu_torch.ops.flash_attention",
+    "procyon_tpu_torch.ops.fused_decode",
     "procyon_tpu_torch.ops.fused_mlp",
     "procyon_tpu_torch.ops.int4_matmul",
     "procyon_tpu_torch.ops.norms",
@@ -49,6 +50,8 @@ MODULES = [
     "procyon_tpu_torch.app.main",
     "procyon_tpu_torch.app.server",
     "procyon_tpu_torch.scripts.caption_bulk",
+    "procyon_tpu_torch.scripts.probe_fused_decode",
+    "procyon_tpu_torch.scripts.probe_fused_mlp_blocks",
     "procyon_tpu_torch.scripts.run_pretrain",
     "procyon_tpu_torch.training.checkpointing",
     "procyon_tpu_torch.training.combined_step",
@@ -80,11 +83,14 @@ def test_import_builds_nothing():
     happens at a wrapper's first launch on a CUDA tensor."""
     from procyon_tpu_torch.ops import _build
     from procyon_tpu_torch.ops import (attention_rowblock, flash_attention,
-                                       fused_mlp, int4_matmul, page_move,
-                                       paged_attention)
+                                       fused_decode, fused_mlp, int4_matmul,
+                                       page_move, paged_attention)
     assert attention_rowblock.launches >= 0 and fused_mlp.launches >= 0 \
         and flash_attention.launches >= 0 and page_move.launches >= 0 \
         and paged_attention.launches >= 0 and int4_matmul.launches >= 0 \
         and flash_attention.launches_bwd_dq >= 0 \
-        and flash_attention.launches_bwd_dkv >= 0
+        and flash_attention.launches_bwd_dkv >= 0 \
+        and fused_mlp.launches_ln_quant >= 0 \
+        and fused_mlp.launches_prequant >= 0 \
+        and page_move.launches_staged >= 0 and fused_decode.launches >= 0
     assert not _build._libs
