@@ -130,13 +130,37 @@ source, all started together), then:
      8 rows: us a layer for the port's int8 route, the kernel and bf16
      `x @ w`, beside the weight-streaming floor) and
      `probe_fused_mlp_blocks` (ESM2-3B: the one-pass kernel against the
-     two passes).
+     two passes);
+ 21. holds the RMSNorm + W8A8 SwiGLU MLP kernel (row 7) against its plain
+     version at the Bind prefill's MLP (4096 rows, d 4096, I 11008) and at
+     I 14336, per element in hidden-code steps, with a group's scale
+     doubled and the last row tile left out shown to fail that check;
+     kernel, plain version and the port's W8A8 route (rms_norm,
+     qmatmul_w8a8 gate / up, SiLU * u, qmatmul_w8a8 down) timed on the
+     same tensors, and the MLP's cosine to the route;
+ 22. checks the W8A8 prefill path on a 2-layer copy of the bench decoder
+     (full width) on the card in bf16 against the CPU in f32: Bind
+     yes-probabilities, retrieval query embeddings and their top-10;
+ 23. drives the three W8A8 entry points at the reference's defaults on
+     one decoder built from a seed (dim 4096, 30 layers, I 11008, vocab
+     32000, int8): bench_prefill (weight-only and W8A8 tokens/s at B4 x
+     S2048), bench_bind (pairs/s, W8A8 and weight-only) and
+     bench_retrieval (queries/s, 57,000 targets), each through its `run`;
+     the W8A8 quality gates against bf16 on the same weights and
+     quant_quality.probe (int8 W8A8, int8 and int4 weight-only); then
+     runs row 7 on every layer of the Bind prefill on that layer's own MLP
+     input beside the route (whose output goes on): per-layer ms and
+     cosine, 30 launches;
+ 24. ProcyonQAEval + run_qa_eval on the 2-layer copy in W8A8, card against
+     CPU, and a save_model -> load_model round trip on the card.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over the peak for their type (989 TFLOP/s bf16, 1979 TOP/s
 int8); an attention kernel's operations count the (query, key) pairs this
 run's masks allow, and its bytes the q, k and v rows that are not padding;
+row 7 counts 6 M d H int8 operations against its int8 weights, scales, x,
+the norm weight and out;
 the paged attention counts the live tokens of this run's lengths, the page
 moves each moved row read once (a source that repeats once) and written
 once, the int4 matmul its packed weights, scales, x and out, the row
@@ -146,7 +170,8 @@ The flash backward's operations are five products over the allowed pairs
 (the dq kernel's least work three, the dk / dv kernel's four).
 --profile adds one torch.profiler trace of a request, of five beam steps
 of each caption route, of one 8-step decode round of the serving path
-with bf16 and with int4 weights, and of one QA train step.
+with bf16 and with int4 weights, of one QA train step and of one W8A8
+Bind batch.
 
 Stdout ends with a JSON line of per-kernel results, the card's nvidia-smi
 line, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero.
@@ -297,6 +322,43 @@ TRAIN_UPDATE_COS = 0.9
 # from the card's start and gradients: bf16 moments move an Adam step (lr)
 # by a few percent; an update left out is 1 lr off, a flipped one 2
 TRAIN_PARAM_STEPS = 0.25
+# kernel row 7 (RMSNorm + W8A8 SwiGLU MLP + residual) at the Bind prefill's
+# MLP (B16 x L256 rows, Llama d 4096, I 11008) and at Llama-3-8B's I 14336.
+# Kernel against plain, per element in units of the step one hidden code
+# moves it, step[r, c] = max_j sa[r, j] * max_k |wd.q[k, c]| * wd.s[c]: the
+# error beyond one bf16 ulp of the plain value is at most SWIGLU_STEPS
+# steps, and at most SWIGLU_OFF_ULP of the elements are more than one ulp
+# off. The plain version sums a row's squares in another order, so an
+# input code can flip at a tie; that moves every hidden value of its row by
+# about one part in 127 sqrt(d) and flips the hidden codes that lay that
+# close to a tie, whose steps add with random signs (this check read 9.1
+# and 8.7 steps at I 11008 and 14336 on an H100 80GB HBM3 at 700 W); a
+# group's scale doubled or a row tile left out is hundreds of steps off
+SWIGLU_SHAPES = ((4096, 4096, 11008), (4096, 4096, 14336))
+SWIGLU_STEPS = 16.0
+SWIGLU_OFF_ULP = 1e-2
+SWIGLU_ROW_TILE = 64       # rows of a block of the kernel's launches
+# the W8A8 prefill path (bench_bind / bench_retrieval / bench_prefill at
+# the reference's defaults): a 2-layer copy on the card (bf16) against the
+# CPU (f32), both W8A8. bf16 rounding of an activation flips its int8 code
+# where it lies within 2^-9 of a tie, and the flip moves its whole row, so
+# W8A8 in bf16 drifts from f32 more than weight-only does (this check read
+# a yes-probability 0.031 off and an embedding cosine of 0.9982 on an
+# H100 80GB HBM3 at 700 W): the yes-probabilities within
+# W8A8_SMALL_PROB_ATOL, the embeddings' cosine at least SANITY_COS. The
+# readout is held by the logits at the answer position: each row's
+# cosine to the CPU's (centred over the vocabulary) at least SANITY_COS,
+# and the yes / no log-odds within READOUT_LOGODDS_REL of the CPU's
+# largest |log-odds| (a relative logit error of a few percent gives a
+# tenth of that); the answer read one position early, or yes and no
+# swapped, must fail that check. Then full width, W8A8 against bf16 on
+# the same seeded weights (random weights: sanity bounds)
+W8A8 = dict(B=16, L=256, targets=57000, prefill_B=4, prefill_S=2048)
+W8A8_SMALL_LAYERS = 2
+W8A8_SMALL_PROB_ATOL = 0.1
+READOUT_LOGODDS_REL = 0.25
+W8A8_FULL_PROB_GAP = 5e-2
+QA_EVAL_ROWS = 16
 
 
 def fail(msg):
@@ -413,7 +475,8 @@ def phase_build():
     from procyon_tpu_torch.ops import _build
     names = ("rowblock_attention", "fused_ln_mlp_int8", "flash_attention_fwd",
              "page_move", "paged_attention", "int4_matmul",
-             "flash_attention_bwd", "fused_decode_mlp")
+             "flash_attention_bwd", "fused_decode_mlp",
+             "fused_rms_swiglu_int8")
     t0 = time.perf_counter()
     errors = {}
 
@@ -1012,6 +1075,7 @@ def phase_retrieve(dev, profile):
     card behind the stdlib HTTP server, five POST /retrieve requests."""
     import numpy as np
     import torch
+    from procyon_tpu_torch import bridge
     from procyon_tpu_torch.app import main as app_main
     from procyon_tpu_torch.app import server
     from procyon_tpu_torch.data.collators import CollatorConfig
@@ -1024,7 +1088,7 @@ def phase_retrieve(dev, profile):
     service = app_main._build_service(device=dev)
     torch.cuda.synchronize()
     lcfg = service.cfg.llama
-    n_params = sum(t.numel() for t in tree_leaves(service.params))
+    n_params = sum(t.numel() for t in bridge.tree_leaves(service.params))
     print(f"/retrieve: ProCyon-Full ({lcfg.n_layers} layers, dim {lcfg.dim}, "
           f"{lcfg.n_heads}/{lcfg.n_kv_heads} heads, vocab "
           f"{lcfg.vocab_size}), {n_params / 1e9:.2f} B random parameters "
@@ -2592,6 +2656,7 @@ def phase_serving(dev, service, profile=False):
     and the paged attention kernel, results)."""
     import numpy as np
     import torch
+    from procyon_tpu_torch import bridge
     from procyon_tpu_torch.inference import serving
     from procyon_tpu_torch.models import llama
     from procyon_tpu_torch.ops import (flash_attention, int4_matmul,
@@ -2605,8 +2670,9 @@ def phase_serving(dev, service, profile=False):
     t0 = time.perf_counter()
     params4 = llama.quantize_params(params, lcfg, bits=4, group=INT4_GROUP)
     torch.cuda.synchronize()
-    bytes4 = sum(t.numel() * t.element_size() for t in tree_leaves(params4))
-    bytes16 = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    bytes4, bytes16 = (sum(t.numel() * t.element_size()
+                           for t in bridge.tree_leaves(p))
+                       for p in (params4, params))
     print(f"serving: Llama-3-8B ({lcfg.n_layers} layers, dim {lcfg.dim}, "
           f"vocab {lcfg.vocab_size}); {w['slots']} slots, {w['requests']} "
           f"requests (token / fused alternating, a shared "
@@ -3436,6 +3502,7 @@ def phase_train_cli(dev):
     import tempfile
 
     import torch
+    from procyon_tpu_torch.models import checkpoint_io
     from procyon_tpu_torch.scripts import run_pretrain
     from procyon_tpu_torch.training import checkpointing
     from procyon_tpu_torch.training import optimizer as topt
@@ -3472,21 +3539,544 @@ def phase_train_cli(dev):
         check(changed > 0, "the checkpoint holds the initial parameters")
         tstate = checkpointing.load_training_state(path)
         check(tstate["global_step"] == steps, f"training state {tstate}")
+        model, mcfg, mtok = checkpoint_io.load_model(path, device=dev)
+        want = dict(topt.tree_items(ts.merge_params(state["params"],
+                                                    state.get("frozen"))))
+        got = dict(topt.tree_items(model))
+        check(mcfg == run["ucfg"] and mtok is not None
+              and set(got) == set(want)
+              and all(torch.equal(got[k], want[k]) for k in want),
+              "load_model does not give the checkpoint's model")
     print(f"run_pretrain --synthetic true --max_steps {steps}: exit 0 in "
           f"{wall:.1f} s, final_step {last['final_step']}; checkpoint-{steps} "
           f"restored onto the card ({state['step']} updates, {changed} of "
-          f"{len(leaves)} leaves changed from the initial state)")
+          f"{len(leaves)} leaves changed from the initial state) and "
+          "loaded as a model by checkpoint_io.load_model")
 
 
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from tree_leaves(v)
-    else:
-        yield tree
+def swiglu_args(dev, M, d, H, seed):
+    """bf16 x and norm weight, int8 gate / up / down quantized from seeded
+    N(0, 1/fan_in) weights, as a decoder layer hands them over."""
+    import torch
+    from procyon_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    ws = [quant.quantize(randn(*shape, scale=shape[0] ** -0.5))
+          for shape in ((d, H), (d, H), (H, d))]
+    return [randn(M, d).to(torch.bfloat16),
+            (1 + randn(d, scale=0.1)).to(torch.bfloat16)] \
+        + [t for w in ws for t in (w["q"], w["s"])]
+
+
+def swiglu_steps(out, ref, step):
+    """(the largest error beyond one bf16 ulp of the plain value, in
+    steps; the share of elements more than one ulp off)."""
+    err = (out.float() - ref.float()).abs()
+    ulp = RTOL * ref.float().abs()
+    beyond = (err - ulp).clamp_min(0) / step
+    return beyond.max().item(), (err > ulp).float().mean().item()
+
+
+def swiglu_route(args, eps=1e-5):
+    """The port's W8A8 MLP route on the same tensors (llama._mlp in
+    "w8a8"): rms_norm, qmatmul_w8a8 gate and up, SiLU * u, qmatmul_w8a8
+    down, the residual."""
+    from procyon_tpu_torch.models import llama
+    x, nw, gq, gs, uq, us, dq, ds = args
+    lp = {"mlp_norm": nw, "mlp": {"w_gate": {"q": gq, "s": gs},
+                                  "w_up": {"q": uq, "s": us},
+                                  "w_down": {"q": dq, "s": ds}}}
+    cfg = llama.LlamaConfig(dim=x.shape[1], norm_eps=eps)
+    return llama._mlp(x, lp, cfg, "w8a8")
+
+
+def mlp_cos(out, route, x):
+    """Cosine of the two MLP outputs (the residual taken off)."""
+    a = (out.float() - x.float()).flatten()
+    b = (route.float() - x.float()).flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def swiglu_case(dev, M, d, H, seed):
+    """Row 7 at one shape against its plain version (SWIGLU_STEPS), the
+    two planted faults shown to fail that check, and the times of the
+    kernel, the plain version and the W8A8 route (weights cold: 3 d H
+    bytes of int8 exceed the 50 MB L2)."""
+    import torch
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    from procyon_tpu_torch.ops import quant
+    args = swiglu_args(dev, M, d, H, seed)
+    x, nw, gq, gs, uq, us, dq, ds = args
+    G = fm.swiglu_group(d, H)
+    out = fm.fused_rms_swiglu_int8(*args)
+    ref = fm.fused_rms_swiglu_int8_ref(*args)
+    xq, sx = fm.rms_quant_rows_ref(x, nw)
+    aq, sa = fm.swiglu_codes_ref(xq, sx, gq, gs, uq, us, G)
+    torch.cuda.synchronize()
+    step = sa.amax(1, keepdim=True) * (dq.abs().amax(0, keepdim=True).float()
+                                       * ds.reshape(1, -1).float())
+    check(bool(torch.isfinite(out.float()).all().item()),
+          f"fused_rms_swiglu_int8 H{H}: non-finite")
+    steps, off = swiglu_steps(out, ref, step)
+    check(steps <= SWIGLU_STEPS and off <= SWIGLU_OFF_ULP,
+          f"fused_rms_swiglu_int8 M{M} d{d} H{H}: {steps:.2f} steps beyond "
+          f"one ulp (tol {SWIGLU_STEPS}), {off:.2e} of the elements off by "
+          f"more than one ulp (tol {SWIGLU_OFF_ULP})")
+    check(torch.equal(out, fm.fused_rms_swiglu_int8(*args)),
+          f"fused_rms_swiglu_int8 H{H}: two launches differ")
+    # the codes the kernels pass between them against the plain stages:
+    # the row codes, the SiLU * u codes against the plain version's, and
+    # against the plain stage run on the kernel's own row codes (the
+    # division and expf of the gate / up kernel alone)
+    _, (kxq, ksx, kaq, _) = fm._launch_swiglu(*args, 1e-5, 512, 2)
+    own, _ = fm.swiglu_codes_ref(kxq, ksx.reshape(-1, 1), gq, gs, uq, us, G)
+    codes = dict(
+        xq=int((kxq != xq).sum().item()), xq_of=kxq.numel(),
+        xq_max=int((kxq.int() - xq.int()).abs().max().item()),
+        aq=int((kaq != aq).sum().item()), aq_of=kaq.numel(),
+        aq_own=int((kaq != own).sum().item()),
+        aq_own_max=int((kaq.int() - own.int()).abs().max().item()))
+    del kxq, ksx, kaq, own
+    # planted faults: group j's scale doubled (its part added once more),
+    # and the last row tile without its MLP (the residual alone)
+    j = H // G // 2
+    sl = slice(j * G, (j + 1) * G)
+    part = quant.int_mm(aq[:, sl].contiguous(), dq[sl]).float() \
+        * (sa[:, j:j + 1] * ds.reshape(1, -1).float())
+    doubled = (out.float() + part).to(out.dtype)
+    dropped = out.clone()
+    dropped[-SWIGLU_ROW_TILE:] = x[-SWIGLU_ROW_TILE:]
+    faults = {name: swiglu_steps(bad, ref, step)[0]
+              for name, bad in (("group scale doubled", doubled),
+                                ("last row tile dropped", dropped))}
+    for name, n in faults.items():
+        check(n > SWIGLU_STEPS, f"fused_rms_swiglu_int8: the planted fault "
+                                f"({name}) passes the check ({n:.2f} steps)")
+    del part, doubled, dropped, xq, aq
+    route = swiglu_route(args)
+    cos = mlp_cos(out, route, x)
+    check(cos >= QUALITY_GATE_COS, f"fused_rms_swiglu_int8 H{H}: MLP cosine "
+                                   f"{cos} to the W8A8 route")
+    ms, plain_ms = paired_ms(lambda: fm.fused_rms_swiglu_int8(*args),
+                             lambda: fm.fused_rms_swiglu_int8_ref(*args))
+    route_ms = cuda_ms(lambda: swiglu_route(args))
+    ops = 6 * M * d * H
+    n_bytes = nbytes(x, nw, gq, gs, uq, us, dq, ds, out)
+    bound_ms, bound_by = bound(n_bytes, ops, PEAK_INT8)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"fused rms swiglu int8 M{M} d{d} H{H} G{G}: {steps:.2f} steps "
+          f"beyond one ulp (tol {SWIGLU_STEPS}), {off:.2e} of the elements "
+          f"more than one ulp off (tol {SWIGLU_OFF_ULP}), max_abs_err "
+          f"{err:.3e}; planted faults "
+          + ", ".join(f"{k} {v:.1f} steps" for k, v in faults.items())
+          + f" (fail, as they must); codes that differ from the plain "
+          f"version's: row codes {codes['xq']} of {codes['xq_of']} (by at "
+          f"most {codes['xq_max']}), SiLU*u codes {codes['aq']} of "
+          f"{codes['aq_of']}, and {codes['aq_own']} (by at most "
+          f"{codes['aq_own_max']}) against the plain stage on the kernel's "
+          f"own row codes; MLP cosine to the W8A8 route {cos:.6f}"
+          f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
+          f"{plain_ms:.4f} ms, W8A8 route {route_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({ops / 1e12:.3f} T int8 ops, "
+          f"{n_bytes / 1e6:.1f} MB)")
+    return dict(shape=f"M{M} d{d} H{H}", G=G, max_abs_err=err,
+                steps=steps, off_ulp=off, faults=faults, codes=codes,
+                cos_route=cos,
+                ms=ms, plain_ms=plain_ms, route_ms=route_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_swiglu(dev):
+    """Kernel row 7 at the Bind prefill's MLP and at Llama-3-8B's; the
+    kernels line carries the first (the shape of the path it runs on)."""
+    import torch
+    cases = []
+    for i, (M, d, H) in enumerate(SWIGLU_SHAPES):
+        cases.append(swiglu_case(dev, M, d, H, SEED + 40 + i))
+        torch.cuda.empty_cache()
+    main, other = cases
+    return dict(name="fused_rms_swiglu_int8", route="cuda",
+                source="procyon_tpu_torch/csrc/fused_rms_swiglu_int8.cu",
+                replaces="procyon_tpu/ops/fused_mlp.py:507",
+                shape=main["shape"] + ", weights cold",
+                max_abs_err=main["max_abs_err"], ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                route_ms=main["route_ms"], cos_route=main["cos_route"],
+                steps=main["steps"], faults=main["faults"],
+                codes=main["codes"],
+                h14336={k: other[k] for k in ("ms", "plain_ms", "route_ms",
+                                              "bound_ms", "steps", "codes",
+                                              "cos_route")})
+
+
+def w8a8_cpu_copy(params, cfg):
+    """The card's parameters and config in f32 on the CPU's reference
+    attention."""
+    import torch
+    from procyon_tpu_torch import bridge
+    cfg32 = dataclasses.replace(
+        cfg, dtype=torch.float32, llama=dataclasses.replace(
+            cfg.llama, dtype=torch.float32, attn_backend="ref"))
+    return bridge.to_torch(bridge.to_numpy(params), device="cpu"), cfg32
+
+
+def readout_errors(at, ref, yes, no):
+    """The card's logits at the answer positions (at [n, vocab]) against
+    the CPU's (ref): (the least cosine of a row to the CPU's, each row
+    centred over the vocabulary; the largest error of the yes / no
+    log-odds over the CPU's largest |log-odds|)."""
+    import torch
+    at = torch.as_tensor(at).float().cpu()
+    ref = torch.as_tensor(ref).float().cpu()
+    cos = cosines(at - at.mean(1, keepdim=True),
+                  ref - ref.mean(1, keepdim=True)).min().item()
+    z, zr = at[:, yes] - at[:, no], ref[:, yes] - ref[:, no]
+    return cos, ((z - zr).abs().max() / zr.abs().max()).item()
+
+
+def check_readout(at, ref, early, yes, no, what):
+    """readout_errors within SANITY_COS and READOUT_LOGODDS_REL, and two
+    planted faults shown to fail that check: the logits one position
+    before the answer (`early`, the card's) and yes and no swapped. Returns
+    the printed summary."""
+    import torch
+
+    def ok(e):
+        return e[0] >= SANITY_COS and e[1] <= READOUT_LOGODDS_REL
+
+    swapped = torch.as_tensor(at).clone()
+    swapped[:, [yes, no]] = swapped[:, [no, yes]]
+    good = readout_errors(at, ref, yes, no)
+    faults = {"answer one position early": readout_errors(early, ref, yes,
+                                                          no),
+              "yes and no swapped": readout_errors(swapped, ref, yes, no)}
+    check(ok(good), f"{what}: answer logits' row cosine {good[0]} (tol "
+                    f"{SANITY_COS}), log-odds error {good[1]} of the "
+                    f"largest (tol {READOUT_LOGODDS_REL})")
+    for name, e in faults.items():
+        check(not ok(e), f"{what}: the planted fault ({name}) passes the "
+                         f"readout check: {e}")
+    return (f"answer logits' row cosine {good[0]:.6f} (tol {SANITY_COS}), "
+            f"log-odds error {good[1]:.4f} of the largest (tol "
+            f"{READOUT_LOGODDS_REL}); planted faults "
+            + ", ".join(f"{k}: cosine {c:.4f}, log-odds error {r:.3f}"
+                        for k, (c, r) in faults.items())
+            + " (fail, as they must)")
+
+
+def phase_w8a8_small(dev):
+    """bench_bind's and bench_retrieval's W8A8 forwards on a 2-layer copy
+    of the bench decoder (full width): the card in bf16 against the CPU in
+    f32 on the same int8 weights: the Bind yes-probabilities within
+    W8A8_SMALL_PROB_ATOL and their logits by check_readout, the retrieval
+    query embeddings' cosine at least SANITY_COS (their top-10 over 2,000
+    targets printed). Returns the copy (card and CPU) for phase_qa_eval."""
+    import torch
+    from procyon_tpu_torch.models import unified
+    from procyon_tpu_torch.scripts import bench_bind, bench_retrieval
+    cfg = bench_bind.bind_config(layers=W8A8_SMALL_LAYERS)
+    params = unified.quantize_params(
+        unified.init_params(SEED + 31, cfg, device=dev), cfg)
+    p32, cfg32 = w8a8_cpu_copy(params, cfg)
+    B, L = W8A8["B"], W8A8["L"]
+    out = {}
+    t0 = time.perf_counter()
+    for where, p, c, d in (("card", params, cfg, dev),
+                           ("cpu", p32, cfg32, "cpu")):
+        with torch.no_grad():
+            bind = bench_bind.bind_batch(c, B, L, d)
+            at = bench_bind.answer_logits(p, c, bind)
+            if where == "card":
+                early = bench_bind.answer_logits(
+                    p, c, dict(bind, answer_pos=bind["answer_pos"] - 1))
+            batch, targets = bench_retrieval.retrieval_batch(c, B, L, 2000,
+                                                             d)
+            q, _, ids = bench_retrieval.retrieve(p, c, batch, targets)
+        out[where] = (at.float().cpu(), q.float().cpu(), ids.cpu())
+    probs = {k: torch.softmax(v[0][:, [bench_bind.YES_ID,
+                                       bench_bind.NO_ID]], -1)[:, 0]
+             for k, v in out.items()}
+    gap = (probs["card"] - probs["cpu"]).abs().max().item()
+    cos = cosines(out["card"][1], out["cpu"][1]).min().item()
+    shared = min(len(set(a.tolist()) & set(b.tolist()))
+                 for a, b in zip(out["card"][2], out["cpu"][2]))
+    readout = check_readout(out["card"][0], out["cpu"][0], early.cpu(),
+                            bench_bind.YES_ID, bench_bind.NO_ID,
+                            "W8A8 small check (Bind)")
+    print(f"W8A8 prefill check ({W8A8_SMALL_LAYERS} layers of the bench "
+          f"decoder at full width, B{B} x L{L}): card bf16 against CPU f32, "
+          f"Bind yes-probability within {gap:.2e} (tol "
+          f"{W8A8_SMALL_PROB_ATOL}), {readout}; retrieval embedding cosine "
+          f"{cos:.6f} (tol {SANITY_COS}), top-10 overlap at least "
+          f"{shared}/10 (both runs {time.perf_counter() - t0:.1f} s)")
+    check(gap <= W8A8_SMALL_PROB_ATOL, f"W8A8 small check: yes-probability "
+                                       f"{gap} off")
+    check(cos >= SANITY_COS, f"W8A8 small check: embedding cos {cos}")
+    return params, cfg, p32, cfg32
+
+
+def swiglu_on_layers(cfg, params, batch):
+    """The Bind prefill once more with llama._mlp wrapped: at each W8A8
+    layer row 7 runs on that layer's MLP input and weights, beside the
+    route (CUDA events around each; the layer's int8 weights, 135 MB, are
+    not in L2), and the route's output goes on, so the path stays the
+    reference's. Returns (per-layer records, the yes-probabilities)."""
+    import torch
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    from procyon_tpu_torch.scripts import bench_bind
+    orig = llama._mlp
+    layers = []
+
+    def mlp(x, lp, c, mode):
+        if mode != "w8a8":
+            return orig(x, lp, c, mode)
+        x2 = x.reshape(-1, x.shape[-1])
+        w = [lp["mlp"][k] for k in ("w_gate", "w_up", "w_down")]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        k = fm.fused_rms_swiglu_int8(x2, lp["mlp_norm"], w[0]["q"],
+                                     w[0]["s"], w[1]["q"], w[1]["s"],
+                                     w[2]["q"], w[2]["s"], eps=c.norm_eps)
+        ev[1].record()
+        ev[2].record()
+        r = orig(x, lp, c, mode)
+        ev[3].record()
+        torch.cuda.synchronize()
+        layers.append(dict(kernel_ms=ev[0].elapsed_time(ev[1]),
+                           route_ms=ev[2].elapsed_time(ev[3]),
+                           cos=mlp_cos(k, r.reshape(x2.shape), x2)))
+        return r
+
+    with torch.no_grad(), patched(llama, "_mlp", mlp):
+        probs = bench_bind.yes_prob(params, cfg, batch)
+    return layers, probs
+
+
+def profile_bind_batch(params, cfg, batch, untraced_ms):
+    """torch.profiler over one Bind batch (after a traced one): device busy
+    and idle share, and the kernels that take most of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from procyon_tpu_torch.scripts import bench_bind
+
+    def run():
+        with torch.no_grad():
+            bench_bind.yes_prob(params, cfg, batch)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  one Bind batch (W8A8) under torch.profiler: device busy "
+          f"{busy:.1f} ms in {sum(e.count for e in kernels)} kernels; of "
+          f"the untraced {untraced_ms:.1f} ms the device idles "
+          f"{1 - busy / untraced_ms:.2f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms in "
+              f"{e.count:5d} launches  {e.key[:90]}")
+
+
+def phase_w8a8_prefill(dev, profile=False):
+    """The slice's main path: the three W8A8 entry points at the
+    reference's defaults on one decoder built once from a seed on the card
+    (bench_bind.bind_config: dim 4096, 30 layers, I 11008, vocabulary
+    32000; bf16, then `unified.quantize_params`): bench_prefill (weight-only
+    and W8A8 tokens/s, B4 x S2048), bench_bind (pairs/s, W8A8 and
+    weight-only), bench_retrieval (queries/s, 57,000 targets), each through
+    its `run`; the W8A8 quality gates (the yes-probability gap and the
+    retrieval embedding cosine against bf16 on the same weights, and
+    quant_quality.probe at its default size for int8 W8A8, int8 and int4
+    weight-only); then row 7 on every layer of the Bind prefill (its
+    counter zeroed just before, read just after)."""
+    import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.evaluate import quant_quality
+    from procyon_tpu_torch.models import unified
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    from procyon_tpu_torch.scripts import (bench_bind, bench_prefill,
+                                           bench_retrieval)
+    cfg = bench_bind.bind_config()
+    t0 = time.perf_counter()
+    bf16 = unified.init_params(SEED + 30, cfg, device=dev)
+    params = unified.quantize_params(bf16, cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in bridge.tree_leaves(params["llama"]))
+    print(f"W8A8 prefill path: the bench decoder ({n / 1e9:.2f} B "
+          f"parameters with scales, int8) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    B, L = W8A8["B"], W8A8["L"]
+    res = {}
+    pre = bench_prefill.run(params["llama"], cfg.llama, W8A8["prefill_B"],
+                            W8A8["prefill_S"], device=dev)
+    check(pre["finite"], "bench_prefill: non-finite logits")
+    res["prefill"] = pre["line"]
+    print(f"  bench_prefill B{W8A8['prefill_B']} x S{W8A8['prefill_S']}: "
+          + ", ".join(f"{m} {pre['ms'][m]:.2f} ms, "
+                      f"{pre['tokens_per_sec'][m]:,.0f} tokens/s"
+                      for m in bench_prefill.MODES))
+    dq_cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, quant_mode="dequant"))
+    fa.launches = 0
+    bind = bench_bind.run(params, cfg, B, L, device=dev)
+    bind_dq = bench_bind.run(params, dq_cfg, B, L, device=dev)
+    check(bind["finite"] and bind_dq["finite"], "bench_bind: non-finite")
+    check(fa.launches > 0 and fa.launches % cfg.llama.n_layers == 0,
+          f"bench_bind: {fa.launches} flash launches")
+    ret = bench_retrieval.run(params, cfg, B, L, W8A8["targets"],
+                              device=dev)
+    check(ret["finite"], "bench_retrieval: non-finite")
+    res.update(bind=bind["line"], bind_dequant=bind_dq["line"],
+               retrieval=ret["line"])
+    for k in ("bind", "bind_dequant", "retrieval"):
+        print(f"  {k}: {json.dumps(res[k])}")
+
+    batch = bench_bind.bind_batch(cfg, B, L, dev)
+    rbatch, targets = bench_retrieval.retrieval_batch(cfg, B, L,
+                                                      W8A8["targets"], dev)
+    with torch.no_grad():
+        p_q = bench_bind.yes_prob(params, cfg, batch).float()
+        p_b = bench_bind.yes_prob(bf16, cfg, batch).float()
+        q_q = bench_retrieval.retrieve(params, cfg, rbatch, targets)[0]
+        q_b = bench_retrieval.retrieve(bf16, cfg, rbatch, targets)[0]
+    gap = (p_q - p_b).abs().max().item()
+    cos = cosines(q_q.float(), q_b.float()).min().item()
+    del bf16
+    torch.cuda.empty_cache()
+    probes = {f"int{b}_{m}": quant_quality.probe(b, m, device=dev)
+              for b, m in ((8, "w8a8"), (8, "dequant"), (4, "dequant"))}
+    print(f"  W8A8 against bf16 at full width, same weights: Bind "
+          f"yes-probability gap {gap:.4f} (tol {W8A8_FULL_PROB_GAP}), "
+          f"retrieval embedding cosine min {cos:.6f} (tol {SANITY_COS})")
+    for k, r in probes.items():
+        print(f"  quant_quality.probe {k}: {json.dumps(r.as_dict())}")
+    check(gap <= W8A8_FULL_PROB_GAP, f"W8A8 yes-probability gap {gap}")
+    check(cos >= SANITY_COS, f"W8A8 retrieval embedding cosine {cos}")
+    for k, r in probes.items():
+        check(r.passed, f"quant_quality.probe {k} failed: {r.as_dict()}")
+    res["quality"] = dict(yes_prob_gap=gap, embedding_cos_min=cos,
+                          probes={k: r.as_dict() for k, r in probes.items()})
+
+    fm.launches_swiglu = 0
+    layers, probs = swiglu_on_layers(cfg, params, batch)
+    launches = fm.launches_swiglu
+    check(launches == cfg.llama.n_layers, f"row 7 ran on {launches} of "
+                                          f"{cfg.llama.n_layers} layers")
+    check(torch.equal(probs.float(), p_q), "the Bind path with row 7 beside "
+                                           "its MLP gave other answers")
+    worst = min(r["cos"] for r in layers)
+    check(worst >= QUALITY_GATE_COS, f"row 7 on the Bind layers: MLP cosine "
+                                     f"{worst} to the route")
+    k_ms = sum(r["kernel_ms"] for r in layers)
+    r_ms = sum(r["route_ms"] for r in layers)
+    print(f"  row 7 on the {len(layers)} layers of the Bind prefill (B{B} x "
+          f"L{L} = {B * L} rows, each layer's own MLP input): kernel "
+          f"{k_ms:.2f} ms against the W8A8 route's {r_ms:.2f} ms in all, "
+          f"MLP cosine at least {worst:.6f}; the prefill took "
+          f"{bind['line']['per_batch_ms']} ms a batch, so with the kernel in "
+          f"the route's place it would be about "
+          f"{bind['line']['per_batch_ms'] - r_ms + k_ms:.1f} ms (an "
+          f"estimate, not wired)")
+    print("    per layer (kernel / route ms, cosine): " + ", ".join(
+        f"{r['kernel_ms']:.2f}/{r['route_ms']:.2f}/{r['cos']:.5f}"
+        for r in layers))
+    res["swiglu_layers"] = dict(kernel_ms=k_ms, route_ms=r_ms,
+                                cos_min=worst, layers=len(layers))
+    if profile:
+        profile_bind_batch(params, cfg, batch, bind["line"]["per_batch_ms"])
+    del params
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def phase_qa_eval(dev, small):
+    """ProcyonQAEval and run_qa_eval on the card in W8A8 on the 2-layer
+    copy of phase_w8a8_small (peptide_all_qa prompts over a synthetic
+    store), against the same on the CPU in f32: the yes-probabilities
+    within W8A8_SMALL_PROB_ATOL and the answer logits by check_readout;
+    then save_model -> load_model on the card gives the same logits, bit
+    for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from procyon_tpu_torch.data import datasets, instruct
+    from procyon_tpu_torch.data.text_tokenizer import load_tokenizer
+    from procyon_tpu_torch.evaluate.procyon_models import ProcyonQAEval
+    from procyon_tpu_torch.evaluate.qa import qa_yes_prob, run_qa_eval
+    from procyon_tpu_torch.inference.paged_beam import to_device
+    from procyon_tpu_torch.models import checkpoint_io, unified
+    params, cfg, p32, cfg32 = small
+    tok = load_tokenizer(vocab_size=cfg.llama.vocab_size)
+    yes, no = tok.spec.yes_id, tok.spec.no_id
+    store = datasets.SyntheticStore(n_proteins=64, n_texts=64,
+                                    embed_dim=cfg.protein_embed_dim)
+    task = instruct.TaskLibrary().get("peptide_all_qa")
+    data = [(i % 64, (7 * i) % 64, i % 2) for i in range(QA_EVAL_ROWS)]
+
+    def logits_of(model):
+        return np.concatenate([model.answer_logits(data[i:i + 8])
+                               for i in range(0, len(data), 8)])
+
+    at, probs, metrics = {}, {}, {}
+    for where, p, c, d in (("card", params, cfg, dev),
+                           ("cpu", p32, cfg32, "cpu")):
+        model = ProcyonQAEval(p, c, tok, store, task, batch_size=8,
+                              device=d)
+        at[where] = logits_of(model)
+        probs[where] = qa_yes_prob(at[where], yes, no)
+        metrics[where] = run_qa_eval(model, data)
+        if where == "card":
+            collate = model.collator
+
+            def one_early(samples, prompt):
+                batch = collate(samples, prompt)
+                return dict(batch, answer_pos=np.asarray(
+                    batch["answer_pos"]) - 1)
+
+            model.collator = one_early
+            early = logits_of(model)
+    gap = float(abs(probs["card"] - probs["cpu"]).max())
+    check(gap <= W8A8_SMALL_PROB_ATOL, f"ProcyonQAEval: card and CPU "
+                                       f"yes-probabilities {gap} apart")
+    readout = check_readout(at["card"], at["cpu"], early, yes, no,
+                            "ProcyonQAEval")
+    check(set(metrics["card"]) >= {"accuracy", "f1_macro", "n"}
+          and metrics["card"]["n"] == QA_EVAL_ROWS,
+          f"run_qa_eval: {metrics['card']}")
+    model = ProcyonQAEval(params, cfg, tok, store, task, device=dev)
+    batch = to_device(model.collator(
+        [(a, t, bool(y)) for a, t, y in data[:4]], model.prompt), dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint_io.save_model(tmp, params, cfg,
+                                 tokenizer_info={"vocab_size":
+                                                 cfg.llama.vocab_size})
+        p2, cfg2, tok2 = checkpoint_io.load_model(tmp, device=dev)
+    with torch.no_grad():
+        a = unified.forward(params, cfg, batch)["logits"]
+        b = unified.forward(p2, cfg2, batch)["logits"]
+    check(cfg2 == cfg and tok2 is not None and torch.equal(a, b),
+          "save_model -> load_model on the card changed the model")
+    print(f"QA eval (ProcyonQAEval, W8A8, {W8A8_SMALL_LAYERS} layers at full "
+          f"width, {QA_EVAL_ROWS} peptide_all_qa rows): card against CPU "
+          f"f32 yes-probabilities within {gap:.2e} (tol "
+          f"{W8A8_SMALL_PROB_ATOL}), {readout}; card yes-probabilities "
+          f"{probs['card'].min():.4f} to {probs['card'].max():.4f}; "
+          f"run_qa_eval card {metrics['card']}, "
+          f"CPU {metrics['cpu']}; save_model -> load_model on the card: "
+          "the same logits, bit for bit")
+    return metrics["card"]
 
 
 def request_breakdown(service, source, desc, reps=5):
@@ -3598,6 +4188,8 @@ def main():
     decode_check = phase_fused_decode(dev)
     torch.cuda.empty_cache()
     probe_launches, decode_probe, blocks_probe = phase_probes(dev)
+    swiglu = phase_swiglu(dev)
+    torch.cuda.empty_cache()
     kernels.append(staged)
     kernels.append(dict(
         name="fused_decode_mlp", route="cuda",
@@ -3615,6 +4207,7 @@ def main():
         int8_route_us={M: decode_probe[M]["int8_us"] for M in DECODE_ROWS},
         bf16_route_us={M: decode_probe[M]["bf16_us"] for M in DECODE_ROWS},
         kernel_us={M: decode_probe[M]["kernel_us"] for M in DECODE_ROWS}))
+    kernels.append(swiglu)
     phase_small_reference(dev)
     launches, cos_min, state = phase_main_path(dev)
     rates, bench_cos = phase_throughput(dev, *state)
@@ -3647,6 +4240,13 @@ def main():
     torch.cuda.empty_cache()
     spec = phase_speculative(dev)
     phase_train_cli(dev)
+    torch.cuda.empty_cache()
+    small = phase_w8a8_small(dev)
+    launches["fused_rms_swiglu_int8"], w8a8 = phase_w8a8_prefill(dev,
+                                                                 profile)
+    qa_metrics = phase_qa_eval(dev, small)
+    del small
+    torch.cuda.empty_cache()
     launches.update(probe_launches)
     launches["page_move_staged"] = staged.pop("path_launches")
     for k in kernels:
@@ -3697,6 +4297,12 @@ def main():
             for M in DECODE_ROWS},
         "esm3b_mlp_ms": {k: blocks_probe[k] for k in
                          ("one_pass_ms", "two_pass_ms", "ln_quant_ms")}}}))
+    print(json.dumps({"main_path": {
+        "model": "W8A8 Llama prefill (bench decoder: dim 4096, 30 layers, "
+                 "I 11008, vocab 32000, int8): bench_prefill B4 x S2048, "
+                 "bench_bind and bench_retrieval B16 x L256",
+        "fused_rms_swiglu_int8_launches": launches["fused_rms_swiglu_int8"],
+        **w8a8, "qa_eval_card": qa_metrics}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,12 @@ in {disgenet, omim} / k and returns the top-k protein records.
 `_build_service` with PROCYON_SYNTHETIC=1 builds a synthetic service at
 ProCyon-Full widths (Llama-3-8B, frozen 2560-wide protein embeddings, a
 3-layer 2560-hidden token projector, retrieval_dim 1024) from seeded random
-weights on the device.
-Loading a trained checkpoint waits for a checkpoint in a torch-readable
-format (ROADMAP.md, queue 1).
+weights on the device. Otherwise it loads the model directory
+CHECKPOINT_PATH (models/checkpoint_io.load_model: the port's configs.json +
+state.pt, as save_model, run_pretrain's checkpoints and
+convert_reference_checkpoint write it) over the ProCyon-Instruct data store
+(DATA_DIR), with NUM_PROTEINS targets (57000) whose embeddings are cached
+beside the checkpoint.
 
 Run: `uvicorn procyon_tpu_torch.app.main:app --port 8000` where fastapi is
 installed, else `python -m procyon_tpu_torch.app.server`.
@@ -63,9 +66,18 @@ def _build_service(device="cuda") -> RetrievalService:
         ids = list(range(store.n_proteins))
         return startup_retrieval(params, cfg, tokenizer, store, ids,
                                  device=device)
-    raise RuntimeError(
-        "set PROCYON_SYNTHETIC=1: loading a checkpoint is not ported to "
-        "procyon_tpu_torch yet (ROADMAP.md, queue 1, checkpoint_io)")
+    ckpt = os.environ.get("CHECKPOINT_PATH")
+    if not ckpt:
+        raise RuntimeError("set CHECKPOINT_PATH or PROCYON_SYNTHETIC=1")
+    from procyon_tpu_torch.models.checkpoint_io import load_model
+
+    params, cfg, tokenizer = load_model(ckpt, device=device)
+    store = datasets.ProCyonDataStore()
+    n = int(os.environ.get("NUM_PROTEINS", "57000"))
+    cache = os.path.join(os.path.dirname(os.path.abspath(ckpt)),
+                         "protein_target_embeddings.pkl")
+    return startup_retrieval(params, cfg, tokenizer, store, list(range(n)),
+                             cache_path=cache, device=device)
 
 
 if FastAPI is not None:

@@ -18,6 +18,8 @@ converts without this module importing jax). bfloat16 leaves (ml_dtypes
 bfloat16 in numpy) cross bit-exactly through an int16 view. A JAX train
 state (params, optax Adam moments, step) maps to the port's with
 `train_state_to_torch`; `to_numpy` brings the port's trees back.
+`tree_leaves`, `map_tensors` and `merge_params` walk the port's trees for
+the layers above (models, training, scripts).
 """
 
 from typing import Any
@@ -48,6 +50,53 @@ def to_torch(tree: Any, *, device=None) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device=device) for v in tree)
     return _leaf_to_tensor(tree, device)
+
+
+def is_quantized_leaf(node) -> bool:
+    """An int8 {"q", "s"} or packed int4 {"p", "s"} weight dict."""
+    return isinstance(node, dict) and len(node) == 2 and "s" in node \
+        and ("q" in node or "p" in node)
+
+
+def is_leaf(node) -> bool:
+    """One unit of a parameter tree for freezing and merging: anything
+    that is not a dict (tensors, projector lists), or a quantized dict."""
+    return not isinstance(node, dict) or is_quantized_leaf(node)
+
+
+def merge_params(trainable, frozen):
+    """A training state's trainable tree laid over its frozen one (the
+    inverse of training/train_step.partition_params)."""
+    if trainable is None:
+        return frozen
+    if frozen is None:
+        return trainable
+    if is_leaf(trainable) or is_leaf(frozen):
+        return trainable
+    return {k: merge_params(trainable.get(k), frozen.get(k))
+            for k in set(trainable) | set(frozen)}
+
+
+def tree_leaves(tree):
+    """Every tensor of a tree, inside quantized dicts too."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def map_tensors(fn, tree):
+    """The same tree with fn(t) at every tensor, inside quantized dicts
+    too."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return fn(tree)
 
 
 def _is_masked(x) -> bool:

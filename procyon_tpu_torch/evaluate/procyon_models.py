@@ -1,20 +1,72 @@
 """ProCyon model wrappers for the eval framework (counterpart of
 procyon_tpu/evaluate/procyon_models.py).
 
-Only `ProcyonCaptionEval` (diverse-beam generation) is ported; the
-retrieval and QA wrappers wait for the evaluation slice (ROADMAP.md,
-queue 1).
+`ProcyonQAEval` (the yes / no probability at [ANSWER], in the decoder's
+`quant_mode`: a Bind model scores in W8A8) and `ProcyonCaptionEval`
+(diverse-beam generation) are ported; the retrieval wrapper waits for the
+evaluation slice (ROADMAP.md, queue 1).
 """
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from procyon_tpu_torch.data import collators as C
 from procyon_tpu_torch.data import instruct
 from procyon_tpu_torch.evaluate.caption import AbstractCaptionModel
+from procyon_tpu_torch.evaluate.qa import AbstractQAModel, qa_yes_prob
 from procyon_tpu_torch.inference import generation, paged_beam
 from procyon_tpu_torch.models import unified
+
+
+def _params_device(params, device):
+    where = params["llama"]["embed"].device
+    if where.type != torch.device(device).type:
+        raise ValueError(f"parameters on {where} but device={device}")
+    return where
+
+
+class ProcyonQAEval(AbstractQAModel):
+    name = "procyon"
+
+    def __init__(self, params, cfg: unified.UnifiedConfig, tokenizer, store,
+                 task, *, batch_size: int = 16, collator_cfg=None,
+                 device="cuda"):
+        self.device = _params_device(params, device)
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.batch_size = batch_size
+        ccfg = collator_cfg or C.CollatorConfig(
+            protein_embed_dim=cfg.encoder_out_dim)
+        self.prompt = instruct.get_prompt(task, num_examples=1)
+        self.collator = C.QACollator(ccfg, tokenizer, store, task)
+
+    def answer_logits(self, chunk) -> np.ndarray:
+        """One batch of (aaseq_idx, text_idx, label): the logits [n, vocab]
+        at each prompt's [ANSWER] position, f32 on the host."""
+        batch = self.collator([(a, t, bool(y)) for a, t, y in chunk],
+                              self.prompt)
+        with torch.no_grad():
+            out = unified.forward(self.params, self.cfg,
+                                  paged_beam.to_device(batch, self.device))
+            rows = torch.arange(len(chunk), device=self.device)
+            ans = torch.as_tensor(np.asarray(batch["answer_pos"]),
+                                  device=self.device).long()
+            return out["logits"][rows, ans].float().cpu().numpy()
+
+    def get_predictions(self, dataset):
+        """dataset: sequence of (aaseq_idx, text_idx, label). Returns
+        (yes_probs [N], labels [N])."""
+        yes_all, labels_all = [], []
+        spec = self.tokenizer.spec
+        for i in range(0, len(dataset), self.batch_size):
+            chunk = dataset[i:i + self.batch_size]
+            yes_all.append(qa_yes_prob(self.answer_logits(chunk),
+                                       spec.yes_id, spec.no_id))
+            labels_all.append([y for _, _, y in chunk])
+        return np.concatenate(yes_all), np.concatenate(labels_all)
 
 
 class ProcyonCaptionEval(AbstractCaptionModel):
@@ -26,10 +78,7 @@ class ProcyonCaptionEval(AbstractCaptionModel):
                  collator_cfg=None, use_paged: bool = False,
                  page_size: int = 64, shared_prefix: bool = False,
                  device="cuda"):
-        where = params["llama"]["embed"].device
-        if where.type != torch.device(device).type:
-            raise ValueError(f"parameters on {where} but device={device}")
-        self.device = where
+        self.device = _params_device(params, device)
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer

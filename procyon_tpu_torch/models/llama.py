@@ -285,7 +285,13 @@ def _block(x, lp, seg_ids, positions, rot, cfg: LlamaConfig,
                                backend=cfg.attn_backend)
     attn = attn.reshape(B, S, cfg.n_heads * hd).to(x.dtype)
     x = x + _mm(attn, lp["attn"]["wo"], mode)
+    return _mlp(x, lp, cfg, mode)
 
+
+def _mlp(x, lp, cfg: LlamaConfig, mode: str):
+    """The MLP half of a block with its residual: x + down(silu(gate(h)) *
+    up(h)), h = rms_norm(x), each product by `mode` ("dequant" or
+    "w8a8")."""
     h = rms_norm(x, lp["mlp_norm"], eps=cfg.norm_eps)
     gated = torch.nn.functional.silu(_mm(h, lp["mlp"]["w_gate"], mode)) \
         * _mm(h, lp["mlp"]["w_up"], mode)
@@ -767,11 +773,7 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
                                        kv_positions=pos_all,
                                        backend=cfg.attn_backend)
         attn = attn.reshape(B, T, cfg.n_heads * hd).to(x.dtype)
-        x = x + _mm(attn, lp["attn"]["wo"])
-        h = rms_norm(x, lp["mlp_norm"], eps=cfg.norm_eps)
-        gated = torch.nn.functional.silu(_mm(h, lp["mlp"]["w_gate"])) \
-            * _mm(h, lp["mlp"]["w_up"])
-        x = x + _mm(gated, lp["mlp"]["w_down"])
+        x = _mlp(x + _mm(attn, lp["attn"]["wo"]), lp, cfg, "dequant")
         new_k.append(k_new.reshape(B, T, kd))
         new_v.append(v_new.reshape(B, T, kd))
 

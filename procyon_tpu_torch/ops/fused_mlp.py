@@ -1,11 +1,12 @@
-"""Fused LayerNorm -> int8 W1 -> GELU -> int8 W2 MLP (counterparts of
-procyon_tpu/ops/fused_mlp.py::fused_ln_mlp_int8, ::ln_quant_rows_pallas and
-::fused_mlp_int8_prequant).
+"""Fused int8 MLPs (counterparts of procyon_tpu/ops/fused_mlp.py::
+fused_ln_mlp_int8, ::ln_quant_rows_pallas, ::fused_mlp_int8_prequant and
+::fused_rms_swiglu_int8).
 
-Three wrappers, each with its plain PyTorch version beside it. On a CUDA
+Four wrappers, each with its plain PyTorch version beside it. On a CUDA
 tensor a wrapper launches its hand-written kernel in
-csrc/fused_ln_mlp_int8.cu (bf16 activations) or raises; on a CPU tensor it
-runs the plain version; any other device raises.
+csrc/fused_ln_mlp_int8.cu or csrc/fused_rms_swiglu_int8.cu (bf16
+activations) or raises; on a CPU tensor it runs the plain version; any
+other device raises.
 
   * `fused_ln_mlp_int8` (`fused_ln_mlp_int8_ref`): the one-pass MLP;
     `launches` counts its kernel.
@@ -17,6 +18,10 @@ runs the plain version; any other device raises.
     1024), and the residual is added after the output cast, in x's dtype
     (one rounding more than the one-pass form). `launches_prequant` counts
     the MLP kernel (the row pass counts in `launches_ln_quant`).
+  * `fused_rms_swiglu_int8` (`fused_rms_swiglu_int8_ref`): the Llama W8A8
+    MLP with its residual, `x + W8A8-SwiGLU(rms_norm(x))`, for the prefill;
+    its requantization group comes from `swiglu_group`.
+    `launches_swiglu` counts calls that launched its three kernels.
 
 Numerics (both versions, as the TPU kernel): LayerNorm in f32, per-row int8
 quantization of its output, s8 x s8 -> s32 with W1, `h1 = acc*(sx*s1)+b1`,
@@ -31,11 +36,12 @@ import ctypes
 import torch
 
 from procyon_tpu_torch import bridge
-from procyon_tpu_torch.ops import _build
+from procyon_tpu_torch.ops import _build, quant
 
 launches = 0
 launches_ln_quant = 0
 launches_prequant = 0
+launches_swiglu = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +53,8 @@ _SIG = {
     "fused_mlp_int8_prequant_smem": [_I, _I, _I, _I],
     "ln_quant_rows_bf16": [_P] * 5 + [_I, _I, ctypes.c_float, _P],
 }
+_SWIGLU_SIG = {"fused_rms_swiglu_int8_bf16": [_P] * 13 + [_I] * 5
+               + [ctypes.c_float, _P]}
 
 
 def requant_group(H: int) -> int:
@@ -347,3 +355,157 @@ def fused_mlp_int8_prequant(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, *,
         raise ValueError(f"no two-pass MLP for device {x.device}")
     return fused_mlp_int8_prequant_ref(x, ln_w, ln_b, w1q, s1, b1, w2q, s2,
                                        b2, eps=eps, add_residual=add_residual)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm -> W8A8 SwiGLU MLP -> residual (the Llama prefill's MLP)
+# ---------------------------------------------------------------------------
+
+
+def _swiglu_tiles(d: int, H: int, block_n: int = 512, sub_tiles: int = 2):
+    """The reference wrapper's (block_n, sub_tiles) rule
+    (fused_mlp.py:489-504): block_n capped at 256 from d 4096 on, at H,
+    then halved until it divides H; sub_tiles halved until block_n %
+    (sub_tiles * 128) == 0."""
+    if d >= 4096:
+        block_n = min(block_n, 256)
+    block_n = min(block_n, H)
+    while H % block_n:
+        block_n //= 2
+    while sub_tiles > 1 and block_n % (sub_tiles * 128):
+        sub_tiles //= 2
+    return block_n, sub_tiles
+
+
+def swiglu_group(d: int, H: int, block_n: int = 512,
+                 sub_tiles: int = 2) -> int:
+    """Columns of the SwiGLU output that share one int8 scale a row:
+    block_n / sub_tiles of `_swiglu_tiles`. 128 at d 4096 (H 11008 or
+    14336), 256 at d 2560 H 10240, 384 at d 128 H 384."""
+    block_n, sub_tiles = _swiglu_tiles(d, H, block_n, sub_tiles)
+    return block_n // sub_tiles
+
+
+def rms_quant_rows_ref(x, nw, eps: float = 1e-5):
+    """RMSNorm in f32, never rounded to x's dtype, and per-row int8:
+    h = (x * (1 / sqrt(mean(x^2) + eps))) * nw, sx = max(amax, 1e-8) / 127,
+    xq = clip(round_half_even(h / sx)). Returns (xq int8 [M, d], sx f32
+    [M, 1])."""
+    xf = x.float()
+    ms = (xf * xf).sum(-1, keepdim=True) / xf.shape[-1]
+    return quant.quantize_rows(
+        xf * (1.0 / torch.sqrt(ms + eps)) * nw.reshape(1, -1).float())
+
+
+def swiglu_codes_ref(xq, sx, wgq, sg, wuq, su, G: int):
+    """The int8 SiLU(g) * u codes [M, H] and their scales [M, H / G]:
+    g = acc * (sx * sg), u = acc * (sx * su), a = (g * sigmoid(g)) * u with
+    sigmoid = 1 / (1 + exp(-g)), requantized per (row, G columns)."""
+    M = xq.shape[0]
+    H = wgq.shape[1]
+    sg = sg.reshape(1, H).float()
+    su = su.reshape(1, H).float()
+    codes, scales = [], []
+    for j in range(H // G):
+        sl = slice(j * G, (j + 1) * G)
+        g = quant.int_mm(xq, wgq[:, sl]).float() * (sx * sg[:, sl])
+        u = quant.int_mm(xq, wuq[:, sl]).float() * (sx * su[:, sl])
+        aq, sa = quant.quantize_rows(g * (1.0 / (1.0 + torch.exp(-g))) * u)
+        codes.append(aq)
+        scales.append(sa)
+    return torch.cat(codes, 1), torch.cat(scales, 1).reshape(M, -1)
+
+
+def swiglu_down_ref(aq, sa, wdq, sd, x, G: int, spg: int):
+    """x + the down product in x's dtype: each group's int32 sum times
+    (sa * sd) in f32, the `spg` groups of one block_n step summed first,
+    then into the accumulator; the residual added in f32 before the cast."""
+    M, H = aq.shape
+    d = wdq.shape[1]
+    sd = sd.reshape(1, d).float()
+    acc = torch.zeros((M, d), dtype=torch.float32, device=aq.device)
+    total = None
+    for j in range(H // G):
+        sl = slice(j * G, (j + 1) * G)
+        part = quant.int_mm(aq[:, sl].contiguous(), wdq[sl, :]).float() \
+            * (sa[:, j:j + 1] * sd)
+        total = part if total is None else total + part
+        if (j + 1) % spg == 0:
+            acc = acc + total
+            total = None
+    return (acc + x.float()).to(x.dtype)
+
+
+def fused_rms_swiglu_int8_ref(x, nw, wgq, sg, wuq, su, wdq, sd, *,
+                              eps: float = 1e-5, block_n: int = 512,
+                              sub_tiles: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of the reference's _kernel_swiglu: x [M, d],
+    nw [d], int8 wgq / wuq [d, H] and wdq [H, d] ([in, out]), f32 scales sg /
+    su [1, H] and sd [1, d]. Returns x + MLP in x's dtype."""
+    d, H = wgq.shape
+    block_n, sub_tiles = _swiglu_tiles(d, H, block_n, sub_tiles)
+    G = block_n // sub_tiles
+    xq, sx = rms_quant_rows_ref(x, nw, eps)
+    aq, sa = swiglu_codes_ref(xq, sx, wgq, sg, wuq, su, G)
+    return swiglu_down_ref(aq, sa, wdq, sd, x, G, sub_tiles)
+
+
+def _launch_swiglu(x, nw, wgq, sg, wuq, su, wdq, sd, eps, block_n,
+                   sub_tiles):
+    """(out, (xq, sx, aq, sa)): the output and the int8 codes and scales
+    the kernels passed between them, for a check against the plain
+    version's stages."""
+    global launches_swiglu
+    _check_rows(x, "RMSNorm + W8A8 SwiGLU kernel")
+    M, d = x.shape
+    H = wgq.shape[1]
+    for w, shape in ((wgq, (d, H)), (wuq, (d, H)), (wdq, (H, d))):
+        if w.dtype != torch.int8 or tuple(w.shape) != shape \
+                or not w.is_contiguous() or w.data_ptr() % 16:
+            raise ValueError(f"contiguous, aligned int8 weights [d, H] / "
+                             f"[H, d] expected, got {w.dtype} "
+                             f"{tuple(w.shape)} against {shape}")
+        if w.device != x.device:
+            raise ValueError("weights and x on different devices")
+    block_n, sub_tiles = _swiglu_tiles(d, H, block_n, sub_tiles)
+    G = block_n // sub_tiles
+    if d % 128 or H % 128 or G % 128 or G > 512:
+        raise ValueError(f"RMSNorm + W8A8 SwiGLU kernel needs d and H "
+                         f"multiples of 128 and a group of at most 512: "
+                         f"d={d}, H={H}, G={G}")
+    dev = x.device
+    nwf, sgf, suf, sdf = _f32_vectors(dev, (nw, d), (sg, H), (su, H),
+                                      (sd, d))
+    xq = torch.empty((M, d), dtype=torch.int8, device=dev)
+    sx = torch.empty((M,), dtype=torch.float32, device=dev)
+    aq = torch.empty((M, H), dtype=torch.int8, device=dev)
+    sa = torch.empty((M, H // G), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    lib = _build.load("fused_rms_swiglu_int8", _SWIGLU_SIG)
+    err = lib.fused_rms_swiglu_int8_bf16(
+        x.data_ptr(), nwf.data_ptr(), wgq.data_ptr(), sgf.data_ptr(),
+        wuq.data_ptr(), suf.data_ptr(), wdq.data_ptr(), sdf.data_ptr(),
+        xq.data_ptr(), sx.data_ptr(), aq.data_ptr(), sa.data_ptr(),
+        out.data_ptr(), M, d, H, G, sub_tiles, eps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_rms_swiglu_int8_bf16")
+    launches_swiglu += 1
+    return out, (xq, sx, aq, sa)
+
+
+def fused_rms_swiglu_int8(x, nw, wgq, sg, wuq, su, wdq, sd, *,
+                          eps: float = 1e-5, block_n: int = 512,
+                          sub_tiles: int = 2) -> torch.Tensor:
+    """x [M, d] -> x + W8A8-SwiGLU(rms_norm(x)), the reference's signature
+    (without its TPU block_m): block_n and sub_tiles only set the
+    requantization group (`swiglu_group`). The CUDA kernels (three launches)
+    for CUDA tensors, the plain version for CPU tensors."""
+    _build.refuse_grad("RMSNorm + W8A8 SwiGLU", x, nw, sg, su, sd)
+    if x.is_cuda:
+        return _launch_swiglu(x, nw, wgq, sg, wuq, su, wdq, sd, eps,
+                              block_n, sub_tiles)[0]
+    if x.device.type != "cpu":
+        raise ValueError(f"no RMSNorm + W8A8 SwiGLU for device {x.device}")
+    return fused_rms_swiglu_int8_ref(x, nw, wgq, sg, wuq, su, wdq, sd,
+                                     eps=eps, block_n=block_n,
+                                     sub_tiles=sub_tiles)

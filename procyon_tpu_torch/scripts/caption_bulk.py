@@ -6,6 +6,10 @@ diversity 0.8), chunked sharding across workers, CSV output.
 Synthetic smoke run:
   python -m procyon_tpu_torch.scripts.caption_bulk --synthetic \
       --n_proteins 4 --max_new_tokens 8 --out captions.csv [--device cpu]
+From a model directory (models/checkpoint_io.load_model) over the
+ProCyon-Instruct data store (DATA_DIR):
+  python -m procyon_tpu_torch.scripts.caption_bulk --checkpoint <dir> \
+      --protein_ids ids.txt --out captions.csv
 """
 
 import argparse
@@ -52,29 +56,34 @@ def main(argv=None):
     from procyon_tpu_torch.inference import generation
     from procyon_tpu_torch.models import llama, unified
 
-    if not args.synthetic:
-        raise NotImplementedError(
-            "--checkpoint: loading a checkpoint is not ported to "
-            "procyon_tpu_torch yet (ROADMAP.md, queue 1, checkpoint_io: it "
-            "waits for a checkpoint file in a torch-readable format); run "
-            "with --synthetic")
     device = torch.device(args.device)
-    # the synthetic smoke model: f32 on the CPU's reference backend; on the
-    # card bf16, the type the attention kernels take (head_dim 32 is one of
-    # the flash kernel's)
-    on_cpu = device.type == "cpu"
-    dtype = torch.float32 if on_cpu else torch.bfloat16
-    cfg = unified.UnifiedConfig(
-        llama=llama.LlamaConfig(
-            vocab_size=4096, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
-            intermediate=256, max_seq_len=512, dtype=dtype,
-            attn_backend="ref" if on_cpu else None),
-        esm=None, protein_embed_dim=64, token_projector_layers=2,
-        token_projector_hidden=64, retrieval_dim=32, dtype=dtype)
-    params = unified.init_params(0, cfg, device=device)
-    store = datasets.SyntheticStore(n_proteins=64, embed_dim=64)
-    tokenizer = load_tokenizer(vocab_size=4096)
-    ids = list(range(args.n_proteins))
+    if args.synthetic:
+        # the synthetic smoke model: f32 on the CPU's reference backend; on
+        # the card bf16, the type the attention kernels take (head_dim 32
+        # is one of the flash kernel's)
+        on_cpu = device.type == "cpu"
+        dtype = torch.float32 if on_cpu else torch.bfloat16
+        cfg = unified.UnifiedConfig(
+            llama=llama.LlamaConfig(
+                vocab_size=4096, dim=128, n_layers=2, n_heads=4,
+                n_kv_heads=2, intermediate=256, max_seq_len=512,
+                dtype=dtype, attn_backend="ref" if on_cpu else None),
+            esm=None, protein_embed_dim=64, token_projector_layers=2,
+            token_projector_hidden=64, retrieval_dim=32, dtype=dtype)
+        params = unified.init_params(0, cfg, device=device)
+        store = datasets.SyntheticStore(n_proteins=64, embed_dim=64)
+        tokenizer = load_tokenizer(vocab_size=4096)
+        ids = list(range(args.n_proteins))
+    else:
+        if not args.checkpoint or not args.protein_ids:
+            p.error("without --synthetic, --checkpoint and --protein_ids "
+                    "are needed")
+        from procyon_tpu_torch.models.checkpoint_io import load_model
+
+        params, cfg, tokenizer = load_model(args.checkpoint, device=device)
+        store = datasets.ProCyonDataStore()
+        with open(args.protein_ids) as f:
+            ids = [int(line) for line in f if line.strip()]
 
     # chunked sharding
     ids = [i for n, i in enumerate(ids)

@@ -4,6 +4,8 @@ one card.
 Parses (TrainArgs, DataArgs, ModelArgs) with the --from_yaml override,
 builds the dataset mix, collators and model, and runs the multi-task
 trainer; prints one JSON line {"final_step", "output_dir"} at the end.
+Each `checkpoint-{step}/` under --output_dir is also a model directory:
+`models/checkpoint_io.load_model` reads it.
 
 Synthetic smoke run (no DATA_DIR needed; the tiny model, bf16 on the card,
 f32 with --device cpu):
@@ -71,6 +73,7 @@ def setup(argv=None):
         margs.dtype = "float32" if device.type == "cpu" else "bfloat16"
         dargs.max_text_len = min(dargs.max_text_len, 256)
         store = SyntheticStore(n_proteins=128, n_texts=128, embed_dim=64)
+        tokenizer_info = {"path": None, "vocab_size": 4096}
         tokenizer = load_tokenizer(vocab_size=4096)
         mix = data_config.MultiDatasetConfig.load_from_yaml(
             dargs.it_data_config_yml) if dargs.it_data_config_yml \
@@ -80,6 +83,7 @@ def setup(argv=None):
             ])
     else:
         store = ProCyonDataStore(dargs.data_dir or None)
+        tokenizer_info = {"path": margs.tokenizer_path}
         tokenizer = load_tokenizer(margs.tokenizer_path)
         mix = data_config.MultiDatasetConfig.load_from_yaml(
             dargs.it_data_config_yml) if dargs.it_data_config_yml \
@@ -128,7 +132,8 @@ def setup(argv=None):
     return dict(targs=targs, dargs=dargs, margs=margs, ucfg=ucfg,
                 params=params, optimizer=optimizer, loop=loop,
                 weights=weights, streams=streams,
-                stream_states=stream_states, device=device)
+                stream_states=stream_states, device=device,
+                tokenizer_info=tokenizer_info)
 
 
 def main(argv=None):
@@ -160,7 +165,8 @@ def main(argv=None):
                           optimizer=run["optimizer"], loop=run["loop"],
                           task_streams=run_streams, weights=run["weights"],
                           metrics_logger=metrics_logger,
-                          stream_states=run_states, to_device=run_to_device)
+                          stream_states=run_states, to_device=run_to_device,
+                          tokenizer_info=run["tokenizer_info"])
         if targs.resume:
             trainer.maybe_resume()
         trainer.train()

@@ -5,38 +5,23 @@ procyon_tpu/training/checkpointing.py), torch-native:
     ({params[, frozen], opt_state: {count, mu, nu}, step}; nested dicts and
     lists of tensors in the bridge's layout, ints), read back with
     `weights_only=True`;
-  * configs.json: config/args snapshot as JSON next to it;
+  * configs.json (and tokenizer.json): the model's config, written by
+    models/checkpoint_io.write_configs, so that a checkpoint directory
+    loads as a model (checkpoint_io.load_model);
   * training_state.json: step, mixer state and per-task progress for exact
     resume;
   * best_model_checkpoint: the early-stopping marker, which pruning keeps.
 """
 
-import dataclasses
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 
-STATE_FILE = "state.pt"
-
-
-def _config_to_jsonable(obj):
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return {f.name: _config_to_jsonable(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
-    if isinstance(obj, (list, tuple)):
-        return [_config_to_jsonable(x) for x in obj]
-    if isinstance(obj, dict):
-        return {k: _config_to_jsonable(v) for k, v in obj.items()}
-    if isinstance(obj, (type, torch.dtype)):
-        return str(obj)
-    if isinstance(obj, torch.Tensor):
-        return repr(obj)
-    if callable(obj):
-        return getattr(obj, "__name__", repr(obj))
-    return obj
+from procyon_tpu_torch.models.checkpoint_io import (STATE_FILE, write_configs,
+                                                    write_state)
 
 
 def checkpoint_dir(base: str, step: int) -> str:
@@ -54,21 +39,18 @@ def _to_cpu(tree):
 
 
 def save_checkpoint(base: str, step: int, state: Dict, *,
-                    configs: Optional[Dict[str, Any]] = None,
+                    cfg=None, tokenizer_info: Optional[Dict] = None,
                     training_state: Optional[Dict] = None,
                     keep_last: int = 0) -> str:
-    """Save the train state + JSON sidecars under checkpoint-{step}/."""
+    """Save the train state + JSON sidecars under checkpoint-{step}/; with
+    `cfg` (a UnifiedConfig) its configs.json too."""
     path = os.path.abspath(checkpoint_dir(base, step))
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(_to_cpu(state), tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
-    if configs:
-        with open(os.path.join(path, "configs.json"), "w") as f:
-            json.dump({k: _config_to_jsonable(v) for k, v in configs.items()},
-                      f, indent=2, default=str)
+    write_state(path, _to_cpu(state))
+    if cfg is not None:
+        write_configs(path, cfg, tokenizer_info=tokenizer_info)
     if training_state is not None:
         with open(os.path.join(path, "training_state.json"), "w") as f:
             json.dump(training_state, f, indent=2)

@@ -35,6 +35,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, \
 import numpy as np
 import torch
 
+from procyon_tpu_torch.bridge import is_quantized_leaf
+
 Path = Tuple[str, ...]
 
 GROUPS = ("protein_encoder", "text_encoder", "projector", "contrastive",
@@ -45,11 +47,6 @@ GROUPS = ("protein_encoder", "text_encoder", "projector", "contrastive",
 # Parameter trees: nested dicts / lists of tensors; int8 {"q","s"} and int4
 # {"p","s"} dicts are single (frozen) leaves
 # ---------------------------------------------------------------------------
-
-
-def is_quantized_leaf(node) -> bool:
-    return isinstance(node, dict) and len(node) == 2 and "s" in node \
-        and ("q" in node or "p" in node)
 
 
 def tree_items(tree, prefix: Path = ()) -> Iterator[Tuple[Path, object]]:

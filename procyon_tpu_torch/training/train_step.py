@@ -25,9 +25,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from procyon_tpu_torch.bridge import is_leaf, merge_params
 from procyon_tpu_torch.models import esm2, unified
 from procyon_tpu_torch.training import optimizer as opt_mod
-from procyon_tpu_torch.training.optimizer import is_quantized_leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,18 +39,12 @@ class TaskWeights:
     mlm: float = 1.0
 
 
-def _is_atomic(node) -> bool:
-    """Quantized weight dicts and anything that is not a dict (tensors,
-    projector lists) are single leaves for freezing purposes."""
-    return not isinstance(node, dict) or is_quantized_leaf(node)
-
-
 def partition_params(params, predicate):
     """Split a nested-dict param tree into (trainable, frozen) by path:
     predicate("llama/layers/lora_wq/A") -> True keeps that leaf trainable.
     The subtrees share the tensors of `params` (nothing is copied)."""
     def walk(node, path):
-        if _is_atomic(node):
+        if is_leaf(node):
             return (node, None) if predicate(path) else (None, node)
         t, f = {}, {}
         for k, v in node.items():
@@ -63,18 +57,6 @@ def partition_params(params, predicate):
 
     t, f = walk(params, "")
     return t or {}, f or {}
-
-
-def merge_params(trainable, frozen):
-    """Inverse of partition_params (tree overlay)."""
-    if trainable is None:
-        return frozen
-    if frozen is None:
-        return trainable
-    if _is_atomic(trainable) or _is_atomic(frozen):
-        return trainable
-    return {k: merge_params(trainable.get(k), frozen.get(k))
-            for k in set(trainable) | set(frozen)}
 
 
 def lora_trainable_predicate(path: str) -> bool:

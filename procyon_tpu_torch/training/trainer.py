@@ -53,7 +53,8 @@ class Trainer:
                  metrics_logger: Optional[MetricsLogger] = None,
                  mixer: Optional[TaskMixer] = None,
                  stream_states: Optional[Dict[str, dict]] = None,
-                 to_device: Optional[Callable] = None):
+                 to_device: Optional[Callable] = None,
+                 tokenizer_info: Optional[Dict] = None):
         """task_streams: task name -> callable returning the next batch
         for that task (built from a TaskMixer + collators; see
         scripts/run_pretrain.py). to_device turns a stream's batch into
@@ -67,6 +68,7 @@ class Trainer:
         self.mixer = mixer
         self.stream_states = stream_states
         self.to_device = to_device or (lambda b: b)
+        self.tokenizer_info = tokenizer_info
         self.logger = get_logger(log_dir=loop.output_dir)
         self.metrics = metrics_logger or MetricsLogger(loop.output_dir)
 
@@ -127,6 +129,7 @@ class Trainer:
             tstate["mixer"] = self._mixer_state.to_dict()
         path = checkpointing.save_checkpoint(
             self.loop.output_dir, self.global_step, self.state,
+            cfg=self.cfg, tokenizer_info=self.tokenizer_info,
             training_state=tstate,
             keep_last=self.loop.keep_last_checkpoints)
         self.logger.info(f"saved checkpoint {path}")

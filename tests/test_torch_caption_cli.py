@@ -52,8 +52,16 @@ def test_cli_writes_identical_csvs_on_its_three_backends(tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="checkpoint_io"):
+    # --checkpoint loads through checkpoint_io.load_model (tested in
+    # test_torch_checkpoint_io.py): it needs the protein list, and a
+    # directory that holds a model
+    with pytest.raises(SystemExit):
         caption_bulk.main(["--checkpoint", "x", "--device", "cpu"])
+    ids = tmp_path / "ids.txt"
+    ids.write_text("1\n")
+    with pytest.raises(FileNotFoundError, match="configs.json"):
+        caption_bulk.main(["--checkpoint", str(tmp_path / "none"),
+                           "--protein_ids", str(ids), "--device", "cpu"])
     with pytest.raises(SystemExit):
         caption_bulk.main(["--synthetic", "--shared_prefix", "--device",
                            "cpu"])

@@ -8,7 +8,9 @@ shape, and through the autograd Function;
 the page move on bf16, int8 and f32 rows, direct and staged (swaps,
 cycles, chains: the only test of the staged move's order); the LN + row
 quantization and the two-pass MLP at ESM2-3B's widths and every group
-they take; the fused decode MLP at 1 to 16 rows; the paged decode attention at
+they take; the fused decode MLP at 1 to 16 rows; the RMSNorm + W8A8
+SwiGLU MLP at every group it takes (128 to 512 columns), ragged rows and
+d 4096; the paged decode attention at
 other head dims, groups and page sizes, bf16 and int8 pools; the int4
 matmul at the five Llama-3-8B weight shapes (n cut where it can be), rows
 1 to 256, groups of 64 and 128, and one batcher run with int4 weights.
@@ -238,6 +240,65 @@ def test_fused_decode_mlp_refuses_what_it_cannot_take(cuda):
                                         "s": wg["s"]}, wu, wd)
     with pytest.raises(RuntimeError, match="grad"):
         fd.fused_decode_mlp(x[:4].requires_grad_(), nw, wg, wu, wd)
+
+
+def _swiglu_args(dev, M, d, H, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    ws = [quant.quantize(randn(*shape, scale=shape[0] ** -0.5))
+          for shape in ((d, H), (d, H), (H, d))]
+    return [randn(M, d).to(torch.bfloat16),
+            (1 + randn(d, scale=0.1)).to(torch.bfloat16)] \
+        + [t for w in ws for t in (w["q"], w["s"])]
+
+
+@pytest.mark.parametrize("M,d,H,block_n,G", [
+    (200, 256, 512, 512, 256),      # ragged rows: 200 = 3 x 64 + 8
+    (128, 128, 384, 512, 384),      # three 128-column tiles a group
+    (96, 512, 2048, 1024, 512),     # four
+    (256, 2560, 10240, 512, 256),
+    (64, 4096, 1024, 512, 128),     # d 4096: block_n capped at 256
+])
+def test_fused_rms_swiglu_matches_plain(cuda, M, d, H, block_n, G):
+    """Kernel row 7 against its plain version as chip_smoke.py holds it:
+    the error beyond one bf16 ulp at most 16 hidden-code steps (a row's
+    largest group scale times the largest |down weight| of the column),
+    at most 1% of the elements more than one ulp off; bitwise the same on
+    a second launch; one count a call."""
+    assert fm.swiglu_group(d, H, block_n) == G
+    args = _swiglu_args(cuda, M, d, H, M + H)
+    before = fm.launches_swiglu
+    out = fm.fused_rms_swiglu_int8(*args, block_n=block_n)
+    assert fm.launches_swiglu == before + 1
+    ref = fm.fused_rms_swiglu_int8_ref(*args, block_n=block_n)
+    xq, sx = fm.rms_quant_rows_ref(args[0], args[1])
+    _, sa = fm.swiglu_codes_ref(xq, sx, *args[2:6], G)
+    torch.cuda.synchronize()
+    step = sa.amax(1, keepdim=True) * (
+        args[6].abs().amax(0, keepdim=True).float() * args[7].float())
+    err = (out.float() - ref.float()).abs()
+    ulp = 2.0 ** -7 * ref.float().abs()
+    assert ((err - ulp).clamp_min(0) / step).max().item() <= 16.0
+    assert (err > ulp).float().mean().item() <= 1e-2
+    assert torch.equal(out, fm.fused_rms_swiglu_int8(*args,
+                                                     block_n=block_n))
+
+
+def test_fused_rms_swiglu_refuses_what_it_cannot_take(cuda):
+    args = _swiglu_args(cuda, 64, 256, 512, 0)
+    with pytest.raises(TypeError, match="bf16"):
+        fm.fused_rms_swiglu_int8(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="int8"):
+        fm.fused_rms_swiglu_int8(*args[:2], args[2].to(torch.int16),
+                                 *args[3:])
+    bad = _swiglu_args(cuda, 64, 192, 512, 0)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fm.fused_rms_swiglu_int8(*bad)
+    with pytest.raises(RuntimeError, match="grad"):
+        fm.fused_rms_swiglu_int8(args[0].requires_grad_(), *args[1:])
 
 
 def test_int_mm_short_inputs_are_exact(cuda):

@@ -21,6 +21,7 @@ MODULES = [
     "procyon_tpu_torch.ops.quant",
     "procyon_tpu_torch.ops.rotary",
     "procyon_tpu_torch.models._init",
+    "procyon_tpu_torch.models.checkpoint_io",
     "procyon_tpu_torch.models.contrastive",
     "procyon_tpu_torch.models.esm2",
     "procyon_tpu_torch.models.llama",
@@ -38,8 +39,10 @@ MODULES = [
     "procyon_tpu_torch.data.registry",
     "procyon_tpu_torch.data.text_tokenizer",
     "procyon_tpu_torch.evaluate.caption",
+    "procyon_tpu_torch.evaluate.metrics",
     "procyon_tpu_torch.evaluate.procyon_models",
     "procyon_tpu_torch.evaluate.qa",
+    "procyon_tpu_torch.evaluate.quant_quality",
     "procyon_tpu_torch.inference.generation",
     "procyon_tpu_torch.inference.kv_pool",
     "procyon_tpu_torch.inference.paged_beam",
@@ -49,6 +52,9 @@ MODULES = [
     "procyon_tpu_torch.inference.speculative",
     "procyon_tpu_torch.app.main",
     "procyon_tpu_torch.app.server",
+    "procyon_tpu_torch.scripts.bench_bind",
+    "procyon_tpu_torch.scripts.bench_prefill",
+    "procyon_tpu_torch.scripts.bench_retrieval",
     "procyon_tpu_torch.scripts.caption_bulk",
     "procyon_tpu_torch.scripts.probe_fused_decode",
     "procyon_tpu_torch.scripts.probe_fused_mlp_blocks",
@@ -60,6 +66,7 @@ MODULES = [
     "procyon_tpu_torch.training.prefetch",
     "procyon_tpu_torch.training.train_step",
     "procyon_tpu_torch.training.trainer",
+    "procyon_tpu_torch.utils.timing",
 ]
 
 
@@ -92,5 +99,6 @@ def test_import_builds_nothing():
         and flash_attention.launches_bwd_dkv >= 0 \
         and fused_mlp.launches_ln_quant >= 0 \
         and fused_mlp.launches_prequant >= 0 \
-        and page_move.launches_staged >= 0 and fused_decode.launches >= 0
+        and page_move.launches_staged >= 0 and fused_decode.launches >= 0 \
+        and fused_mlp.launches_swiglu >= 0
     assert not _build._libs
