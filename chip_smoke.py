@@ -9,7 +9,9 @@ source, all started together), then:
   2. holds each kernel against its plain PyTorch version on the card in
      bf16 and times kernel, plain version and, where there is one, the one
      PyTorch call that computes the same function (CUDA events): the
-     row-block attention and the fused LN + int8 MLP at ESM2-650M widths;
+     row-block attention and the fused LN + int8 MLP at ESM2-650M widths
+     (the row-block attention also at ESM2-3B's 40 heads, and launched
+     twice for the same bits);
      the flash forward at Llama-3-8B widths (Hq 32, Hkv 8, D 128, causal)
      for the /retrieve request's B1 x 512 and for B4 and B16 with a
      left-padded, a dead and a packed row, at a cache shape (64 new tokens
@@ -94,7 +96,8 @@ source, all started together), then:
  14. holds the flash backward kernels (dq; dk and dv) against their plain
      version at Llama-3-8B widths (Hq 32, Hkv 8, D 128, causal): the
      training shape B2 x S2048, B4 x 512 with a right-padded, a dead and a
-     packed row, and B2 x 512 with positions given; each kernel's device
+     packed row, and B2 x 512 with positions given (each pair launched twice
+     for the same bits); each kernel's device
      time from torch.profiler, the pair's from CUDA events, the backward of
      scaled_dot_product_attention beside them;
  15. checks one QLoRA QA train step on the card (bf16, ProCyon-Full widths
@@ -168,13 +171,17 @@ quantization x, its affine, the codes and the scales, the fused decode MLP
 its int8 weights, scales, x, the norm weight and out.
 The flash backward's operations are five products over the allowed pairs
 (the dq kernel's least work three, the dk / dv kernel's four).
---profile adds one torch.profiler trace of a request, of five beam steps
+--profile adds one torch.profiler trace of a W8A8 ESM2-650M batch, of a
+request, of five beam steps
 of each caption route, of one 8-step decode round of the serving path
 with bf16 and with int4 weights, of one QA train step and of one W8A8
 Bind batch.
 
-Stdout ends with a JSON line of per-kernel results, the card's nvidia-smi
-line, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero.
+The build prints ptxas' registers and spills for each kernel function.
+Stdout ends with a line that names the first versions of kernel rows 1
+and 9 with their times as PERF.md section 6 records them (not measured
+here), a JSON line of per-kernel results, the main paths' lines (the ESM2 and training lines with the card's nvidia-smi
+line), the card's nvidia-smi line, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero.
 There is no CPU path: without CUDA it exits with status 2.
 """
 
@@ -195,6 +202,7 @@ SEED = 0
 # main path's B64 x L512 batch (the shapes the timed forward gives them)
 ATTN_SHAPE = dict(S=512, H=20, D=64)
 ATTN_BATCHES = (4, 64)
+ATTN_3B_HEADS = 40          # ESM2-3B (ProCyon-Full's encoder): H40 D64
 MLP_SHAPE = dict(d=1280, H=5120)
 MLP_ROWS = (4096, 64 * 512)
 # bf16 outputs: |kernel - plain| <= ATOL + RTOL * |plain|, RTOL one bf16
@@ -495,17 +503,18 @@ def phase_build():
         check(name not in errors, f"{name} did not build: "
                                   f"{errors.get(name)}")
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s, {len(names)} sources "
           f"in parallel ({_build.BUILD_DIR})")
 
 
-def phase_attention(dev, B):
+def phase_attention(dev, B, H=ATTN_SHAPE["H"]):
     import torch
     from procyon_tpu_torch.ops import attention_rowblock as rb
     from procyon_tpu_torch.ops.rotary import flat_rotary_tables
-    S, H, D = (ATTN_SHAPE[k] for k in "SHD")
+    S, D = ATTN_SHAPE["S"], ATTN_SHAPE["D"]
     HD = H * D
     g = torch.Generator(device=dev).manual_seed(SEED)
     qkv = torch.randn((B, S, 3 * HD), generator=g, device=dev).to(
@@ -532,6 +541,8 @@ def phase_attention(dev, B):
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    check(torch.equal(out, kernel()), "attention: two launches on the same "
+                                      "inputs differ")
     check(torch.isfinite(out.float()).all().item(), "attention: non-finite")
     check(not out[1].any().item(), "attention: dead row is not zero")
     check(within_tol(out, ref), f"attention max_abs_err {err}")
@@ -558,7 +569,8 @@ def phase_attention(dev, B):
           f"(no rotary {err2:.3e}; tol {ATOL} + {RTOL}|plain|); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms by {bound_by} ({ops / 1e9:.2f} GFLOP "
-          f"over {pairs} allowed pairs, {n_bytes / 1e6:.1f} MB)")
+          f"over {pairs} allowed pairs, {n_bytes / 1e6:.1f} MB); two "
+          "launches bitwise equal")
     return dict(name="rowblock_attention", route="cuda",
                 source="procyon_tpu_torch/csrc/rowblock_attention.cu",
                 replaces="procyon_tpu/ops/attention_rowblock.py:274",
@@ -895,10 +907,11 @@ def phase_main_path(dev):
 
 
 def phase_throughput(dev, params, params8, cfg, cfg8, batch=64, seq_len=512,
-                     reps=3):
+                     reps=3, profile=False):
     """bench.py's workload: B64 rows of L512 with random lengths in
     [L/2, L-2), ESM2 forward + mean pooling; host clock around
-    synchronized runs after one warm-up."""
+    synchronized runs after one warm-up. With `profile`, one W8A8 batch
+    under torch.profiler."""
     import numpy as np
     import torch
     from procyon_tpu_torch.models import esm2, pooling
@@ -929,6 +942,11 @@ def phase_throughput(dev, params, params8, cfg, cfg8, batch=64, seq_len=512,
     print(f"throughput B{batch} L{seq_len}: bf16 {rates['bf16']:.2f} "
           f"proteins/s, W8A8 {rates['w8a8']:.2f} proteins/s; pooled-hidden "
           f"cos_min {cos_min:.6f} (bench.py's metric)")
+    if profile:
+        with torch.no_grad():
+            profile_once(f"one W8A8 ESM2-650M batch (B{batch} L{seq_len})",
+                         lambda: embed(params8["esm"], cfg8.esm),
+                         batch / rates["w8a8"] * 1e3)
     return rates, cos_min
 
 
@@ -3019,6 +3037,8 @@ def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None):
     check((fa.launches_bwd_dq, fa.launches_bwd_dkv)
           == (before[0] + 1, before[1] + 1),
           f"{name}: the wrapper did not launch both kernels")
+    check(all(torch.equal(a, b) for a, b in zip(got, kernel())),
+          f"{name}: two launches on the same inputs differ")
     errs, held = {}, {}
     for what, a, b in zip(("dq", "dk", "dv"), got, want):
         errs[what] = (a.float() - b.float()).abs().max().item()
@@ -3074,7 +3094,8 @@ def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None):
           f"{held['dq'][0]:.4f} dk {held['dk'][0]:.4f} dv "
           f"{held['dv'][0]:.4f} (<= 1), ||kernel - plain|| / ||plain|| dq "
           f"{held['dq'][1]:.3e} dk {held['dk'][1]:.3e} dv "
-          f"{held['dv'][1]:.3e} (<= {GRAD_FRO_TOL}); both kernels {pair_ms:.4f} ms (events, with the "
+          f"{held['dv'][1]:.3e} (<= {GRAD_FRO_TOL}), two launches bitwise "
+          f"equal; both kernels {pair_ms:.4f} ms (events, with the "
           f"delta pre-pass), dq {split['flash_bwd_dq']:.4f} ms, dkv "
           f"{split['flash_bwd_dkv']:.4f} ms (device); plain {plain_ms:.4f} "
           f"ms, sdpa backward {library_ms:.4f} ms; bound of the backward "
@@ -3094,7 +3115,8 @@ def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None):
                  replaces="procyon_tpu/ops/flash_attention.py:443",
                  max_abs_err=max(errs["dk"], errs["dv"]),
                  ms=split["flash_bwd_dkv"], bound_ms=b_dkv[0],
-                 bound_by=b_dkv[1], **common)]
+                 bound_by=b_dkv[1],
+                 **common)]
 
 
 def phase_flash_bwd(dev):
@@ -3367,17 +3389,17 @@ def timed_steps(step, state, batch, n):
     return ms, m, per
 
 
-def profile_train_step(step, state, batch, untraced_ms):
-    """torch.profiler over one QA step (after a traced one, which pays the
-    tracer's start): wall, device-busy time and kernels of the step, the
-    device's idle share of the untraced step (`untraced_ms`, from the
-    timed steps), and the kernels that take most of the device time."""
+def profile_once(what, fn, untraced_ms):
+    """torch.profiler over one call of fn (after a traced one, which pays
+    the tracer's start): wall, device-busy time and kernels of the call, the
+    device's idle share of the untraced call (`untraced_ms`, timed apart),
+    and the kernels that take most of the device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def run():
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -3390,7 +3412,7 @@ def profile_train_step(step, state, batch, untraced_ms):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"one QA train step under torch.profiler: wall {wall:.1f} ms "
+    print(f"{what} under torch.profiler: wall {wall:.1f} ms "
           f"(tracing on), device busy {busy:.1f} ms in "
           f"{sum(e.count for e in kernels)} kernels; of the untraced "
           f"{untraced_ms:.1f} ms the device idles "
@@ -3491,7 +3513,8 @@ def phase_train(dev, service, profile=False):
                  if torch.equal(x, start[k])]
     check(not unchanged, f"trainable leaves that did not change: {unchanged}")
     if profile:
-        profile_train_step(qa, state, batch, results["qa"]["ms_per_step"])
+        profile_once("one QA train step", lambda: qa(state, batch),
+                     results["qa"]["ms_per_step"])
     return launches, results
 
 
@@ -4168,7 +4191,11 @@ def main():
     # the JSON line carries each kernel's results at the shape its main
     # path gives it: ESM2-650M's B64 x L512 batch, the /retrieve request,
     # ESM2-35M's B16 x L512 batch, one beam step of the caption path
-    kernels = [[phase_attention(dev, b) for b in ATTN_BATCHES][-1],
+    attention = [phase_attention(dev, b) for b in ATTN_BATCHES][-1]
+    h40 = phase_attention(dev, ATTN_BATCHES[-1], H=ATTN_3B_HEADS)
+    attention["esm2_3b"] = {k: h40[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    kernels = [attention,
                [phase_mlp(dev, m) for m in MLP_ROWS][-1],
                [phase_flash(dev, b) for b in FLASH_BATCHES][0]]
     phase_flash_cache(dev)
@@ -4210,7 +4237,7 @@ def main():
     kernels.append(swiglu)
     phase_small_reference(dev)
     launches, cos_min, state = phase_main_path(dev)
-    rates, bench_cos = phase_throughput(dev, *state)
+    rates, bench_cos = phase_throughput(dev, *state, profile=profile)
     del state
     torch.cuda.empty_cache()
     launches["rowblock_fwd"] = phase_esm35m(dev)
@@ -4253,9 +4280,14 @@ def main():
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its "
                                  "main path")
+    print("first versions, as PERF.md section 6 records them (not measured "
+          "in this run): rowblock_attention 3.9931 ms at B64 S512 H20 D64 "
+          "(SIMT f32), flash_attention_bwd_dkv 1.5038 ms at B2 S2048 Hq32 "
+          "Hkv8 D128 causal (mma.sync)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
-        "model": "esm2-650m W8A8 fused-QKV", "cos_min_retrieval": cos_min,
+        "model": "esm2-650m W8A8 fused-QKV", "card": smi,
+        "cos_min_retrieval": cos_min,
         "cos_min_pooled_b64": bench_cos,
         "proteins_per_sec_bf16": rates["bf16"],
         "proteins_per_sec_w8a8": rates["w8a8"]}}))
@@ -4279,7 +4311,7 @@ def main():
         **serving_results, "speculative": spec}}))
     print(json.dumps({"main_path": {
         "model": "Llama-3-8B QLoRA training (int8 frozen base, LoRA r16x4, "
-                 "B2 x S2048, remat)",
+                 "B2 x S2048, remat)", "card": smi,
         "flash_fwd_launches": train_launches["flash_attention_fwd"],
         "flash_bwd_dq_launches": launches["flash_attention_bwd_dq"],
         "flash_bwd_dkv_launches": launches["flash_attention_bwd_dkv"],

@@ -29,27 +29,35 @@
 // 3.35 TB/s). The two-kernel split recomputes s and dp in both: seven
 // products.
 //
-// What the design does about it. Every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 out) with the same fragment plumbing as
-// csrc/flash_attention_fwd.cu: a warp owns 16 rows, the score fragments
-// stay in registers and, rounded to bf16, are already the A operand of the
-// next product; operands that enter as [k][n] rows come through
-// ldmatrix.trans. No online softmax is needed: p is exact against the
-// forward's lse, so the forward's trap of fully masked leading key tiles
-// (a running max of -1e30) has no counterpart here.
-//   dq kernel: a block of four warps owns 64 query rows of one head; per
-//   64-key tile it forms s = Q K^T and dp = dO V^T, then ds, and adds
-//   ds K into a [16, D] f32 accumulator per warp.
-//   dk / dv kernel: a block of four warps owns 64 keys of one kv head, each
-//   warp 16 keys, and walks the query tiles (32 rows) of every query head
-//   of the group, in the transposed orientation: s^T = K Q^T, dp^T =
-//   V dO^T (16 keys x 32 queries a warp), then dv += bf16(p^T) dO and
-//   dk += ds^T Q. The GQA sum over the group's heads happens in those f32
+// What the design does about it. Every product runs on the tensor cores.
+// No online softmax is needed: p is exact against the forward's lse, so
+// the forward's trap of fully masked leading key tiles (a running max of
+// -1e30) has no counterpart here.
+//   dq kernel (mma.sync m16n8k16, bf16 in, f32 out, the fragment plumbing
+//   of csrc/flash_attention_fwd.cu): a block of four warps owns 64 query
+//   rows of one head; per 64-key tile it forms s = Q K^T and dp = dO V^T,
+//   then ds, and adds ds K into a [16, D] f32 accumulator per warp; the
+//   score fragments, rounded to bf16, are already the next product's A
+//   operand, and [k][n] operands come through ldmatrix.trans.
+//   dk / dv kernel (wgmma, csrc/wgmma.cuh): one warpgroup owns 64 keys of
+//   one kv head (K and V copied once into shared memory in wgmma's swizzled
+//   layout, D 24 zero-padded to 32) and walks the 64-row query tiles of
+//   every query head of the group, in the transposed orientation. The
+//   query tiles (Q, dO and their rows' segment ids, positions, lse2 and
+//   delta) come through a two-stage cp.async ring whose copies arrive on
+//   the stage's mbarrier, so tile j + 1 is in flight while tile j is
+//   multiplied. Per tile: s^T = K Q^T and dp^T = V dO^T by wgmma
+//   m64n64k16 with both operands K-major in shared memory; p and ds in
+//   registers; then dv += bf16(p^T) dO and dk += ds^T Q with p^T / ds^T as
+//   the register A operand and dO / Q read MN-major (transposed) from the
+//   same tiles. The GQA sum over the group's heads happens in those f32
 //   registers, inside the kernel, with no atomics and no [B, Hq, S, D]
-//   intermediate. At D = 128 the two accumulators take 128 registers a
-//   thread; the query tile is 32 rows so the transient score fragments take
-//   32 more. The per-query scalars (segment, position, lse2, delta) of a
-//   tile sit in shared memory and are read by column.
+//   intermediate, so the result is the same bit for bit on every launch.
+//   At D 128 the two accumulators take 128 registers a thread and s^T /
+//   dp^T 64 more (254 in all, two blocks an SM). The key tile is the
+//   grid's slowest index: under the causal bound the first key tiles walk
+//   the most query tiles, so they are issued first. Measured times:
+//   PERF.md section 6.
 // The TPU kernels padded both sequence axes to 128 and carried the masks as
 // 8-sublane / 128-lane broadcast arrays for Mosaic; here Sq and Skv are
 // arguments, ragged tiles are masked, and each thread reads the segment ids
@@ -57,20 +65,22 @@
 // `bounded` (positions are the row indices, Sq == Skv) key tiles above the
 // diagonal in dq and query tiles below it in dk / dv; tiles that hold only
 // padding on either side.
-// Later work: one fused kernel (dq by atomics or a second pass over f32
-// partials), wgmma with TMA staging, K/V tiles in shared memory across the
-// dq blocks of a group.
+// Later work: the dq kernel on wgmma; overlapping a warpgroup's products
+// with its elementwise work (each product group is waited for before the
+// next step); K/V tiles in shared memory across the dq blocks of a group.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int BQ = 64;    // dq kernel: query rows per block, 16 per warp
-constexpr int BK = 64;    // keys per tile (dq) / per block (dk, dv)
-constexpr int BQT = 32;   // dk / dv kernel: query rows per tile
+// dq kernel
+constexpr int BQ = 64;    // query rows per block, 16 per warp
+constexpr int BK = 64;    // keys per tile
 constexpr int NT = 128;   // four warps
 
 struct Strides {
@@ -99,11 +109,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -115,7 +120,6 @@ struct Dims {
   static constexpr int KS = DP / 16;             // k-steps over head_dim
   static constexpr int ND = DP / 8;              // 8-wide column tiles
   static constexpr int dq_bytes = (2 * BQ + 2 * BK) * LD * 2 + 2 * BK * 4;
-  static constexpr int dkv_bytes = (2 * BK + 2 * BQT) * LD * 2 + 4 * BQT * 4;
 };
 
 // rows [row0, row0 + ROWS) of a [n_rows, D] bf16 matrix with row stride
@@ -172,10 +176,10 @@ __device__ __forceinline__ void scores_dot_tile(float (&acc)[Dims<D>::ND][4],
   constexpr int LD = Dims<D>::LD, ND = Dims<D>::ND;
 #pragma unroll
   for (int kk = 0; kk < NN / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+    const uint32_t a[4] = {wg::pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                           wg::pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           wg::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           wg::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
     // lanes 0-7 / 8-15 address rows 0-7 / 8-15 of columns d..d+7, lanes
     // 16-31 the same rows of columns d+8..d+15
     const __nv_bfloat16* mp =
@@ -327,125 +331,250 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(dq, acc, sm_scale, b, q0 + wrow, Sq, Hq, h, g, t);
 }
 
+// ---- dk / dv: one warpgroup of 64 keys, wgmma, a cp.async ring ----------
+
+constexpr int KV_NT = 128;   // one warpgroup
+constexpr int KV_NS = 2;     // stages of the query-tile ring
+constexpr int KV_BQ = 64;    // query rows a tile
+
 template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse2,
-                     const float* __restrict__ delta,
-                     const int* __restrict__ seg_q,
-                     const int* __restrict__ seg_kv,
-                     const int* __restrict__ q_pos,
-                     const int* __restrict__ kv_pos,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int Hq,
-                     int Hkv, int group, Strides sq, Strides sk, Strides sv,
-                     Strides sdo, float scale2, float sm_scale, int causal,
-                     int bounded) {
-  constexpr int LD = Dims<D>::LD, ND = Dims<D>::ND;
-  constexpr int NQ = BQT / 8;   // 8-wide query tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LD]
-  __nv_bfloat16* Vs = Ks + BK * LD;                                // [BK][LD]
-  __nv_bfloat16* Qs = Vs + BK * LD;                                // [BQT][LD]
-  __nv_bfloat16* dOs = Qs + BQT * LD;                              // [BQT][LD]
-  int* segq_s = reinterpret_cast<int*>(dOs + BQT * LD);            // [BQT]
-  int* qpos_s = segq_s + BQT;                                      // [BQT]
-  float* lse_s = reinterpret_cast<float*>(qpos_s + BQT);           // [BQT]
-  float* del_s = lse_s + BQT;                                      // [BQT]
+struct KvLayout {
+  static constexpr int DP = D == 24 ? 32 : D;   // wgmma's k is 16
+  using T = wg::Tile<DP, 64>;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = T::BYTES;
+  static constexpr int RING = 2 * T::BYTES;
+  // a stage: Q and dO (swizzled), then the tile's segment ids, positions,
+  // lse2 and delta, 64 of each
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = T::BYTES;
+  static constexpr int SEG_OFF = 2 * T::BYTES;
+  static constexpr int POS_OFF = SEG_OFF + 4 * KV_BQ;
+  static constexpr int LSE_OFF = POS_OFF + 4 * KV_BQ;
+  static constexpr int DEL_OFF = LSE_OFF + 4 * KV_BQ;
+  static constexpr int STAGE = (DEL_OFF + 4 * KV_BQ + 1023) / 1024 * 1024;
+  static constexpr int BAR_OFF = RING + KV_NS * STAGE;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * KV_NS;
+};
+
+// rows [row0, row0 + 64) of a [n_rows, D] bf16 matrix with row stride rs
+// into a swizzled [64][DP] tile; rows beyond n_rows and the padding
+// columns of D 24 are zero-filled
+template <int D>
+__device__ __forceinline__ void copy_rows(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long rs, int row0, int n_rows,
+                                          int tid) {
+  using T = typename KvLayout<D>::T;
+  for (int i = tid; i < 64 * T::CHUNKS; i += KV_NT) {
+    const int r = i / T::CHUNKS, c = i % T::CHUNKS, s = row0 + r;
+    const bool in = s < n_rows && c < D / 8;
+    wg::cp16(dst + T::offset(r, c), src + (in ? (long long)s * rs + c * 8 : 0),
+             in);
+  }
+}
+
+struct KvArgs {
+  const __nv_bfloat16 *q, *k, *v, *dout;
+  const float *lse2, *delta;
+  const int *seg_q, *seg_kv, *q_pos, *kv_pos;
+  __nv_bfloat16 *dk, *dv;
+  int B, Sq, Skv, Hq, Hkv, group;
+  Strides sq, sk, sv, sdo;
+  float scale2, sm_scale;
+  int causal, bounded;
+};
+
+// query tile q0 of query head h into a stage, then the stage's arrival
+template <int D>
+__device__ __forceinline__ void copy_query_tile(const KvArgs& a,
+                                                unsigned char* st,
+                                                uint32_t bar, int b, int h,
+                                                int q0, int tid) {
+  using L = KvLayout<D>;
+  const uint32_t base = wg::smem_u32(st);
+  copy_rows<D>(base + L::Q_OFF, a.q + (long long)b * a.sq.b + (long long)h * a.sq.h,
+               a.sq.r, q0, a.Sq, tid);
+  copy_rows<D>(base + L::DO_OFF,
+               a.dout + (long long)b * a.sdo.b + (long long)h * a.sdo.h, a.sdo.r,
+               q0, a.Sq, tid);
+  const long long row = (long long)b * a.Sq, lrow = ((long long)b * a.Hq + h) * a.Sq;
+  for (int i = tid; i < 4 * KV_BQ; i += KV_NT) {
+    const int kind = i / KV_BQ, r = i % KV_BQ, s = q0 + r;
+    const bool in = s < a.Sq;
+    const int si = in ? s : 0;
+    const void* src = kind == 0   ? (const void*)(a.seg_q + row + si)
+                      : kind == 1 ? (const void*)(a.q_pos + row + si)
+                      : kind == 2 ? (const void*)(a.lse2 + lrow + si)
+                                  : (const void*)(a.delta + lrow + si);
+    wg::cp4(base + L::SEG_OFF + kind * 4 * KV_BQ + 4 * r, src, in);
+  }
+  wg::cp_arrive(bar);
+}
+
+template <int D>
+__global__ void __launch_bounds__(KV_NT, 1) flash_bwd_dkv_kernel(KvArgs a) {
+  using L = KvLayout<D>;
+  using T = typename L::T;
+  constexpr int KS = L::DP / 16, NA = T::NATOM, A = T::A;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const __nv_bfloat16* kb = k + (long long)b * sk.b + (long long)hk * sk.h;
-  const __nv_bfloat16* vb = v + (long long)b * sv.b + (long long)hk * sv.h;
-  const int* segq_b = seg_q + (long long)b * Sq;
-  const int* qpos_b = q_pos + (long long)b * Sq;
-
-  // this thread's two keys: r = 0 -> key g, r = 1 -> key g + 8 of the warp
-  const int wrow = warp * 16;
+  const int g = lane >> 2, t = lane & 3;
+  // the key tile is the grid's slowest index: under the causal bound the
+  // first key tiles walk the most query tiles, so they start first
+  const int kt = blockIdx.x / (a.Hkv * a.B);
+  const int hk = blockIdx.x % a.Hkv;
+  const int b = (blockIdx.x / a.Hkv) % a.B;
+  const int k0 = kt * 64;
+  const int key0 = k0 + (tid >> 5) * 16 + g;   // this thread's keys: +0, +8
   int segk[2], kp[2];
-  int live_keys = 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int s = k0 + wrow + g + 8 * r;
-    segk[r] = s < Skv ? seg_kv[(long long)b * Skv + s] : 0;
-    kp[r] = s < Skv ? kv_pos[(long long)b * Skv + s] : 0;
-    live_keys |= segk[r] > 0;
+    const int s = key0 + 8 * r;
+    segk[r] = s < a.Skv ? a.seg_kv[(long long)b * a.Skv + s] : 0;
+    kp[r] = s < a.Skv ? a.kv_pos[(long long)b * a.Skv + s] : 0;
   }
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < KV_NS; ++i) wg::mbar_init(wg::smem_u32(bars + i), KV_NT);
+    wg::mbar_fence_init();
+  }
+  const int live = __syncthreads_or(segk[0] > 0 || segk[1] > 0);
+  // with the row indices as positions, query rows before k0 see none of
+  // these keys
+  const int q_lo = (a.causal && a.bounded) ? min(k0, a.Sq) : 0;
+  const int nq = (a.Sq - q_lo + KV_BQ - 1) / KV_BQ;
+  const int total = live ? a.group * nq : 0;
+  unsigned char* ring = smem + L::RING;
+  const uint32_t kbase = wg::smem_u32(smem + L::K_OFF);
+  const uint32_t vbase = wg::smem_u32(smem + L::V_OFF);
+  if (total > 0) {
+    // K and V once; the first stage's arrival covers them too
+    copy_rows<D>(kbase, a.k + (long long)b * a.sk.b + (long long)hk * a.sk.h,
+                 a.sk.r, k0, a.Skv, tid);
+    copy_rows<D>(vbase, a.v + (long long)b * a.sv.b + (long long)hk * a.sv.h,
+                 a.sv.r, k0, a.Skv, tid);
+    copy_query_tile<D>(a, ring, wg::smem_u32(bars), b, hk * a.group, q_lo, tid);
+  }
 
-  // the branch and everything inside it is uniform over the block
-  if (__syncthreads_or(live_keys)) {
-    stage_tile<D, BK>(Ks, kb, sk.r, k0, Skv, tid);
-    stage_tile<D, BK>(Vs, vb, sv.r, k0, Skv, tid);
-    // with the row indices as positions, query rows before k0 see none of
-    // these keys (k0 is a multiple of BQT)
-    const int q_lo = (causal && bounded) ? min(k0, Sq) : 0;
-
-    for (int hh = 0; hh < group; ++hh) {
-      const int h = hk * group + hh;
-      const __nv_bfloat16* qb = q + (long long)b * sq.b + (long long)h * sq.h;
-      const __nv_bfloat16* dob =
-          dout + (long long)b * sdo.b + (long long)h * sdo.h;
-      const long long row_base = ((long long)b * Hq + h) * Sq;
-      for (int q0 = q_lo; q0 < Sq; q0 += BQT) {
-        __syncthreads();  // K, V staged / previous query tile consumed
-        int live_q = 0;
-        if (tid < BQT) {
-          const int s = q0 + tid;
-          const bool in = s < Sq;
-          const int sg = in ? segq_b[s] : 0;
-          segq_s[tid] = sg;
-          qpos_s[tid] = in ? qpos_b[s] : 0;
-          lse_s[tid] = in ? lse2[row_base + s] : 0.f;
-          del_s[tid] = in ? delta[row_base + s] : 0.f;
-          live_q = sg > 0;
-        }
-        if (!__syncthreads_or(live_q)) continue;  // a tile of padding
-        stage_tile<D, BQT>(Qs, qb, sq.r, q0, Sq, tid);
-        stage_tile<D, BQT>(dOs, dob, sdo.r, q0, Sq, tid);
-        __syncthreads();
-
-        // transposed scores: st[n][e] is key g + 8 * (e >> 1) of the warp
-        // against query n * 8 + 2 * t + (e & 1) of the tile
-        float st[NQ][4], dpt[NQ][4];
-        rows_dot_rows<D, NQ>(st, Ks + wrow * LD, Qs, g, t);
-        rows_dot_rows<D, NQ>(dpt, Vs + wrow * LD, dOs, g, t);
+  float dk[NA][A / 2], dv[NA][A / 2];
 #pragma unroll
-        for (int n = 0; n < NQ; ++n) {
+  for (int i = 0; i < NA; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            const int c = n * 8 + 2 * t + (e & 1);
-            const int qsg = segq_s[c];
-            // rows beyond Sq carry segment 0 and fail the first test
-            const bool ok = qsg > 0 && qsg == segk[r] &&
-                            (!causal || qpos_s[c] >= kp[r]);
-            const float p =
-                ok ? exp2f(__fmul_rn(st[n][e], scale2) - lse_s[c]) : 0.f;
-            st[n][e] = p;
-            dpt[n][e] = p * (dpt[n][e] - del_s[c]);
-          }
-        }
-        scores_dot_tile<D, NQ>(dva, st, dOs, lane);
-        scores_dot_tile<D, NQ>(dka, dpt, Qs, lane);
+    for (int j = 0; j < A / 2; ++j) dk[i][j] = dv[i][j] = 0.f;
+  float st[32], dp[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) st[j] = dp[j] = 0.f;
+  uint32_t pf[4][4], df[4][4];
+
+  for (int j = 0; j < total; ++j) {
+    unsigned char* stage = ring + (j % KV_NS) * L::STAGE;
+    wg::mbar_wait(wg::smem_u32(bars + j % KV_NS), (j / KV_NS) & 1);
+    wg::fence_async_smem();
+    const int* segq = reinterpret_cast<const int*>(stage + L::SEG_OFF);
+    // also: every thread is past tile j - 1, whose stage is refilled next
+    const int any = __syncthreads_or(tid < KV_BQ && segq[tid] > 0);
+    if (j + 1 < total)
+      copy_query_tile<D>(a, ring + ((j + 1) % KV_NS) * L::STAGE,
+                         wg::smem_u32(bars + (j + 1) % KV_NS), b,
+                         hk * a.group + (j + 1) / nq,
+                         q_lo + ((j + 1) % nq) * KV_BQ, tid);
+    if (!any) continue;   // a tile of padding
+
+    const uint32_t qbase = wg::smem_u32(stage + L::Q_OFF);
+    const uint32_t dobase = wg::smem_u32(stage + L::DO_OFF);
+    // transposed scores: st[4 c + e] is key key0 + 8 (e >> 1) against
+    // query 8 c + 2 t + (e & 1) of the tile
+    wg::hold(st);
+    wg::hold(dp);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wg::ss64(st, T::kmajor(kbase, kk), T::kmajor(qbase, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wg::ss64(dp, T::kmajor(vbase, kk), T::kmajor(dobase, kk), kk > 0);
+    wg::commit();
+    wg::wait_all();
+    wg::hold(st);
+    wg::hold(dp);
+
+    const int* qpos = reinterpret_cast<const int*>(stage + L::POS_OFF);
+    const float* lse = reinterpret_cast<const float*>(stage + L::LSE_OFF);
+    const float* del = reinterpret_cast<const float*>(stage + L::DEL_OFF);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = 8 * c + 2 * t;
+      const int2 qs = *reinterpret_cast<const int2*>(segq + col);
+      const int2 qp = *reinterpret_cast<const int2*>(qpos + col);
+      const float2 ls = *reinterpret_cast<const float2*>(lse + col);
+      const float2 de = *reinterpret_cast<const float2*>(del + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int qsg = (e & 1) ? qs.y : qs.x;
+        // rows beyond Sq carry segment 0 and fail the first test
+        const bool ok = qsg > 0 && qsg == segk[r] &&
+                        (!a.causal || ((e & 1) ? qp.y : qp.x) >= kp[r]);
+        const float p = ok ? exp2f(__fmul_rn(st[4 * c + e], a.scale2) -
+                                   ((e & 1) ? ls.y : ls.x))
+                           : 0.f;
+        st[4 * c + e] = p;
+        dp[4 * c + e] = p * (dp[4 * c + e] - ((e & 1) ? de.y : de.x));
       }
     }
+    wg::to_a(pf, st);   // bf16(p^T)
+    wg::to_a(df, dp);   // ds^T = bf16(p^T (dp^T - delta))
+
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      wg::hold(dk[i]);
+      wg::hold(dv[i]);
+    }
+    wg::hold(pf);
+    wg::hold(df);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        wg::rs<A>(dv[i], pf[kk], T::mnmajor(dobase, kk, i));
+        wg::rs<A>(dk[i], df[kk], T::mnmajor(qbase, kk, i));
+      }
+    wg::commit();
+    wg::wait_all();
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      wg::hold(dk[i]);
+      wg::hold(dv[i]);
+    }
+    wg::hold(pf);
+    wg::hold(df);
   }
-  store_rows<D>(dk, dka, sm_scale, b, k0 + wrow, Skv, Hkv, hk, g, t);
-  store_rows<D>(dv, dva, 1.f, b, k0 + wrow, Skv, Hkv, hk, g, t);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = key0 + 8 * r;
+    if (s >= a.Skv) continue;
+    const long long off = (((long long)b * a.Skv + s) * a.Hkv + hk) * D;
+#pragma unroll
+    for (int i = 0; i < NA; ++i)
+#pragma unroll
+      for (int c = 0; c < A / 8; ++c) {
+        const int col = i * A + 8 * c + 2 * t;
+        if (col < D) {
+          *reinterpret_cast<__nv_bfloat162*>(a.dk + off + col) =
+              __floats2bfloat162_rn(dk[i][4 * c + 2 * r] * a.sm_scale,
+                                    dk[i][4 * c + 2 * r + 1] * a.sm_scale);
+          *reinterpret_cast<__nv_bfloat162*>(a.dv + off + col) =
+              __floats2bfloat162_rn(dv[i][4 * c + 2 * r],
+                                    dv[i][4 * c + 2 * r + 1]);
+        }
+      }
+  }
 }
 
 bool aligned16(const void* p, const Strides& s) {
@@ -486,23 +615,28 @@ cudaError_t launch_dq(const Args& a, void* dq, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv,
                        cudaStream_t stream) {
-  constexpr int bytes = Dims<D>::dkv_bytes;
+  constexpr int bytes = KvLayout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Skv + BK - 1) / BK, a.Hkv, a.B);
-  flash_bwd_dkv_kernel<D><<<grid, NT, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.seg_q), static_cast<const int*>(a.seg_kv),
-      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.kv_pos),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.Sq,
-      a.Skv, a.Hq, a.Hkv, a.Hq / a.Hkv, a.sq, a.sk, a.sv, a.sdo, a.scale2,
-      a.sm_scale, a.causal, a.bounded);
+  const KvArgs k{static_cast<const __nv_bfloat16*>(a.q),
+                 static_cast<const __nv_bfloat16*>(a.k),
+                 static_cast<const __nv_bfloat16*>(a.v),
+                 static_cast<const __nv_bfloat16*>(a.dout),
+                 static_cast<const float*>(a.lse2),
+                 static_cast<const float*>(a.delta),
+                 static_cast<const int*>(a.seg_q),
+                 static_cast<const int*>(a.seg_kv),
+                 static_cast<const int*>(a.q_pos),
+                 static_cast<const int*>(a.kv_pos),
+                 static_cast<__nv_bfloat16*>(dk),
+                 static_cast<__nv_bfloat16*>(dv),
+                 a.B, a.Sq, a.Skv, a.Hq, a.Hkv, a.Hq / a.Hkv,
+                 a.sq, a.sk, a.sv, a.sdo,
+                 a.scale2, a.sm_scale, a.causal, a.bounded};
+  const int grid = (a.Skv + 63) / 64 * a.Hkv * a.B;
+  flash_bwd_dkv_kernel<D><<<grid, KV_NT, bytes, stream>>>(k);
   return cudaGetLastError();
 }
 

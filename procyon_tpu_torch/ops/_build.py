@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface, under `build/procyon_tpu_torch/` at the repository root,
-keyed by a hash of its source, and loads with ctypes. The build runs only
+keyed by a hash of its source and the headers it may include
+(`csrc/*.cuh`), and loads with ctypes. The build runs only
 when a wrapper first launches a kernel on a CUDA tensor, never at import.
 
 Every C entry point takes device pointers and the stream as `void*`, ints
@@ -40,7 +41,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
+    """The library of csrc/<name>.cu, keyed by its source, the shared
+    headers (csrc/*.cuh) and the target flags."""
+    src = (_CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(ARCH_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

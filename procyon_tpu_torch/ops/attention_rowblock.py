@@ -82,8 +82,15 @@ def rowblock_attention_ref(q, k, v, seg, *, head_dim: int,
     return o.permute(0, 2, 1, 3).reshape(B, S, HD).to(q.dtype)
 
 
-def _launch(q, k, v, seg, head_dim, score_scale, rope) -> torch.Tensor:
-    global launches
+def check_kernel_layout(q, k, v, seg, head_dim: int,
+                        rope: Optional[Rope] = None) -> None:
+    """Raise unless the kernel can take these tensors: bf16 q/k/v of one
+    shape [B, S, H*D] with one row and one batch stride and unit stride
+    inside a row, head_dim in KERNEL_HEAD_DIMS, contiguous int32 seg
+    [B, S], contiguous bf16 [S, H*D] rope tables, all on one device. The
+    kernel copies 16-byte chunks (cp.async), so every base address is
+    16-byte aligned and both strides are multiples of 8 elements. Reads
+    shapes, strides and addresses only, on any device."""
     B, S, HD = q.shape
     D = head_dim
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -98,6 +105,12 @@ def _launch(q, k, v, seg, head_dim, score_scale, rope) -> torch.Tensor:
         raise ValueError("q/k/v need one row stride, one batch stride and "
                          f"unit stride inside a row: {q.stride()} "
                          f"{k.stride()} {v.stride()}")
+    if (any(t.data_ptr() % 16 for t in (q, k, v))
+            or q.stride(0) % 8 or q.stride(1) % 8):
+        raise ValueError("rowblock kernel copies 16-byte chunks: q/k/v need "
+                         "16-byte aligned bases and row / batch strides that "
+                         f"are multiples of 8, got strides {q.stride()} at "
+                         f"offsets {[t.storage_offset() for t in (q, k, v)]}")
     if seg.shape != (B, S) or seg.dtype != torch.int32 \
             or not seg.is_contiguous():
         raise ValueError(f"seg must be contiguous int32 [B, S], got "
@@ -105,15 +118,22 @@ def _launch(q, k, v, seg, head_dim, score_scale, rope) -> torch.Tensor:
     dev = q.device
     if any(t.device != dev for t in (k, v, seg)):
         raise ValueError("q/k/v/seg on different devices")
-    ptrs = [None] * 4
-    if rope is not None:
-        for t in rope:
-            if (t.shape != (S, HD) or t.dtype != torch.bfloat16
-                    or not t.is_contiguous() or t.device != dev):
-                raise ValueError("rope tables must be contiguous bf16 "
-                                 f"[S, H*D] on {dev}, got {t.dtype} "
-                                 f"{tuple(t.shape)} on {t.device}")
-        ptrs = [t.data_ptr() for t in rope]
+    for t in rope or ():
+        if (t.shape != (S, HD) or t.dtype != torch.bfloat16
+                or not t.is_contiguous() or t.device != dev
+                or t.data_ptr() % 16):
+            raise ValueError("rope tables must be contiguous, 16-byte "
+                             f"aligned bf16 [S, H*D] on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch(q, k, v, seg, head_dim, score_scale, rope) -> torch.Tensor:
+    global launches
+    check_kernel_layout(q, k, v, seg, head_dim, rope)
+    B, S, HD = q.shape
+    D = head_dim
+    dev = q.device
+    ptrs = [None] * 4 if rope is None else [t.data_ptr() for t in rope]
     out = torch.empty((B, S, HD), dtype=q.dtype, device=dev)
     lib = _build.load("rowblock_attention", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -247,9 +247,13 @@ def flash_bwd_ref(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch_bwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out, lse,
-                do, causal, sm_scale, bounded):
-    global launches_bwd_dq, launches_bwd_dkv
+def check_bwd_layout(q, k, v, ints, out, lse, do):
+    """Raise unless the backward kernels can take these tensors: bf16 q, k,
+    v, do with head_dim in KERNEL_HEAD_DIMS (24 is padded to 32 inside the
+    dk / dv kernel), shapes that fit, contiguous int32 [B, S] segment ids
+    and positions, one device, and heads the kernels copy 16 bytes at a
+    time (`_strides`). Reads shapes, strides and addresses only, on any
+    device."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
@@ -265,15 +269,26 @@ def _launch_bwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out, lse,
             f"shapes do not fit: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} do {tuple(do.shape)} lse "
             f"{tuple(lse.shape)}")
-    ints = (seg_q, seg_kv, q_positions, kv_positions)
     for t, S in zip(ints, (Sq, Skv, Sq, Skv)):
         if (t.shape != (B, S) or t.dtype != torch.int32
                 or not t.is_contiguous()):
             raise ValueError("segment ids and positions must be contiguous "
                              f"int32 [B, S], got {t.dtype} {tuple(t.shape)}")
     dev = q.device
-    if any(t.device != dev for t in (k, v, out, lse, do) + ints):
+    if any(t.device != dev for t in (k, v, out, lse, do, *ints)):
         raise ValueError("flash backward inputs on different devices")
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
+        _strides(t, what)
+
+
+def _launch_bwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out, lse,
+                do, causal, sm_scale, bounded):
+    global launches_bwd_dq, launches_bwd_dkv
+    ints = (seg_q, seg_kv, q_positions, kv_positions)
+    check_bwd_layout(q, k, v, ints, out, lse, do)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
     # the reference computes delta and the base-2 lse outside its kernels
     # too (flash_attention.py _bwd)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()

@@ -121,3 +121,42 @@ def test_wrapper_refuses_other_devices(device):
     seg = torch.empty((1, 128), dtype=torch.int32, device=device)
     with pytest.raises(ValueError):
         trb.rowblock_attention(x, x, x, seg, head_dim=64, score_scale=1.0)
+
+
+def _layout_case(case):
+    """q / k / v views, seg and rope tables for one layout of
+    test_kernel_layout_check, on the CPU (only shapes, strides and
+    addresses are read)."""
+    B, S, H, D = 2, 128, 2, 24 if case == "head_dim_24" else 64
+    HD = H * D
+    pad = {"misaligned_base": 8, "odd_row_stride": 4}.get(case, 0)
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    qkv = torch.zeros((B, S, 3 * HD + pad), dtype=dtype)
+    off = 1 if case == "misaligned_base" else 0
+    q, k, v = (qkv[..., off + i * HD:off + (i + 1) * HD] for i in range(3))
+    seg = torch.ones((B, S), dtype=torch.int32)
+    tables = [torch.zeros((S, HD), dtype=torch.bfloat16) for _ in range(4)]
+    if case == "table_misaligned":
+        tables[2] = torch.zeros(S * HD + 1, dtype=torch.bfloat16)[1:].view(
+            S, HD)
+    return q, k, v, seg, D, tuple(tables)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("packed", None),                   # the packed projection's views
+    ("misaligned_base", ValueError),    # a base 2 bytes off 16
+    ("odd_row_stride", ValueError),     # row stride 4 mod 8 elements
+    ("table_misaligned", ValueError),   # a rope table 2 bytes off 16
+    ("f32", TypeError),
+    ("head_dim_24", ValueError),
+])
+def test_kernel_layout_check(case, error):
+    """The kernel copies 16-byte chunks with cp.async, so its wrapper
+    raises before the launch on a base or stride it cannot copy; the check
+    reads shapes, strides and addresses only, so it runs on the CPU."""
+    q, k, v, seg, D, rope = _layout_case(case)
+    if error is None:
+        trb.check_kernel_layout(q, k, v, seg, D, rope)
+    else:
+        with pytest.raises(error):
+            trb.check_kernel_layout(q, k, v, seg, D, rope)

@@ -3,8 +3,11 @@ at shapes beyond chip_smoke.py's: ESM2's full S=1026 (a ragged last key
 tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
 16-row block (d=2560) and its G=256 group; the flash forward at ragged
 lengths, every head dim, strided views, a cache shape and ESM2-35M's route;
-the flash backward (dq; dk and dv) at the same shapes and at the training
-shape, and through the autograd Function;
+the flash backward (dq; dk and dv) at the same shapes, at D 24 and 128
+with groups of 1 and 4 and over a cache, at the training shape, and
+through the autograd Function, each twice for the same bits; the
+row-block attention at one query tile, ESM2-3B's 40 heads, every head
+dim, a row whose leading key tiles are padding, twice for the same bits;
 the page move on bf16, int8 and f32 rows, direct and staged (swaps,
 cycles, chains: the only test of the staged move's order); the LN + row
 quantization and the two-pass MLP at ESM2-3B's widths and every group
@@ -68,8 +71,12 @@ def _seg(B, S, dev):
 
 @pytest.mark.parametrize("B,S,H,D,use_rope", [
     (2, 1026, 4, 64, True),     # ESM2's max length: a ragged last tile
+    (3, 128, 4, 64, True),      # one query tile, two key tiles
+    (2, 512, 40, 64, True),     # ESM2-3B's heads
     (3, 200, 8, 16, True),
+    (3, 256, 4, 32, True),
     (2, 130, 2, 128, False),    # scale on the scores, no rotary
+    (2, 384, 4, 128, True),
 ])
 def test_packed_attention_matches_plain(cuda, B, S, H, D, use_rope):
     g = torch.Generator(device=cuda).manual_seed(S + D)
@@ -94,6 +101,36 @@ def test_packed_attention_matches_plain(cuda, B, S, H, D, use_rope):
     torch.cuda.synchronize()
     assert _close(out, ref)
     assert not out[seg == 0].any().item()
+
+
+def test_packed_attention_leading_padding_and_repeats(cuda):
+    """A row whose first 200 keys are padding (the kernel never loads its
+    first three key tiles, and a running max of -1e30 must not leak into
+    the live rows) and a row with padding in the middle of a tile; two
+    launches on the same inputs give the same bits."""
+    B, S, H, D = 4, 512, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    HD = H * D
+    qkv = torch.randn((B, S, 3 * HD), generator=g, device=cuda).to(
+        torch.bfloat16)
+    seg = _seg(B, S, cuda)
+    seg[3, :200] = 0
+    seg[2, 300:310] = 0
+    c, s, _ = flat_rotary_tables(D, H, S)
+    rope = tuple(t.to(cuda, torch.bfloat16) for t in (c, s, c, s))
+    sm = 1.0 / math.sqrt(D)
+    out = rb.rowblock_packed_qkv_fwd(qkv, seg, n_heads=H, head_dim=D,
+                                     sm_scale=sm, rope=rope)
+    again = rb.rowblock_packed_qkv_fwd(qkv, seg, n_heads=H, head_dim=D,
+                                       sm_scale=sm, rope=rope)
+    q, k, v = qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:]
+    ref = rb.rowblock_attention_ref(q, k, v, seg, head_dim=D,
+                                    score_scale=1.0,
+                                    rope=rb.fold_rope(rope, sm))
+    torch.cuda.synchronize()
+    assert _close(out, ref)
+    assert not out[seg == 0].any().item()
+    assert torch.equal(out, again)
 
 
 def test_separate_qkv_attention_matches_plain(cuda):
@@ -406,6 +443,9 @@ def _grad_close(out, ref):
     (2, 48, 333, 8, 2, 128, True),      # new tokens over a cache
     (1, 3, 20, 2, 1, 16, True),         # a few rows in one ragged tile
     (5, 70, 70, 1, 1, 32, False),
+    (2, 320, 320, 16, 4, 128, True),    # five query tiles a head, GQA 4
+    (2, 256, 256, 8, 8, 24, False),     # D 24 padded to 32, group 1
+    (2, 100, 300, 4, 1, 24, True),      # D 24 over a cache, group 4
 ])
 def test_flash_backward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
     """Kernel rows 8 and 9 (dq; dk and dv) against flash_bwd_ref on the
@@ -438,6 +478,9 @@ def test_flash_backward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
             assert torch.isfinite(a.float()).all(), name
             assert _grad_close(a, b), (name, bounded,
                                        (a.float() - b.float()).abs().max())
+        again = fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=causal,
+                             sm_scale=sm, bounded=bounded)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         dq, dk, dv = got
         assert not dq[ints[0] == 0].any().item()
         assert not dk[ints[1] == 0].any().item()

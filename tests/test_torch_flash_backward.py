@@ -235,3 +235,32 @@ def test_wrappers_without_backward_refuse_grad(name):
         _wrapper_calls(True)[name]()
     with torch.no_grad(), pytest.raises(ValueError, match="device"):
         _wrapper_calls(True)[name]()
+
+
+@pytest.mark.parametrize("case,error", [
+    ("fits", None),
+    ("head_dim_24", None),        # padded to 32 inside the dk / dv kernel
+    ("misaligned", ValueError),   # q's heads 2 bytes off 16
+    ("head_dim_48", ValueError),
+    ("f32", TypeError),
+])
+def test_backward_kernel_layout_check(case, error):
+    """The backward kernels' preconditions (bf16, a head dim they take,
+    heads they copy 16 bytes at a time) are checked before the launch from
+    shapes, strides and addresses alone, so they are tested on the CPU."""
+    B, S, Hq, Hkv = 2, 64, 4, 2
+    D = {"head_dim_24": 24, "head_dim_48": 48}.get(case, 64)
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    off = 1 if case == "misaligned" else 0
+    flat = torch.zeros((B, S, (Hq + 2 * Hkv) * D + 8), dtype=dtype)
+    q = flat[..., off:off + Hq * D].reshape(B, S, Hq, D)
+    k = flat[..., Hq * D + 8:(Hq + Hkv) * D + 8].reshape(B, S, Hkv, D)
+    v = torch.zeros((B, S, Hkv, D), dtype=dtype)
+    ints = tfa.mask_inputs(q, k, None, None, None, None)
+    out, do = torch.zeros_like(q), torch.zeros_like(q)
+    lse = torch.zeros((B, Hq, S))
+    if error is None:
+        tfa.check_bwd_layout(q, k, v, ints, out, lse, do)
+    else:
+        with pytest.raises(error):
+            tfa.check_bwd_layout(q, k, v, ints, out, lse, do)
