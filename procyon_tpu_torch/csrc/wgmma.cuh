@@ -79,6 +79,11 @@ __device__ __forceinline__ void commit() {
 __device__ __forceinline__ void wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// every committed group but the newest has completed (groups complete in
+// the order they were committed)
+__device__ __forceinline__ void wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 
 // keeps the compiler from moving reads or writes of wgmma's registers
 // across the asynchronous product

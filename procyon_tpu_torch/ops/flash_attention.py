@@ -1,4 +1,4 @@
-"""Blockwise (flash) attention, forward only (counterpart of
+"""Blockwise (flash) attention, forward and backward (counterpart of
 procyon_tpu/ops/flash_attention.py).
 
 Layout: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq % Hkv == 0. Segment
@@ -20,8 +20,12 @@ masked query rows produce zeros.
     bf16(p) before dv, ds rounded to q's dtype before dq and dk, f32 sums,
     dk and dv summed over a GQA group in f32 and rounded once.
   * `flash_bwd`: the one wrapper of the two backward kernels in
-    csrc/flash_attention_bwd.cu (dq; dk and dv), with the same dispatch;
-    `launches_bwd_dq` and `launches_bwd_dkv` count their launches.
+    csrc/flash_attention_bwd.cu (dq, which also computes delta; dk and dv),
+    with the same dispatch; `launches_bwd_dq` and `launches_bwd_dkv` count
+    their launches.
+  * `check_fwd_layout` / `check_bwd_layout`: the kernels' preconditions,
+    read from shapes, strides and addresses alone (so the CPU tests reach
+    them).
   * `FlashAttention`: the torch.autograd.Function (the reference's
     custom VJP): forward `flash_fwd(want_lse=True)`, backward `flash_bwd`.
   * `flash_attention`: the public entry with the reference's arguments. The
@@ -56,9 +60,9 @@ _SIG = {"flash_attention_fwd_bf16":
 _BWD_TAIL = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float,
                                   ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p]
-_SIG_BWD = {"flash_attention_bwd_dq_bf16": [ctypes.c_void_p] * 11 + _BWD_TAIL,
+_SIG_BWD = {"flash_attention_bwd_dq_bf16": [ctypes.c_void_p] * 12 + _BWD_TAIL,
             "flash_attention_bwd_dkv_bf16":
-                [ctypes.c_void_p] * 12 + _BWD_TAIL}
+                [ctypes.c_void_p] * 13 + _BWD_TAIL}
 
 Rope = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -160,9 +164,21 @@ def _strides(t, what):
     return strides
 
 
-def _launch(q, k, v, seg_q, seg_kv, q_positions, kv_positions, causal,
-            sm_scale, bounded, want_lse):
-    global launches
+def _check_ints(ints, B, Sq, Skv):
+    for t, S in zip(ints, (Sq, Skv, Sq, Skv)):
+        if (t.shape != (B, S) or t.dtype != torch.int32
+                or not t.is_contiguous()):
+            raise ValueError("segment ids and positions must be contiguous "
+                             f"int32 [B, S], got {t.dtype} {tuple(t.shape)}")
+
+
+def check_fwd_layout(q, k, v, ints):
+    """Raise unless the forward kernel can take these tensors: bf16 q, k, v
+    with head_dim in KERNEL_HEAD_DIMS (24 is padded to 32 inside the
+    kernel), shapes that fit, contiguous int32 [B, S] segment ids and
+    positions, one device, and heads the kernel copies 16 bytes at a time
+    (`_strides`). Reads shapes, strides and addresses only, on any device.
+    Returns the nine (batch, row, head) strides of q, k and v."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -175,15 +191,20 @@ def _launch(q, k, v, seg_q, seg_kv, q_positions, kv_positions, causal,
             or min(B, Sq, Skv) == 0):
         raise ValueError(f"q/k/v shapes do not fit: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
-    dev = q.device
-    ints = (seg_q, seg_kv, q_positions, kv_positions)
-    for t, S in zip(ints, (Sq, Skv, Sq, Skv)):
-        if (t.shape != (B, S) or t.dtype != torch.int32
-                or not t.is_contiguous()):
-            raise ValueError("segment ids and positions must be contiguous "
-                             f"int32 [B, S], got {t.dtype} {tuple(t.shape)}")
-    if any(t.device != dev for t in (k, v) + ints):
+    _check_ints(ints, B, Sq, Skv)
+    if any(t.device != q.device for t in (k, v) + tuple(ints)):
         raise ValueError("q/k/v/segments/positions on different devices")
+    return (*_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"))
+
+
+def _launch(q, k, v, seg_q, seg_kv, q_positions, kv_positions, causal,
+            sm_scale, bounded, want_lse):
+    global launches
+    ints = (seg_q, seg_kv, q_positions, kv_positions)
+    strides = check_fwd_layout(q, k, v, ints)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) \
         if want_lse else None
@@ -194,8 +215,7 @@ def _launch(q, k, v, seg_q, seg_kv, q_positions, kv_positions, causal,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *(t.data_ptr() for t in ints), out.data_ptr(),
             lse.data_ptr() if want_lse else None, B, Sq, Skv, Hq, Hkv, D,
-            *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
-            sm_scale * LOG2E, int(causal), int(bounded), stream)
+            *strides, sm_scale * LOG2E, int(causal), int(bounded), stream)
     _build.check(err, "flash_attention_fwd_bf16")
     launches += 1
     return out, lse
@@ -249,16 +269,18 @@ def flash_bwd_ref(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out,
 
 def check_bwd_layout(q, k, v, ints, out, lse, do):
     """Raise unless the backward kernels can take these tensors: bf16 q, k,
-    v, do with head_dim in KERNEL_HEAD_DIMS (24 is padded to 32 inside the
-    dk / dv kernel), shapes that fit, contiguous int32 [B, S] segment ids
-    and positions, one device, and heads the kernels copy 16 bytes at a
-    time (`_strides`). Reads shapes, strides and addresses only, on any
-    device."""
+    v, do and out with head_dim in KERNEL_HEAD_DIMS (24 is padded to 32
+    inside the kernels), shapes that fit, contiguous int32 [B, S] segment
+    ids and positions, one device, and heads the kernels copy or read 16
+    bytes at a time (`_strides`; the dq kernel reads out for delta).
+    Reads shapes, strides and addresses only, on any device. Returns the
+    fifteen (batch, row, head) strides of q, k, v, do and out."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
-        raise TypeError("flash backward kernels take bf16 q/k/v/do, got "
-                        f"{q.dtype} {k.dtype} {v.dtype} {do.dtype}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do, out)):
+        raise TypeError("flash backward kernels take bf16 q/k/v/do/out, got "
+                        f"{q.dtype} {k.dtype} {v.dtype} {do.dtype} "
+                        f"{out.dtype}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash backward kernels: head_dim {D} not in "
                          f"{KERNEL_HEAD_DIMS}")
@@ -269,39 +291,35 @@ def check_bwd_layout(q, k, v, ints, out, lse, do):
             f"shapes do not fit: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} do {tuple(do.shape)} lse "
             f"{tuple(lse.shape)}")
-    for t, S in zip(ints, (Sq, Skv, Sq, Skv)):
-        if (t.shape != (B, S) or t.dtype != torch.int32
-                or not t.is_contiguous()):
-            raise ValueError("segment ids and positions must be contiguous "
-                             f"int32 [B, S], got {t.dtype} {tuple(t.shape)}")
+    _check_ints(ints, B, Sq, Skv)
     dev = q.device
     if any(t.device != dev for t in (k, v, out, lse, do, *ints)):
         raise ValueError("flash backward inputs on different devices")
-    for t, what in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
-        _strides(t, what)
+    return tuple(x for t, what in ((q, "q"), (k, "k"), (v, "v"), (do, "do"),
+                                   (out, "out"))
+                 for x in _strides(t, what))
 
 
 def _launch_bwd(q, k, v, seg_q, seg_kv, q_positions, kv_positions, out, lse,
                 do, causal, sm_scale, bounded):
     global launches_bwd_dq, launches_bwd_dkv
     ints = (seg_q, seg_kv, q_positions, kv_positions)
-    check_bwd_layout(q, k, v, ints, out, lse, do)
+    strides = (ctypes.c_longlong * 15)(
+        *check_bwd_layout(q, k, v, ints, out, lse, do))
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dev = q.device
-    # the reference computes delta and the base-2 lse outside its kernels
-    # too (flash_attention.py _bwd)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    lse2 = (lse.float() * LOG2E).contiguous()
+    # delta (sum over the head dim of do * out) is computed by the dq
+    # kernel, which writes every row of it for the dk / dv kernel; both
+    # scale the natural lse to base 2 as they load it
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    lse = lse.float().contiguous()
     dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Skv, Hkv, D), dtype=k.dtype, device=dev)
     dv = torch.empty((B, Skv, Hkv, D), dtype=v.dtype, device=dev)
-    strides = (ctypes.c_longlong * 12)(
-        *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"),
-        *_strides(do, "do"))
     lib = _build.load("flash_attention_bwd", _SIG_BWD)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse2.data_ptr(), delta.data_ptr(),
+              out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               *(t.data_ptr() for t in ints))
     dims = (B, Sq, Skv, Hq, Hkv, D, strides, sm_scale * LOG2E, sm_scale,
             int(causal), int(bounded))

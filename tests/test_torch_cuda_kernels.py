@@ -2,10 +2,14 @@
 at shapes beyond chip_smoke.py's: ESM2's full S=1026 (a ragged last key
 tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
 16-row block (d=2560) and its G=256 group; the flash forward at ragged
-lengths, every head dim, strided views, a cache shape and ESM2-35M's route;
-the flash backward (dq; dk and dv) at the same shapes, at D 24 and 128
-with groups of 1 and 4 and over a cache, at the training shape, and
-through the autograd Function, each twice for the same bits; the
+lengths, every head dim, strided views, a cache shape and ESM2-35M's route,
+and at D 128 over five query tiles with leading padding and a packed row
+(the wipe of fully masked leading key tiles), from a cache slice, twice
+for the same bits; the flash backward (dq; dk and dv) at the same shapes,
+at D 24 and 128 with groups of 1 and 4 and over a cache, at the training
+shape, and through the autograd Function, each twice for the same bits,
+and with its delta buffer handed a freed block of NaN (every row written
+by the dq kernel); the
 row-block attention at one query tile, ESM2-3B's 40 heads, every head
 dim, a row whose leading key tiles are padding, twice for the same bits;
 the page move on bf16, int8 and f32 rows, direct and staged (swaps,
@@ -532,6 +536,90 @@ def test_flash_backward_at_the_training_shape(cuda):
                             sm_scale=sm)
     for a, b in zip(got, want):
         assert _grad_close(a, b), (a.float() - b.float()).abs().max()
+
+
+@pytest.mark.parametrize("case", ["fresh", "cache_slice"])
+def test_flash_forward_long_gqa_rows_and_repeats(cuda, case):
+    """The forward at D 128 with groups of 4 over five 128-row query tiles
+    a head: a row whose first 200 keys are padding, a dead row, and a packed
+    row whose second segment starts at 333, so that its rows' first five
+    key tiles are live for the block but fully masked for them (the first
+    allowed key must wipe what those tiles accumulated); bounded and not;
+    k / v fresh, or read in place from a [2, B, Smax, Hkv, D] cache; two
+    launches give the same bits, out and lse."""
+    B, S, Hq, Hkv, D = 3, 640, 8, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q = torch.randn((B, S, Hq, D), generator=g, device=cuda).to(
+        torch.bfloat16)
+    if case == "cache_slice":
+        cache = torch.randn((2, B, S + 100, Hkv, D), generator=g,
+                            device=cuda).to(torch.bfloat16)
+        k, v = cache[0, :, :S], cache[1, :, :S]
+    else:
+        k, v = (torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(
+            torch.bfloat16) for _ in range(2))
+    seg = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    seg[0, :200] = 0
+    seg[1] = 0
+    seg[2, 333:] = 2
+    ints = fa.mask_inputs(q, k, seg, seg, None, None)
+    sm = D ** -0.5
+    ref, ref_lse = fa.flash_fwd_ref(q, k, v, *ints, causal=True, sm_scale=sm)
+    live = ref_lse > -1e29
+    for bounded in (True, False):
+        before = fa.launches
+        out, lse = fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=sm,
+                                bounded=bounded, want_lse=True)
+        again = fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=sm,
+                             bounded=bounded, want_lse=True)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 2
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert torch.isfinite(out.float()).all()
+        assert _close(out, ref), (bounded, (out.float() - ref.float()).abs()
+                                  .max())
+        assert torch.equal(lse > -1e29, live) and (lse[~live] == -1e30).all()
+        assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+        assert not out[seg == 0].any().item()
+
+
+def test_flash_backward_writes_delta_of_every_row(cuda):
+    """The dq kernel writes delta for every row the dk / dv kernel reads:
+    also those of a 64-row query tile that holds only padding (a block
+    that has no other work), of a dead row and of a ragged last tile of
+    padding. Run right after a CUDA tensor of delta's size, full of NaN,
+    is freed, so that the allocator hands its block to the delta buffer:
+    with a NaN there, ds = p (dp - delta) is NaN where p is 0. dq, dk and
+    dv stay finite and close to the plain version, padded rows' and keys'
+    gradients exactly 0."""
+    B, S, Hq, Hkv, D = 3, 300, 8, 2, 128
+    q, k, v, _, _ = _flash_inputs(cuda, B, S, S, Hq, Hkv, D, 23)
+    seg = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    seg[0, 64:128] = 0          # a whole query tile of padding
+    seg[0, 128:] = 2
+    seg[1] = 0                  # dead
+    seg[2, 236:] = 0            # the ragged last tile: padding only
+    ints = fa.mask_inputs(q, k, seg, seg, None, None)
+    sm = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=sm,
+                            bounded=True, want_lse=True)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    do = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    want = fa.flash_bwd_ref(q, k, v, *ints, out, lse, do, causal=True,
+                            sm_scale=sm)
+    for bounded in (True, False):
+        nan = torch.full((B, Hq, S), float("nan"), device=cuda)
+        del nan
+        got = fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=True,
+                           sm_scale=sm, bounded=bounded)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a.float()).all(), (name, bounded)
+            assert _grad_close(a, b), (name, bounded)
+        dq, dk, dv = got
+        pad = seg == 0
+        assert not dq[pad].any().item()
+        assert not dk[pad].any().item() and not dv[pad].any().item()
 
 
 def test_rowblock_fwd_esm2_35m_shape_and_model_route(cuda):

@@ -194,3 +194,56 @@ def test_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="device"):
         tfa.flash_fwd(*(t.to("meta") for t in (q, q, q)), None, None, None,
                       None, causal=False, sm_scale=1.0)
+
+
+def _layout_case(case):
+    """(q, k, v, ints) for one case of the forward kernel's layout check:
+    q and k strided views of a flat [B, S, (Hq + 2 Hkv) * D] projection,
+    v contiguous; "cache_slice" reads k and v from a [2, B, Smax, Hkv, D]
+    cache, as the decoder's prefill over a cache does."""
+    B, S, Hq, Hkv = 2, 64, 4, 2
+    D = {"head_dim_24": 24, "head_dim_48": 48}.get(case, 64)
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    off = 1 if case == "misaligned" else 0
+    flat = torch.zeros((B, S, (Hq + 2 * Hkv) * D + 8), dtype=dtype)
+    q = flat[..., off:off + Hq * D].reshape(B, S, Hq, D)
+    k = flat[..., Hq * D + 8:(Hq + Hkv) * D + 8].reshape(B, S, Hkv, D)
+    v = torch.zeros((B, S + (case == "shapes"), Hkv, D), dtype=dtype)
+    if case == "cache_slice":
+        cache = torch.zeros((2, B, 3 * S, Hkv, D), dtype=dtype)
+        k, v = cache[0, :, :S], cache[1, :, :S]
+    ints = list(tfa.mask_inputs(q, k, None, None, None, None))
+    if case == "int64_ids":
+        ints[0] = ints[0].long()
+    if case == "strided_ids":
+        ints[2] = torch.zeros((B, 2 * S), dtype=torch.int32)[:, ::2]
+    if case == "devices":
+        ints[1] = ints[1].to("meta")
+    return q, k, v, tuple(ints)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("fits", None),
+    ("head_dim_24", None),        # padded to 32 inside the kernel
+    ("cache_slice", None),        # k / v read in place from a cache
+    ("misaligned", ValueError),   # q's heads 2 bytes off 16
+    ("head_dim_48", ValueError),
+    ("f32", TypeError),
+    ("shapes", ValueError),       # v has another Skv than k
+    ("int64_ids", ValueError),
+    ("strided_ids", ValueError),
+    ("devices", ValueError),
+])
+def test_forward_kernel_layout_check(case, error):
+    """The forward kernel's preconditions (bf16, a head dim it takes,
+    shapes that fit, contiguous int32 ids and positions on q's device,
+    heads it copies 16 bytes at a time) are checked before the launch from
+    shapes, strides and addresses alone, so they are tested on the CPU; the
+    strides it hands the kernel are the views' own."""
+    q, k, v, ints = _layout_case(case)
+    if error is not None:
+        with pytest.raises(error):
+            tfa.check_fwd_layout(q, k, v, ints)
+        return
+    strides = tfa.check_fwd_layout(q, k, v, ints)
+    assert strides == q.stride()[:3] + k.stride()[:3] + v.stride()[:3]

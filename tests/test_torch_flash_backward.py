@@ -243,11 +243,14 @@ def test_wrappers_without_backward_refuse_grad(name):
     ("misaligned", ValueError),   # q's heads 2 bytes off 16
     ("head_dim_48", ValueError),
     ("f32", TypeError),
+    ("out_misaligned", ValueError),   # out is read for delta, 16 bytes
+    ("out_f32", TypeError),
 ])
 def test_backward_kernel_layout_check(case, error):
     """The backward kernels' preconditions (bf16, a head dim they take,
     heads they copy 16 bytes at a time) are checked before the launch from
-    shapes, strides and addresses alone, so they are tested on the CPU."""
+    shapes, strides and addresses alone, so they are tested on the CPU.
+    The dq kernel also reads out (for delta), so out is held to the same."""
     B, S, Hq, Hkv = 2, 64, 4, 2
     D = {"head_dim_24": 24, "head_dim_48": 48}.get(case, 64)
     dtype = torch.float32 if case == "f32" else torch.bfloat16
@@ -258,9 +261,16 @@ def test_backward_kernel_layout_check(case, error):
     v = torch.zeros((B, S, Hkv, D), dtype=dtype)
     ints = tfa.mask_inputs(q, k, None, None, None, None)
     out, do = torch.zeros_like(q), torch.zeros_like(q)
+    if case == "out_misaligned":
+        out = torch.zeros((B, S, Hq * D + 1), dtype=dtype)[
+            ..., 1:].reshape(B, S, Hq, D)
+    if case == "out_f32":
+        out = out.float()
     lse = torch.zeros((B, Hq, S))
     if error is None:
-        tfa.check_bwd_layout(q, k, v, ints, out, lse, do)
+        strides = tfa.check_bwd_layout(q, k, v, ints, out, lse, do)
+        assert strides == sum((t.stride()[:3] for t in (q, k, v, do, out)),
+                              ())
     else:
         with pytest.raises(error):
             tfa.check_bwd_layout(q, k, v, ints, out, lse, do)
