@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (rowblock_attention.cu, flash_attention_bwd.cu): the shared-memory tile
-// layout wgmma reads, its matrix descriptors, the warpgroup products with A
-// in registers (RS) or in shared memory (SS), cp.async tile copies and the
-// mbarriers that signal them.
+// (rowblock_attention.cu, flash_attention_fwd.cu, flash_attention_bwd.cu):
+// the shared-memory tile layout wgmma reads, its matrix descriptors, the
+// warpgroup products with A in registers (RS) or in shared memory (SS),
+// cp.async tile copies and the mbarriers that signal them.
 //
 // Tile layout. A [ROWS][D] bf16 tile is cut along its columns into atoms
 // of A = min(D, 64) elements, so that an atom row is RB = 2A bytes: 32, 64
@@ -18,8 +18,9 @@
 //     address, so the offset composes with it);
 //   * MN-major ("columns . rows", tnsp 1): rows are the reduction, an atom's
 //     A columns are N; 8-row groups at SBO = 8 RB, a k-step of 16 rows
-//     starts 16 RB further; one product per atom, so the stride between
-//     atoms (LBO) is never crossed inside an instruction.
+//     starts 16 RB further; the stride between atoms is the descriptor's
+//     LBO, so one product covers one atom or, at N 128 (the forward's P V
+//     at D 128), two.
 // A tile written by cp.async (generic proxy) is read by wgmma (async
 // proxy): every writer fences (fence.proxy.async) before the barrier that
 // precedes the product.
@@ -110,9 +111,10 @@ __device__ __forceinline__ void hold(uint32_t (&a)[R][4]) {
          "%28, %29, %30, %31"
 
 // d[m64 x N] += a[m64 x k16] (registers, the m16n8k16 A fragment of each
-// warp's 16 rows) . B[k16 x N] (descriptor, MN-major: the form both kernels
-// use); f32 accumulators, N / 2 a thread: d[4 j + e] is row g + 8 (e >> 1),
-// column 8 j + 2 t + (e & 1)
+// warp's 16 rows) . B[k16 x N] (descriptor, MN-major: the form the kernels
+// use; at N 128 the product spans two atoms, LBO apart); f32 accumulators,
+// N / 2 a thread: d[4 j + e] is row g + 8 (e >> 1), column 8 j + 2 t +
+// (e & 1)
 template <int N>
 __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                    uint64_t b);
@@ -125,6 +127,19 @@ __device__ __forceinline__ void rs<64>(float (&d)[32], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_D32
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void rs<128>(float (&d)[64],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D32
+      ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "
+      "%59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32),
+        WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 template <>
@@ -159,6 +174,20 @@ __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d[m64 x n128] (+)= A[m64 x k16] . B[k16 x n128], both K-major descriptors
+__device__ __forceinline__ void ss128(float (&d)[64], uint64_t a, uint64_t b,
+                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D32
+      ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "
+      "%59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32),
+        WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef WG_F8
 #undef WG_D8
 #undef WG_D16
@@ -170,12 +199,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the m64 x k16 A fragments of a score-shaped accumulator s[m64 x n64]
+// the m64 x k16 A fragments of a score-shaped accumulator s[m64 x n16KS]
 // (rounded to bf16): the product's output columns become the next
 // product's reduction
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&s)[32]) {
+template <int KS>
+__device__ __forceinline__ void to_a(uint32_t (&a)[KS][4],
+                                     const float (&s)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
     a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);

@@ -160,6 +160,16 @@ def _log_softmax(x):
     return x - np.log(np.exp(x).sum(-1, keepdims=True))
 
 
+def ce_delta(ref_logits: np.ndarray, got_logits: np.ndarray) -> float:
+    """Mean extra nats of `got`'s distribution under `ref`'s over the last
+    axis: the cross-entropy of got under p_ref minus p_ref's entropy, each
+    averaged over the other axes (the reference's ``ce_delta``)."""
+    p_ref = np.exp(_log_softmax(ref_logits))
+    ce_q = -(p_ref * _log_softmax(got_logits)).sum(-1).mean()
+    ce_r = -(p_ref * _log_softmax(ref_logits)).sum(-1).mean()
+    return float(ce_q - ce_r)
+
+
 def probe(bits: int = 8, mode: str = "dequant", *, dim: int = 1024,
           layers: int = 4, batch: int = 4, seq: int = 128, seed: int = 0,
           vocab: int = 32000, cfg=None, params=None,
@@ -211,14 +221,10 @@ def probe(bits: int = 8, mode: str = "dequant", *, dim: int = 1024,
     cos = (last_ref * last_got).sum(-1) / np.maximum(
         np.linalg.norm(last_ref, axis=-1)
         * np.linalg.norm(last_got, axis=-1), 1e-8)
-    p_ref = np.exp(_log_softmax(ref))
-    ce_q = -(p_ref * _log_softmax(got)).sum(-1).mean()
-    ce_r = -(p_ref * _log_softmax(ref)).sum(-1).mean()
-
     return QuantQualityResult(
         bits=bits, mode=mode, weight_rel_err=w_err,
         logit_cos_min=float(cos.min()), logit_cos_mean=float(cos.mean()),
-        ce_delta=float(ce_q - ce_r), gate_weight=gate_weight,
+        ce_delta=ce_delta(ref, got), gate_weight=gate_weight,
         gate_ce=gate_ce, gate_cos=gate_cos, weight_err_spread=spread,
         topk_overlap=topk_overlap(last_ref, last_got, k=10),
         gate_spread=gate_spread, gate_topk=gate_topk)

@@ -4,10 +4,12 @@ tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
 16-row block (d=2560) and its G=256 group; the flash forward at ragged
 lengths, every head dim, strided views, a cache shape and ESM2-35M's route,
 and at D 128 over five query tiles with leading padding and a packed row
-(the wipe of fully masked leading key tiles), from a cache slice, twice
-for the same bits; the flash backward (dq; dk and dv) at the same shapes,
-at D 24 and 128 with groups of 1 and 4 and over a cache, at the training
-shape, and through the autograd Function, each twice for the same bits,
+(fully masked leading key tiles add nothing), from a cache slice, over
+more query tiles than two rounds of the persistent grid and with 1-3 new
+rows over a long cache, twice for the same bits; the flash backward (dq;
+dk and dv) at the same shapes, at D 24 and 128 with groups of 1 and 4 and
+over a cache, at the training shape, and through the autograd Function,
+each twice for the same bits,
 and with its delta buffer handed a freed block of NaN (every row written
 by the dq kernel); the
 row-block attention at one query tile, ESM2-3B's 40 heads, every head
@@ -389,6 +391,9 @@ def _flash_inputs(dev, B, Sq, Skv, Hq, Hkv, D, seed):
     (2, 48, 333, 8, 2, 128, True),      # new tokens over a cache
     (1, 3, 20, 2, 1, 16, True),         # a few rows in one ragged tile
     (5, 70, 70, 1, 1, 32, False),
+    (4, 1100, 1100, 8, 2, 128, True),   # 288 query tiles: the grid wraps
+    (1, 2, 2000, 8, 2, 128, True),      # two new rows over a long cache
+    (1, 1, 1500, 4, 1, 64, True),
 ])
 def test_flash_forward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
     q, k, v, seg_q, seg_kv = _flash_inputs(cuda, B, Sq, Skv, Hq, Hkv, D,
@@ -538,35 +543,56 @@ def test_flash_backward_at_the_training_shape(cuda):
         assert _grad_close(a, b), (a.float() - b.float()).abs().max()
 
 
-@pytest.mark.parametrize("case", ["fresh", "cache_slice"])
+@pytest.mark.parametrize("case", ["fresh", "cache_slice", "grid_wraps",
+                                  "few_rows_long_cache"])
 def test_flash_forward_long_gqa_rows_and_repeats(cuda, case):
     """The forward at D 128 with groups of 4 over five 128-row query tiles
     a head: a row whose first 200 keys are padding, a dead row, and a packed
-    row whose second segment starts at 333, so that its rows' first five
-    key tiles are live for the block but fully masked for them (the first
-    allowed key must wipe what those tiles accumulated); bounded and not;
-    k / v fresh, or read in place from a [2, B, Smax, Hkv, D] cache; two
-    launches give the same bits, out and lse."""
+    row whose second segment starts at 333, so that its rows' first key
+    tiles are live for the block but fully masked for them (they must add
+    nothing once an allowed key comes); bounded and not; k / v fresh, or
+    read in place from a [2, B, Smax, Hkv, D] cache; the same rows at B4
+    over 9 query tiles a head (288 items: the persistent grid's blocks
+    take three rounds); and B1 with 3 new rows (positions given) over a
+    2,000-slot cache whose first 64 slots are padding. Two launches give
+    the same bits, out and lse."""
     B, S, Hq, Hkv, D = 3, 640, 8, 2, 128
+    if case == "grid_wraps":
+        B, S = 4, 1100
     g = torch.Generator(device=cuda).manual_seed(21)
-    q = torch.randn((B, S, Hq, D), generator=g, device=cuda).to(
+    Sq = 3 if case == "few_rows_long_cache" else S
+    Skv = 2000 if case == "few_rows_long_cache" else S
+    if case == "few_rows_long_cache":
+        B = 1
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).to(
         torch.bfloat16)
-    if case == "cache_slice":
-        cache = torch.randn((2, B, S + 100, Hkv, D), generator=g,
+    if case in ("cache_slice", "few_rows_long_cache"):
+        cache = torch.randn((2, B, Skv + 100, Hkv, D), generator=g,
                             device=cuda).to(torch.bfloat16)
-        k, v = cache[0, :, :S], cache[1, :, :S]
+        k, v = cache[0, :, :Skv], cache[1, :, :Skv]
     else:
-        k, v = (torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(
-            torch.bfloat16) for _ in range(2))
-    seg = torch.ones((B, S), dtype=torch.int32, device=cuda)
-    seg[0, :200] = 0
-    seg[1] = 0
-    seg[2, 333:] = 2
-    ints = fa.mask_inputs(q, k, seg, seg, None, None)
+        k, v = (torch.randn((B, Skv, Hkv, D), generator=g,
+                            device=cuda).to(torch.bfloat16)
+                for _ in range(2))
+    if case == "few_rows_long_cache":
+        seg_q = torch.ones((B, Sq), dtype=torch.int32, device=cuda)
+        seg_kv = torch.ones((B, Skv), dtype=torch.int32, device=cuda)
+        seg_kv[:, :64] = 0
+        q_pos = torch.arange(Skv - Sq, Skv, device=cuda).expand(B, Sq)
+        kv_pos = torch.arange(Skv, device=cuda).expand(B, Skv)
+        bounds = (False,)
+    else:
+        seg_q = torch.ones((B, S), dtype=torch.int32, device=cuda)
+        seg_q[0, :200] = 0
+        seg_q[1] = 0
+        seg_q[2, 333:] = 2
+        seg_kv, q_pos, kv_pos = seg_q, None, None
+        bounds = (True, False)
+    ints = fa.mask_inputs(q, k, seg_q, seg_kv, q_pos, kv_pos)
     sm = D ** -0.5
     ref, ref_lse = fa.flash_fwd_ref(q, k, v, *ints, causal=True, sm_scale=sm)
     live = ref_lse > -1e29
-    for bounded in (True, False):
+    for bounded in bounds:
         before = fa.launches
         out, lse = fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=sm,
                                 bounded=bounded, want_lse=True)
@@ -580,7 +606,7 @@ def test_flash_forward_long_gqa_rows_and_repeats(cuda, case):
                                   .max())
         assert torch.equal(lse > -1e29, live) and (lse[~live] == -1e30).all()
         assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
-        assert not out[seg == 0].any().item()
+        assert not out[seg_q == 0].any().item()
 
 
 def test_flash_backward_writes_delta_of_every_row(cuda):

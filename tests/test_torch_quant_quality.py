@@ -102,3 +102,49 @@ def test_mis_scaled_int4_layer_fails_spread_gate(tiny):
     assert r.ce_delta <= r.gate_ce, r.as_dict()
     assert r.weight_err_spread > r.gate_spread, r.as_dict()
     assert not r.passed
+
+
+def _kl_rows(ref, got):
+    """The mean over rows of KL(softmax(ref) || softmax(got)), by scipy:
+    the reference's ce_delta (cross-entropy minus entropy) in another
+    form."""
+    from scipy.special import log_softmax
+    lr, lg = log_softmax(ref, axis=-1), log_softmax(got, axis=-1)
+    return float((np.exp(lr) * (lr - lg)).sum(-1).mean())
+
+
+@pytest.mark.parametrize("shape", [(16, 32000), (2, 5, 300)])
+def test_ce_delta_matches_the_reference_definition(shape):
+    """quant_quality.ce_delta (the lines probe and chip_smoke's
+    bind_ce_delta share) against the KL form, on random logits: within
+    1e-6 nats (f64 logits; the two forms round differently)."""
+    rng = np.random.default_rng(3)
+    ref = 2.0 * rng.standard_normal(shape)
+    got = ref + 0.5 * rng.standard_normal(shape)
+    want = _kl_rows(ref, got)
+    assert want > 0.05
+    assert abs(tqq.ce_delta(ref, got) - want) <= 1e-6
+
+
+def test_ce_delta_is_zero_on_equal_logits():
+    rng = np.random.default_rng(4)
+    ref = rng.standard_normal((16, 32000)).astype(np.float32)
+    assert abs(tqq.ce_delta(ref, ref)) <= 1e-6
+    assert abs(tqq.ce_delta(ref, ref + 3.0)) <= 1e-5   # a shift is no change
+
+
+def test_ce_delta_of_doubled_logits_exceeds_the_w8a8_bound():
+    """A doubled activation scale in the last W8A8 product doubles a
+    row's logits. On N(0, 1) logits over a 32000-word vocabulary that
+    costs sigma^2 / 2 = 0.5 nats a row (the tilted Gaussian's KL), over
+    the reference's W8A8 bound of 0.08; with one row of the 16 doubled the
+    mean is 0.5 / 16, under it: the gate sees a fault that reaches most
+    rows."""
+    rng = np.random.default_rng(5)
+    ref = rng.standard_normal((16, 32000))
+    gate = tqq.CE_DELTA_GATES[("int8", "w8a8")]
+    full = tqq.ce_delta(ref, 2.0 * ref)
+    assert abs(full - 0.5) <= 0.05 and full > gate
+    one = ref.copy()
+    one[3] *= 2.0
+    assert abs(tqq.ce_delta(ref, one) - full / 16) <= 0.01
