@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of procyon_tpu_torch on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py [--profile] [--only=flash,flash_bwd,flash_fit,w8a8]
+    python3 chip_smoke.py [--profile] [--only=flash,flash_bwd,flash_fit,w8a8,mlp]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -10,8 +10,10 @@ source, all started together), then:
      bf16 and times kernel, plain version and, where there is one, the one
      PyTorch call that computes the same function (CUDA events): the
      row-block attention and the fused LN + int8 MLP at ESM2-650M widths
-     (the row-block attention also at ESM2-3B's 40 heads, and launched
-     twice for the same bits);
+     (the row-block attention also at ESM2-3B's 40 heads; both launched
+     twice for the same bits; the MLP's hidden codes against the plain
+     stage, its three kernels' device time, and the port's unfused W8A8
+     route for the same layer timed beside it);
      the flash forward at Llama-3-8B widths (Hq 32, Hkv 8, D 128, causal)
      for the /retrieve request's B1 x 512, for B4 and B16 with a
      left-padded, a dead and a packed row, at the training shape B2 x
@@ -127,8 +129,10 @@ source, all started together), then:
      sources), for bf16, int8 and f32 slabs; the same plan through the
      direct move must differ; index_select + index_copy_ beside it;
  19. holds the LN + row quantization (codes, scales) and the two-pass int8
-     MLP (with and without the residual) against their plain versions at
-     ESM2-3B's MLP on a B64 x L512 batch, and the fused int8 decode MLP at
+     MLP (with and without the residual, twice for the same bits, its
+     hidden codes against the plain stage, the W8A8 route beside it)
+     against their plain versions at ESM2-3B's MLP on a B64 x L512 batch,
+     and the fused int8 decode MLP at
      Llama-3-8B width at 8 and 16 rows (each of its two kernels' device
      time from torch.profiler);
  20. drives the two probe entry points at full width:
@@ -200,7 +204,9 @@ There is no CPU path: without CUDA it exits with status 2.
 --only=GROUP[,GROUP] builds the kernels and runs only those groups of
 phases ("flash": the flash forward's cases; "flash_bwd"; "flash_fit": the
 forward's time split into a cost an item and a cost a tile pair; "w8a8":
-the W8A8 prefill path and its quality gates), and prints no result line.
+the W8A8 prefill path and its quality gates; "mlp": the int8 MLP kernels,
+rows 4-6, then the ESM2-650M main path and its throughput), and prints no
+result line.
 """
 
 import contextlib
@@ -231,6 +237,9 @@ MLP_ROWS = (4096, 64 * 512)
 ATOL = 2e-2
 RTOL = 2.0 ** -7
 MLP_MEAN_TOL = 2e-3
+# the kernels a call of the int8 MLP launches (the one-pass form; the
+# two-pass form launches the last two after its own row pass)
+MLP_KERNELS = ("ln_quant_rows_kernel", "mlp_up_kernel", "mlp_down_kernel")
 # the flash forward at Llama-3-8B widths; the /retrieve request is B1
 FLASH_SHAPE = dict(S=512, Hq=32, Hkv=8, D=128)
 FLASH_BATCHES = (1, 4, 16)
@@ -609,6 +618,41 @@ def phase_attention(dev, B, H=ATTN_SHAPE["H"]):
                 library_ms=library_ms)
 
 
+def esm2_mlp_route(args, eps=1e-5):
+    """The port's unfused W8A8 route for the same layer (esm2._mlp with
+    quant_mode "w8a8"): LayerNorm, qmatmul_w8a8 with W1 (row quantization,
+    torch._int_mm, the scale epilogue), the erf GELU, qmatmul_w8a8 with W2,
+    the residual. A route of several calls, not one PyTorch call: it is
+    timed beside rows 4 and 6 as row 7's route is beside row 7."""
+    from procyon_tpu_torch.models import esm2
+    x, lnw, lnb, w1q, s1, b1, w2q, s2, b2 = args
+    lp = {"mlp_norm": {"w": lnw, "b": lnb},
+          "mlp": {"w1": {"q": w1q, "s": s1}, "b1": b1,
+                  "w2": {"q": w2q, "s": s2}, "b2": b2}}
+    return esm2._mlp(x, lp, esm2.ESM2Config(dim=x.shape[1], norm_eps=eps,
+                                            quant_mode="w8a8"))
+
+
+def mlp_stage_codes(kind, args):
+    """The hidden codes and scales the int8 MLP kernels of `kind` pass
+    between them, against the plain up stage (fused_mlp.gelu_codes_ref) run
+    on the kernels' own row codes: the codes that differ (a rounding tie
+    may take the neighbouring code), by how much, and the scales' largest
+    relative difference."""
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    _, (xq, sx, gq, sg) = fm._launch_mlp(kind, *args, 1e-5, False)
+    G = fm.kernel_shape(kind, *xq.shape, args[3].shape[1])[0]
+    own, own_sg = fm.gelu_codes_ref(xq, sx, *args[3:6], G)
+    diff = (gq.int() - own.int()).abs()
+    codes = dict(gq=int((diff > 0).sum().item()), gq_of=gq.numel(),
+                 gq_max=int(diff.max().item()),
+                 sg_rel=((sg - own_sg).abs() / own_sg).max().item())
+    check(codes["gq_max"] <= 1 and codes["gq"] <= CODE_FLIPS * gq.numel()
+          and codes["sg_rel"] <= SX_RTOL,
+          f"{kind} int8 MLP: hidden codes against the plain stage {codes}")
+    return codes
+
+
 def phase_mlp(dev, M):
     import torch
     from procyon_tpu_torch.ops import fused_mlp as fm
@@ -626,7 +670,10 @@ def phase_mlp(dev, M):
     w2 = quant.quantize(randn(H, d, scale=H ** -0.5))
     b1 = randn(H, scale=0.1).to(torch.bfloat16)
     b2 = randn(d, scale=0.1).to(torch.bfloat16)
-    args = (x, lnw, lnb, w1["q"], w1["s"], b1, w2["q"], w2["s"], b2)
+    # the weights as the ESM2 serving layout holds them (esm2.fuse_qkv_params:
+    # [in, out] views of [out, in] storage, which the kernels read as is)
+    w1q, w2q = (w["q"].t().contiguous().t() for w in (w1, w2))
+    args = (x, lnw, lnb, w1q, w1["s"], b1, w2q, w2["s"], b2)
     errs = []
     for residual in (False, True):
         out = fm.fused_ln_mlp_int8(*args, add_residual=residual)
@@ -638,24 +685,42 @@ def phase_mlp(dev, M):
         check(within_tol(out, ref) and diff.mean().item() <= MLP_MEAN_TOL,
               f"mlp (residual={residual}): max_abs_err {errs[-1]}, mean "
               f"{diff.mean().item()}")
+    check(torch.equal(out, fm.fused_ln_mlp_int8(*args, add_residual=True)),
+          "mlp: two launches on the same inputs differ")
+    codes = mlp_stage_codes("one_pass", args)
+    cos = mlp_cos(out, esm2_mlp_route(args), x)
+    check(cos >= SANITY_COS, f"mlp: MLP cosine {cos} to the W8A8 route")
+
+    def kernel():
+        return fm.fused_ln_mlp_int8(*args, add_residual=True)
+
     ms, plain_ms = paired_ms(
-        lambda: fm.fused_ln_mlp_int8(*args, add_residual=True),
-        lambda: fm.fused_ln_mlp_int8_ref(*args, add_residual=True))
+        kernel, lambda: fm.fused_ln_mlp_int8_ref(*args, add_residual=True))
+    route_ms = cuda_ms(lambda: esm2_mlp_route(args))
+    split = device_ms_by_kernel(kernel, MLP_KERNELS)
     n_bytes = nbytes(*args) + nbytes(out)
     ops = 4 * M * d * H            # two int8 products of 2*M*d*H each
     bound_ms, bound_by = bound(n_bytes, ops, PEAK_INT8)
     print(f"fused mlp M{M} d{d} H{H} G{fm.requant_group(H)}: max_abs_err "
           f"{errs[0]:.3e} / {errs[1]:.3e} (no residual / residual; tol "
-          f"{ATOL} + {RTOL}|plain|, mean {MLP_MEAN_TOL}); kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({ops / 1e9:.1f} GOP, {n_bytes / 1e6:.1f} MB); no "
-          f"single PyTorch call computes it")
+          f"{ATOL} + {RTOL}|plain|, mean {MLP_MEAN_TOL}); two launches "
+          f"bitwise equal; hidden codes against the plain stage on the "
+          f"kernels' own row codes: {codes['gq']} of {codes['gq_of']} differ "
+          f"(by at most {codes['gq_max']}), scales within "
+          f"{codes['sg_rel']:.1e}; MLP cosine to the W8A8 route {cos:.6f}; "
+          f"kernels {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s; device time: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"), plain {plain_ms:.4f} ms, W8A8 route (several calls) "
+          f"{route_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({ops / 1e9:.1f} GOP, {n_bytes / 1e6:.1f} MB); no single "
+          "PyTorch call computes it")
     return dict(name="fused_ln_mlp_int8", route="cuda",
                 source="procyon_tpu_torch/csrc/fused_ln_mlp_int8.cu",
                 replaces="procyon_tpu/ops/fused_mlp.py:368",
                 shape=f"M{M} d{d} H{H}", max_abs_err=max(errs), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=None, route_ms=route_ms, cos_route=cos,
+                device_ms=split, codes=codes)
 
 
 def flash_case(name, q, k, v, seg_q, seg_kv, *, causal, q_pos=None,
@@ -1474,7 +1539,9 @@ def phase_prequant_mlp(dev):
     L512 batch (32768 rows): the LN + row quantization against its plain
     version (codes equal but at rounding ties, at most CODE_FLIPS of them
     and each by one step; scales within SX_RTOL), the two-pass MLP with
-    and without the residual within the one-pass kernel's tolerance."""
+    and without the residual within the one-pass kernel's tolerance, two
+    launches bitwise equal, its hidden codes against the plain stage, and
+    its time beside the port's W8A8 route for the same layer."""
     import torch
     from procyon_tpu_torch.ops import fused_mlp as fm
     M = ESM3B_MLP["M"]
@@ -1518,33 +1585,46 @@ def phase_prequant_mlp(dev):
         check(within_tol(out, ref) and err.mean().item() <= MLP_MEAN_TOL,
               f"two-pass mlp (residual={residual}): max_abs_err {errs[-1]}, "
               f"mean {err.mean().item()}")
-        del out, ref, err
+        del ref, err
 
     def two_pass():
         return fm.fused_mlp_int8_prequant(*args, add_residual=True)
 
-    ms_pq = device_ms_by_kernel(two_pass, ["fused_ln_mlp_int8_kernel"],
-                                reps=3)["fused_ln_mlp_int8_kernel"]
+    check(torch.equal(out, two_pass()),
+          "two-pass mlp: two launches on the same inputs differ")
+    codes = mlp_stage_codes("two_pass", args)
+    cos = mlp_cos(out, esm2_mlp_route(args), x)
+    check(cos >= SANITY_COS, f"two-pass mlp: MLP cosine {cos} to the W8A8 "
+                             "route")
+    del out
+    split = device_ms_by_kernel(two_pass, MLP_KERNELS[1:], reps=3)
+    ms_pq = sum(split.values())
     total_ms, plain_ms = paired_ms(
         two_pass, lambda: fm.fused_mlp_int8_prequant_ref(*args,
                                                          add_residual=True))
+    route_ms = cuda_ms(lambda: esm2_mlp_route(args))
     ops = 4 * M * d * H
     n_bytes = nbytes(xq, sx, *args[3:]) + nbytes(x)
     bound_ms, bound_by = bound(n_bytes, ops, PEAK_INT8)
-    print(f"two-pass int8 mlp M{M} d{d} H{H} G{fm.prequant_group(H)} "
-          f"(BM {fm.row_block('two_pass', M, d, H)}): max_abs_err "
-          f"{errs[0]:.3e} / {errs[1]:.3e} (no residual / residual; tol "
-          f"{ATOL} + {RTOL}|plain|, mean {MLP_MEAN_TOL}); MLP kernel "
-          f"{ms_pq:.4f} ms (device time), the two passes with the "
-          f"residual {total_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({ops / 1e12:.2f} T int8 ops); "
-          "no single PyTorch call computes it")
+    print(f"two-pass int8 mlp M{M} d{d} H{H} G{fm.prequant_group(H)}: "
+          f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} (no residual / "
+          f"residual; tol {ATOL} + {RTOL}|plain|, mean {MLP_MEAN_TOL}); two "
+          f"launches bitwise equal; hidden codes against the plain stage: "
+          f"{codes['gq']} of {codes['gq_of']} differ (by at most "
+          f"{codes['gq_max']}); MLP cosine to the W8A8 route {cos:.6f}; MLP "
+          f"kernels {ms_pq:.4f} ms (device time: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"), the two passes with the residual {total_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, W8A8 route (several calls) {route_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({ops / 1e12:.2f} T int8 "
+          "ops); no single PyTorch call computes it")
     pq = dict(name="fused_mlp_int8_prequant", route="cuda",
               source="procyon_tpu_torch/csrc/fused_ln_mlp_int8.cu",
               replaces="procyon_tpu/ops/fused_mlp.py:255",
               shape=f"M{M} d{d} H{H}", max_abs_err=max(errs), ms=ms_pq,
               two_pass_ms=total_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, library_ms=None)
+              bound_by=bound_by, library_ms=None, route_ms=route_ms,
+              cos_route=cos, device_ms=split, codes=codes)
     return rows, pq
 
 
@@ -4349,7 +4429,18 @@ def run_only(dev, names, profile):
     """The build and the named groups of phases alone, for a quick
     iteration on one kernel or one check: "flash" (the forward's cases),
     "flash_bwd", "flash_fit" (the forward's cost an item and a tile pair),
-    "w8a8" (phase_w8a8_prefill). Prints their lines and no result line."""
+    "w8a8" (phase_w8a8_prefill), "mlp" (rows 4, 5 and 6, then the ESM2-650M
+    main path and its throughput, with --profile its W8A8 batch traced).
+    Prints their lines and no result line."""
+    def mlp():
+        rows = [phase_mlp(dev, m) for m in MLP_ROWS]
+        prequant = phase_prequant_mlp(dev)
+        launches, cos_min, state = phase_main_path(dev)
+        rates, bench_cos = phase_throughput(dev, *state, profile=profile)
+        return dict(fused_ln_mlp_int8=rows, prequant=prequant,
+                    main_path_launches=launches, cos_min=cos_min,
+                    proteins_per_sec=rates, cos_min_pooled_b64=bench_cos)
+
     groups = {
         "flash": lambda: [phase_flash(dev, b) for b in FLASH_BATCHES]
         + [phase_flash_train(dev), phase_flash_cache(dev),
@@ -4357,6 +4448,7 @@ def run_only(dev, names, profile):
         "flash_bwd": lambda: phase_flash_bwd(dev),
         "flash_fit": lambda: flash_fit(dev),
         "w8a8": lambda: phase_w8a8_prefill(dev, profile)[1],
+        "mlp": mlp,
     }
     for name in names:
         check(name in groups, f"--only: no group {name!r} (of "
@@ -4499,7 +4591,10 @@ def main():
           "0.5915 ms at the same shape (mma.sync; the pair with the torch "
           "delta pass 1.2725), flash_attention_fwd 0.5837 ms at the same "
           "shape, 0.3120 at B16 S512, 0.0602 at B1 S512 (mma.sync), "
-          "rowblock_fwd 0.1161 ms at B16 S512 H20 D24 (mma.sync)")
+          "rowblock_fwd 0.1161 ms at B16 S512 H20 D24 (mma.sync), "
+          "fused_ln_mlp_int8 5.7185 ms at M32768 d1280 H5120 (mma.sync), "
+          "fused_mlp_int8_prequant 33.8074 ms at M32768 d2560 H10240 "
+          "(mma.sync, the MLP kernel's device time)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
         "model": "esm2-650m W8A8 fused-QKV", "card": smi,

@@ -9,8 +9,8 @@ Layout decisions live here and nowhere else:
     1, out]}`: the same `x @ w` layout, no transpose, bytes and scales as
     they are (ops/quant.quantize4 of the bridged f32 weights gives the same
     bytes);
-  * the fused LN+int8 MLP kernel multiplies with k-contiguous weights
-    (mma.sync's "col" B operand), so `int8_k_major` gives it the
+  * the fused LN+int8 MLP kernels multiply with k-contiguous weights
+    (s8 wgmma's K-major B operand), so `int8_k_major` gives them the
     transposed `[out, in]` copy of a quantized weight.
 
 Leaves may be numpy arrays or anything `np.asarray` accepts (a JAX array
@@ -179,7 +179,9 @@ def to_numpy(tree: Any) -> Any:
 
 def int8_k_major(q: torch.Tensor) -> torch.Tensor:
     """int8 `[in, out]` -> contiguous `[out, in]`: the contraction axis
-    innermost, as the fused MLP kernel's mma.sync B operand reads it."""
+    innermost, as the fused MLP kernels' s8 wgmma B operand reads it
+    (K-major: no transposed form exists for 8-bit types). A `[in, out]`
+    view of a `[out, in]` tensor comes back without a copy."""
     assert q.dtype == torch.int8 and q.dim() == 2, (q.dtype, q.shape)
     return q.t().contiguous()
 

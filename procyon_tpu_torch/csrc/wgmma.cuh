@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (rowblock_attention.cu, flash_attention_fwd.cu, flash_attention_bwd.cu):
-// the shared-memory tile layout wgmma reads, its matrix descriptors, the
-// warpgroup products with A in registers (RS) or in shared memory (SS),
-// cp.async tile copies and the mbarriers that signal them.
+// (rowblock_attention.cu, flash_attention_fwd.cu, flash_attention_bwd.cu,
+// fused_ln_mlp_int8.cu): the shared-memory tile layout wgmma reads, its
+// matrix descriptors, the warpgroup products with A in registers (RS) or in
+// shared memory (SS, bf16 and s8), cp.async and TMA tile copies and the
+// mbarriers that signal them.
 //
 // Tile layout. A [ROWS][D] bf16 tile is cut along its columns into atoms
 // of A = min(D, 64) elements, so that an atom row is RB = 2A bytes: 32, 64
@@ -188,10 +189,74 @@ __device__ __forceinline__ void ss128(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// s8 products (fused_ln_mlp_int8.cu): d[m64 x N] (+)= A[m64 x k32] .
+// B[k32 x N], both K-major descriptors over 128-byte rows, s32
+// accumulators, N / 2 a thread laid out as the f32 ones above
+#define WG_R8(d, i)                                                     \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define WG_D64                                                          \
+  WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "    \
+         "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_D128                                                         \
+  WG_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+         "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "    \
+         "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "    \
+         "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "    \
+         "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "    \
+         "%120, %121, %122, %123, %124, %125, %126, %127"
+
+template <int N>
+__device__ __forceinline__ void ss_s8(uint32_t (&d)[N / 2], uint64_t a,
+                                      uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void ss_s8<128>(uint32_t (&d)[64], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" WG_D64
+      "}, %64, %65, p;\n}\n"
+      : WG_R8(d, 0), WG_R8(d, 8), WG_R8(d, 16), WG_R8(d, 24), WG_R8(d, 32),
+        WG_R8(d, 40), WG_R8(d, 48), WG_R8(d, 56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void ss_s8<256>(uint32_t (&d)[128], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" WG_D128
+      "}, %128, %129, p;\n}\n"
+      : WG_R8(d, 0), WG_R8(d, 8), WG_R8(d, 16), WG_R8(d, 24), WG_R8(d, 32),
+        WG_R8(d, 40), WG_R8(d, 48), WG_R8(d, 56), WG_R8(d, 64),
+        WG_R8(d, 72), WG_R8(d, 80), WG_R8(d, 88), WG_R8(d, 96),
+        WG_R8(d, 104), WG_R8(d, 112), WG_R8(d, 120)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <int R>
+__device__ __forceinline__ void hold(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#undef WG_R8
+#undef WG_D64
+#undef WG_D128
 #undef WG_F8
 #undef WG_D8
 #undef WG_D16
 #undef WG_D32
+
+// K-major descriptor of a tile of 128-byte rows (128 int8 codes of the
+// reduction each) in the 128-byte swizzle, as a TMA copy with
+// CU_TENSOR_MAP_SWIZZLE_128B lays it out: reduction bytes 32 kk .. 32 kk +
+// 31 (one s8 k-step)
+__device__ __forceinline__ uint64_t kmajor_s8(uint32_t base, int kk) {
+  return Tile<64, 8>::desc(base + 32 * kk, 16);
+}
 
 // two f32 as the bf16 pair of one 32-bit A-fragment register (lo first)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -261,6 +326,65 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the producer's arrival on a full barrier, with the bytes its TMA copies
+// will complete
+__device__ __forceinline__ void arrive_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// a 2D tile of a tensor map (a CUtensorMap in kernel parameter space) at
+// (inner, outer) into shared memory; completes bytes on bar. Elements
+// outside the tensor are zero-filled.
+__device__ __forceinline__ void tma_2d(uint32_t dst, const void* map,
+                                       int inner, int outer, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(bar)
+      : "memory");
+}
+// the same tile into the shared memory of every block of the cluster in
+// mask, at the same offset, completing bytes on each one's barrier at bar's
+// offset
+__device__ __forceinline__ void tma_2d_multicast(uint32_t dst,
+                                                 const void* map, int inner,
+                                                 int outer, uint32_t bar,
+                                                 uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner),
+      "r"(outer), "h"(mask)
+      : "memory");
+}
+
+// thread block clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster (not warp-aligned)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+// one arrival, where pred holds, on the mbarrier at the local address bar
+// mapped into block `rank` of the cluster
+__device__ __forceinline__ void arrive_cluster_if(uint32_t bar, uint32_t rank,
+                                                  bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 remote;\nsetp.ne.u32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank), "r"(static_cast<uint32_t>(pred))
+      : "memory");
 }
 
 // 1024-byte aligned start of the dynamic shared memory (the launch asks for

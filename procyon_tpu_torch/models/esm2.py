@@ -297,10 +297,18 @@ def quantize_params(params, cfg: ESM2Config):
 
 def fuse_qkv_params(params):
     """Serving layout: q/k/v concatenated into one [L, d, 3*H*D] weight
-    (`wqkv`, quantized or not) and one [L, 3*H*D] bias."""
+    (`wqkv`, quantized or not) and one [L, 3*H*D] bias; int8 MLP weights
+    kept [in, out] as views of [out, in] storage, the layout the fused MLP
+    kernels read (`bridge.int8_k_major` then copies nothing)."""
     layers = dict(params["layers"])
     if any(k.startswith("lora_") for k in layers):
         raise NotImplementedError(_NOT_PORTED.format("ESM2 LoRA"))
+    mlp = dict(layers["mlp"])
+    for n in ("w1", "w2"):
+        if quant.is_quantized(mlp[n]):
+            q = mlp[n]["q"].transpose(-1, -2).contiguous().transpose(-1, -2)
+            mlp[n] = {"q": q, "s": mlp[n]["s"]}
+    layers["mlp"] = mlp
     attn = dict(layers["attn"])
     ws = [attn.pop(n) for n in ("wq", "wk", "wv")]
     if quant.is_quantized(ws[0]):

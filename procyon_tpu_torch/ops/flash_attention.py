@@ -25,7 +25,7 @@ masked query rows produce zeros.
     their launches.
   * `check_fwd_layout` / `check_bwd_layout`: the kernels' preconditions,
     read from shapes, strides and addresses alone (so the CPU tests reach
-    them).
+    them); `max_kv_len`: the forward kernel's limit on Skv.
   * `FlashAttention`: the torch.autograd.Function (the reference's
     custom VJP): forward `flash_fwd(want_lse=True)`, backward `flash_bwd`.
   * `flash_attention`: the public entry with the reference's arguments. The
@@ -172,13 +172,40 @@ def _check_ints(ints, B, Sq, Skv):
                              f"int32 [B, S], got {t.dtype} {tuple(t.shape)}")
 
 
+# the forward kernel's shared memory (csrc/flash_attention_fwd.cu, Cfg):
+# two 64-row Q tiles, K / V rings of 2 / 3 key tiles, a mask ring of 4
+# stages of 8 bytes a key, 20 mbarriers, then each warpgroup's listing of
+# an item: a fixed head (R_INFO) and 20 bytes a key tile, 16-byte aligned
+_SMEM_LIMIT = 232448
+_LIST_HEAD = 64 + 4 * 128 + 4 * 128 + 16
+_LIST_BYTES_A_TILE = 20
+
+
+def max_kv_len(head_dim: int) -> int:
+    """The longest Skv the forward kernel takes at this head_dim: the most
+    key tiles whose listing, beside the rings, fits a block's shared memory
+    (the kernel's own formula, Cfg<D>::bytes), times the keys a tile. 90,624
+    keys at D 128."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel: head_dim {head_dim} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    dp = 32 if head_dim == 24 else head_dim
+    bk = 128 if dp >= 64 else 64
+    rings = 2 * 64 * dp * 2 + (2 + 3) * bk * dp * 2 + 4 * 8 * bk
+    fixed = 1024 + rings + 8 * (2 + 2 * (2 + 4 + 3))
+    # 2 regions of (_LIST_HEAD + 20 n) rounded up to 16 bytes
+    region = (_SMEM_LIMIT - fixed) // 2 // 16 * 16
+    return (region - _LIST_HEAD) // _LIST_BYTES_A_TILE * bk
+
+
 def check_fwd_layout(q, k, v, ints):
     """Raise unless the forward kernel can take these tensors: bf16 q, k, v
     with head_dim in KERNEL_HEAD_DIMS (24 is padded to 32 inside the
-    kernel), shapes that fit, contiguous int32 [B, S] segment ids and
-    positions, one device, and heads the kernel copies 16 bytes at a time
-    (`_strides`). Reads shapes, strides and addresses only, on any device.
-    Returns the nine (batch, row, head) strides of q, k and v."""
+    kernel), shapes that fit, at most `max_kv_len(head_dim)` keys,
+    contiguous int32 [B, S] segment ids and positions, one device, and
+    heads the kernel copies 16 bytes at a time (`_strides`). Reads shapes,
+    strides and addresses only, on any device. Returns the nine (batch,
+    row, head) strides of q, k and v."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -191,6 +218,10 @@ def check_fwd_layout(q, k, v, ints):
             or min(B, Sq, Skv) == 0):
         raise ValueError(f"q/k/v shapes do not fit: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
+    if Skv > max_kv_len(D):
+        raise ValueError(f"flash kernel: {Skv} keys, above its limit of "
+                         f"{max_kv_len(D)} at head_dim {D} (its listing of "
+                         f"the key tiles must fit shared memory)")
     _check_ints(ints, B, Sq, Skv)
     if any(t.device != q.device for t in (k, v) + tuple(ints)):
         raise ValueError("q/k/v/segments/positions on different devices")

@@ -3,21 +3,24 @@ fused_ln_mlp_int8, ::ln_quant_rows_pallas, ::fused_mlp_int8_prequant and
 ::fused_rms_swiglu_int8).
 
 Four wrappers, each with its plain PyTorch version beside it. On a CUDA
-tensor a wrapper launches its hand-written kernel in
+tensor a wrapper launches its hand-written kernels in
 csrc/fused_ln_mlp_int8.cu or csrc/fused_rms_swiglu_int8.cu (bf16
 activations) or raises; on a CPU tensor it runs the plain version; any
 other device raises.
 
-  * `fused_ln_mlp_int8` (`fused_ln_mlp_int8_ref`): the one-pass MLP;
-    `launches` counts its kernel.
+  * `fused_ln_mlp_int8` (`fused_ln_mlp_int8_ref`): the one-pass MLP, three
+    kernels on a CUDA tensor (the row pass, the s8 wgmma up product with
+    GELU and requantization, the s8 wgmma down product); `launches` counts
+    calls that launched them.
   * `ln_quant_rows` (`ln_quant_rows_ref`): LayerNorm + per-row int8
     quantization, (xq int8 [M, d], sx f32 [M, 1]); `launches_ln_quant`.
   * `fused_mlp_int8_prequant` (`fused_mlp_int8_prequant_ref`): the
-    two-pass form, `ln_quant_rows` then the MLP on the int8 rows; its
-    requantization group comes from `prequant_group` (block_n from 512, not
-    1024), and the residual is added after the output cast, in x's dtype
-    (one rounding more than the one-pass form). `launches_prequant` counts
-    the MLP kernel (the row pass counts in `launches_ln_quant`).
+    two-pass form, `ln_quant_rows` then the MLP on the int8 rows (the up
+    and down kernels); its requantization group comes from
+    `prequant_group` (block_n from 512, not 1024), and the residual is
+    added after the output cast, in x's dtype (one rounding more than the
+    one-pass form). `launches_prequant` counts the MLP's launches (the row
+    pass counts in `launches_ln_quant`).
   * `fused_rms_swiglu_int8` (`fused_rms_swiglu_int8_ref`): the Llama W8A8
     MLP with its residual, `x + W8A8-SwiGLU(rms_norm(x))`, for the prefill;
     its requantization group comes from `swiglu_group`.
@@ -28,7 +31,9 @@ quantization of its output, s8 x s8 -> s32 with W1, `h1 = acc*(sx*s1)+b1`,
 sigmoid-form GELU `0.5 h1 (1 + tanh(0.851 h1))`, requantization per
 (row, G-column group), s8 x s8 -> s32 with W2, `acc2*(sg*s2)` summed in f32,
 `+b2`, `+x` when add_residual. G is numerics, not tuning: `requant_group`
-derives it from the reference's block_n / sub_tiles rule.
+derives it from the reference's block_n / sub_tiles rule. The plain
+version runs in the kernels' stages: `ln_quant_rows_ref`, `gelu_codes_ref`
+(the hidden codes and their scales), `mlp_down_ref`.
 """
 
 import ctypes
@@ -46,11 +51,9 @@ launches_swiglu = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {
-    "fused_ln_mlp_int8_bf16": [_P] * 10 + [_I] * 5
+    "fused_ln_mlp_int8_bf16": [_P] * 14 + [_I] * 5
     + [ctypes.c_float, _I, _P],
-    "fused_ln_mlp_int8_smem": [_I, _I, _I],
-    "fused_mlp_int8_prequant_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    "fused_mlp_int8_prequant_smem": [_I, _I, _I, _I],
+    "fused_mlp_int8_prequant_bf16": [_P] * 11 + [_I] * 5 + [_P],
     "ln_quant_rows_bf16": [_P] * 5 + [_I, _I, ctypes.c_float, _P],
 }
 _SWIGLU_SIG = {"fused_rms_swiglu_int8_bf16": [_P] * 13 + [_I] * 5
@@ -117,17 +120,15 @@ def ln_quant_rows_ref(x, ln_w, ln_b, eps: float = 1e-5):
     return xq, sx
 
 
-def _mlp_on_codes(xq, sx, w1q, s1, b1, w2q, s2, b2, G, per_step):
-    """The MLP from int8 rows: f32 [M, d] = sum over hidden groups of G of
-    requantized GELU codes times W2, the groups of one block_n step
-    (`per_step` of them) summed first, then into the accumulator, + b2."""
-    M, d = xq.shape
+def gelu_codes_ref(xq, sx, w1q, s1, b1, G):
+    """The hidden codes, the up kernel's stage: h1 = (xq W1) * (sx * s1) +
+    b1, the sigmoid-form GELU, per (row, G columns) sg = max(amax, 1e-8) /
+    127 and gq = clip(round_half_even(g / sg)). Returns (gq int8 [M, H], sg
+    f32 [M, H / G])."""
     H = w1q.shape[1]
     s1 = s1.reshape(1, H).float()
-    s2 = s2.reshape(1, d).float()
     b1 = b1.reshape(1, H).float()
-    acc = torch.zeros((M, d), dtype=torch.float32, device=xq.device)
-    total = None
+    codes, scales = [], []
     for j in range(H // G):
         sl = slice(j * G, (j + 1) * G)
         a1 = torch._int_mm(xq, w1q[:, sl].contiguous())
@@ -135,14 +136,35 @@ def _mlp_on_codes(xq, sx, w1q, s1, b1, w2q, s2, b2, G, per_step):
         g = 0.5 * h1 * (1.0 + torch.tanh(0.851 * h1))
         gmax = g.abs().amax(-1, keepdim=True)
         sg = gmax.clamp_min(1e-8) * (1.0 / 127.0)
-        gq = torch.round(g / sg).clamp(-127, 127).to(torch.int8)
-        a2 = torch._int_mm(gq, w2q[sl, :].contiguous())
-        part = a2.float() * (sg * s2)
+        codes.append(torch.round(g / sg).clamp(-127, 127).to(torch.int8))
+        scales.append(sg)
+    return torch.cat(codes, 1), torch.cat(scales, 1)
+
+
+def mlp_down_ref(gq, sg, w2q, s2, b2, G, per_step):
+    """The down kernel's stage: f32 [M, d] = sum over hidden groups of G of
+    (gq W2) * (sg * s2), the groups of one block_n step (`per_step` of
+    them) summed first, then into the accumulator, + b2."""
+    M, H = gq.shape
+    d = w2q.shape[1]
+    s2 = s2.reshape(1, d).float()
+    acc = torch.zeros((M, d), dtype=torch.float32, device=gq.device)
+    total = None
+    for j in range(H // G):
+        sl = slice(j * G, (j + 1) * G)
+        a2 = torch._int_mm(gq[:, sl].contiguous(), w2q[sl, :].contiguous())
+        part = a2.float() * (sg[:, j:j + 1] * s2)
         total = part if total is None else total + part
         if (j + 1) % per_step == 0:
             acc = acc + total
             total = None
     return acc + b2.reshape(1, d).float()
+
+
+def _mlp_on_codes(xq, sx, w1q, s1, b1, w2q, s2, b2, G, per_step):
+    """The MLP from int8 rows: `gelu_codes_ref`, then `mlp_down_ref`."""
+    gq, sg = gelu_codes_ref(xq, sx, w1q, s1, b1, G)
+    return mlp_down_ref(gq, sg, w2q, s2, b2, G, per_step)
 
 
 def fused_ln_mlp_int8_ref(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, *,
@@ -177,36 +199,46 @@ def fused_mlp_int8_prequant_ref(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, *,
 
 
 def _f32_vectors(dev, *pairs):
-    """Each (tensor, length) as a contiguous f32 vector on dev, or raise."""
+    """Each (tensor, length) as a contiguous, 16-byte aligned f32 vector on
+    dev, or raise."""
     out = []
     for t, n in pairs:
         t = t.reshape(-1).float().contiguous()
         if t.numel() != n or t.device != dev:
             raise ValueError(f"vector of {t.numel()} on {t.device}, "
                              f"expected {n} on {dev}")
-        out.append(t)
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
     return out
 
 
-def row_block(kind: str, M: int, d: int, H: int) -> int:
-    """Rows a block of the MLP kernel takes ("one_pass": fused_ln_mlp_int8,
-    "two_pass": fused_mlp_int8_prequant's kernel): 32 or 16, the larger
-    that divides M and whose block fits shared memory. Loads the kernel
-    library (a CUDA machine's)."""
-    lib = _build.load("fused_ln_mlp_int8", _SIG)
+# the up kernel's block tile (rows, columns: one requantization group) by
+# group; the down kernel's is (128, 128) for every group
+UP_TILES = {512: (64, 512), 256: (128, 256), 128: (128, 128)}
+DOWN_TILE = (128, 128)
+_KERNEL_GROUPS = {"one_pass": (256, 512), "two_pass": (128, 256)}
+
+
+def kernel_shape(kind: str, M: int, d: int, H: int):
+    """(G, per_step): the requantization group and the groups a block_n
+    step sums first, for the kernels of `kind` ("one_pass":
+    fused_ln_mlp_int8, "two_pass": fused_mlp_int8_prequant) at M rows,
+    width d and hidden width H; a ValueError for a shape they do not take:
+    d a multiple of 64 up to 6144 (the row pass holds a row in registers),
+    a group of 256 or 512 (one pass) or 128 or 256 (two passes), M >= 1.
+    Any M: rows beyond a tile are zero-filled and never stored."""
     if kind == "one_pass":
-        def fits(b):
-            return lib.fused_ln_mlp_int8_smem(b, d, requant_group(H)) > 0
+        G = requant_group(H)
+        per_step = _block_n(H) // G
     else:
         G = prequant_group(H)
-        spg = _prequant_block_n(H) // G
-
-        def fits(b):
-            return lib.fused_mlp_int8_prequant_smem(b, d, G, spg) > 0
-    bm = next((b for b in (32, 16) if M % b == 0 and fits(b)), None)
-    if bm is None:
-        raise ValueError(f"no row block fits: M={M}, d={d}, H={H} ({kind})")
-    return bm
+        per_step = _prequant_block_n(H) // G
+    if M < 1 or d % 64 or not 0 < d <= 6144 \
+            or G not in _KERNEL_GROUPS[kind] or H % (G * per_step):
+        raise ValueError(
+            f"the int8 MLP kernels ({kind}) take M >= 1, d a multiple of 64 "
+            f"up to 6144 and a requantization group in "
+            f"{_KERNEL_GROUPS[kind]}: M={M}, d={d}, H={H}, G={G}")
+    return G, per_step
 
 
 def _check_weights(x, w1q, w2q):
@@ -220,58 +252,72 @@ def _check_weights(x, w1q, w2q):
         raise ValueError("weights and x on different devices")
 
 
-def _launch(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps, add_residual):
-    global launches
-    M, d = x.shape
-    H = w1q.shape[1]
-    G = requant_group(H)
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise TypeError(f"fused MLP kernel takes contiguous bf16 x, got "
-                        f"{x.dtype} contiguous={x.is_contiguous()}")
-    _check_weights(x, w1q, w2q)
-    if d % 64 or G not in (256, 512) or H % G:
-        raise ValueError(f"fused MLP kernel needs d % 64 == 0 and a "
-                         f"requantization group of 256 or 512: d={d}, H={H}, "
-                         f"G={G}")
-    dev = x.device
-    lnw, lnb, s1f, b1f, s2f, b2f = _f32_vectors(
-        dev, (ln_w, d), (ln_b, d), (s1, H), (b1, H), (s2, d), (b2, d))
-    w1t, w2t = bridge.int8_k_major(w1q), bridge.int8_k_major(w2q)
-    lib = _build.load("fused_ln_mlp_int8", _SIG)
-    bm = row_block("one_pass", M, d, H)
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fused_ln_mlp_int8_bf16(
-        x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1t.data_ptr(),
-        s1f.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), s2f.data_ptr(),
-        b2f.data_ptr(), out.data_ptr(), M, d, H, G, bm, eps,
-        int(add_residual), stream)
-    _build.check(err, "fused_ln_mlp_int8_bf16")
-    launches += 1
-    return out
-
-
-def fused_ln_mlp_int8(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, *,
-                      eps: float = 1e-5,
-                      add_residual: bool = False) -> torch.Tensor:
-    """x [M, d] -> LN -> int8 GELU MLP -> [M, d] (+ x when add_residual).
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    _build.refuse_grad("fused LN + int8 MLP", x, ln_w, ln_b, b1, b2)
-    if x.is_cuda:
-        return _launch(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps,
-                       add_residual)
-    if x.device.type != "cpu":
-        raise ValueError(f"no fused MLP for device {x.device}")
-    return fused_ln_mlp_int8_ref(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2,
-                                 eps=eps, add_residual=add_residual)
-
-
 def _check_rows(x, what):
     if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous() \
             or x.data_ptr() % 16:
         raise TypeError(f"{what} takes contiguous, 16-byte aligned bf16 "
                         f"[M, d], got {x.dtype} {tuple(x.shape)} "
                         f"contiguous={x.is_contiguous()}")
+
+
+def _launch_mlp(kind, x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps,
+                add_residual):
+    """The kernels of `kind` on x: (out, (xq, sx, gq, sg)), the output and
+    the int8 rows, hidden codes and their scales the kernels passed between
+    them, for a check against the plain version's stages. The two-pass
+    form's out has no residual yet."""
+    global launches, launches_prequant
+    _check_rows(x, f"int8 MLP kernels ({kind})")
+    _check_weights(x, w1q, w2q)
+    M, d = x.shape
+    H = w1q.shape[1]
+    G, per_step = kernel_shape(kind, M, d, H)
+    dev = x.device
+    s1f, b1f, s2f, b2f = _f32_vectors(dev, (s1, H), (b1, H), (s2, d),
+                                      (b2, d))
+    w1t, w2t = bridge.int8_k_major(w1q), bridge.int8_k_major(w2q)
+    gq = torch.empty((M, H), dtype=torch.int8, device=dev)
+    sg = torch.empty((M, H // G), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    lib = _build.load("fused_ln_mlp_int8", _SIG)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kind == "one_pass":
+        lnw, lnb = _f32_vectors(dev, (ln_w, d), (ln_b, d))
+        xq = torch.empty((M, d), dtype=torch.int8, device=dev)
+        sx = torch.empty((M, 1), dtype=torch.float32, device=dev)
+        err = lib.fused_ln_mlp_int8_bf16(
+            x.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w1t.data_ptr(),
+            s1f.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), s2f.data_ptr(),
+            b2f.data_ptr(), xq.data_ptr(), sx.data_ptr(), gq.data_ptr(),
+            sg.data_ptr(), out.data_ptr(), M, d, H, G, per_step, eps,
+            int(add_residual), stream)
+        _build.check(err, "fused_ln_mlp_int8_bf16")
+        launches += 1
+    else:
+        xq, sx = ln_quant_rows(x, ln_w, ln_b, eps)
+        err = lib.fused_mlp_int8_prequant_bf16(
+            xq.data_ptr(), sx.data_ptr(), w1t.data_ptr(), s1f.data_ptr(),
+            b1f.data_ptr(), w2t.data_ptr(), s2f.data_ptr(), b2f.data_ptr(),
+            gq.data_ptr(), sg.data_ptr(), out.data_ptr(), M, d, H, G,
+            per_step, stream)
+        _build.check(err, "fused_mlp_int8_prequant_bf16")
+        launches_prequant += 1
+    return out, (xq, sx, gq, sg)
+
+
+def fused_ln_mlp_int8(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, *,
+                      eps: float = 1e-5,
+                      add_residual: bool = False) -> torch.Tensor:
+    """x [M, d] -> LN -> int8 GELU MLP -> [M, d] (+ x when add_residual).
+    The CUDA kernels for CUDA tensors, the plain version for CPU tensors."""
+    _build.refuse_grad("fused LN + int8 MLP", x, ln_w, ln_b, b1, b2)
+    if x.is_cuda:
+        return _launch_mlp("one_pass", x, ln_w, ln_b, w1q, s1, b1, w2q, s2,
+                           b2, eps, add_residual)[0]
+    if x.device.type != "cpu":
+        raise ValueError(f"no fused MLP for device {x.device}")
+    return fused_ln_mlp_int8_ref(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2,
+                                 eps=eps, add_residual=add_residual)
 
 
 def _launch_ln_quant(x, ln_w, ln_b, eps):
@@ -282,9 +328,6 @@ def _launch_ln_quant(x, ln_w, ln_b, eps):
         raise ValueError(f"LN + row quantization kernel needs d % 8 == 0 "
                          f"and d <= 6144, got d={d}")
     lnw, lnb = _f32_vectors(x.device, (ln_w, d), (ln_b, d))
-    if lnw.data_ptr() % 16 or lnb.data_ptr() % 16:
-        raise ValueError("LN + row quantization kernel reads the LayerNorm "
-                         "weight and bias 16 bytes at a time: align them")
     xq = torch.empty((M, d), dtype=torch.int8, device=x.device)
     sx = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     lib = _build.load("fused_ln_mlp_int8", _SIG)
@@ -309,48 +352,20 @@ def ln_quant_rows(x, ln_w, ln_b, eps: float = 1e-5):
     return ln_quant_rows_ref(x, ln_w, ln_b, eps)
 
 
-def _launch_prequant(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, eps,
-                     add_residual):
-    global launches_prequant
-    _check_rows(x, "two-pass MLP kernel")
-    _check_weights(x, w1q, w2q)
-    M, d = x.shape
-    H = w1q.shape[1]
-    G = prequant_group(H)
-    spg = _prequant_block_n(H) // G
-    if d % 64 or (G, spg) not in ((256, 2), (128, 2), (128, 1)):
-        raise ValueError(f"two-pass MLP kernel needs d % 64 == 0 and a "
-                         f"group of 256 or 128: d={d}, H={H}, G={G}")
-    dev = x.device
-    s1f, b1f, s2f, b2f = _f32_vectors(dev, (s1, H), (b1, H), (s2, d),
-                                      (b2, d))
-    w1t, w2t = bridge.int8_k_major(w1q), bridge.int8_k_major(w2q)
-    lib = _build.load("fused_ln_mlp_int8", _SIG)
-    bm = row_block("two_pass", M, d, H)
-    xq, sx = ln_quant_rows(x, ln_w, ln_b, eps)
-    out = torch.empty_like(x)
-    err = lib.fused_mlp_int8_prequant_bf16(
-        xq.data_ptr(), sx.data_ptr(), w1t.data_ptr(), s1f.data_ptr(),
-        b1f.data_ptr(), w2t.data_ptr(), s2f.data_ptr(), b2f.data_ptr(),
-        out.data_ptr(), M, d, H, G, spg, bm,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fused_mlp_int8_prequant_bf16")
-    launches_prequant += 1
-    # after the cast, in bf16, as the reference adds it (fused_mlp.py:276)
-    return out.add_(x) if add_residual else out
-
-
 def fused_mlp_int8_prequant(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2, *,
                             eps: float = 1e-5,
                             add_residual: bool = False) -> torch.Tensor:
     """x [M, d] -> `ln_quant_rows` -> int8 GELU MLP on the int8 rows ->
-    [M, d] (+ x after the cast when add_residual). Two launches on a CUDA
-    tensor (the row pass, then the MLP kernel); the plain version for CPU
+    [M, d] (+ x after the cast when add_residual). On a CUDA tensor the row
+    pass, then the up and down kernels; the plain version for CPU
     tensors."""
     _build.refuse_grad("two-pass int8 MLP", x, ln_w, ln_b, b1, b2)
     if x.is_cuda:
-        return _launch_prequant(x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2,
-                                eps, add_residual)
+        out = _launch_mlp("two_pass", x, ln_w, ln_b, w1q, s1, b1, w2q, s2,
+                          b2, eps, add_residual)[0]
+        # after the cast, in bf16, as the reference adds it
+        # (fused_mlp.py:276)
+        return out.add_(x) if add_residual else out
     if x.device.type != "cpu":
         raise ValueError(f"no two-pass MLP for device {x.device}")
     return fused_mlp_int8_prequant_ref(x, ln_w, ln_b, w1q, s1, b1, w2q, s2,

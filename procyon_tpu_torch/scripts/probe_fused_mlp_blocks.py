@@ -6,16 +6,16 @@ ESM2-3B (d 2560, H 10240) is ProCyon-Full's protein encoder; 32768 rows
 are a B64 x L512 batch. Both forms add the residual. For each it prints the
 kernel time (CUDA events, the two forms in turns: one, two, two, one), the
 int8 rate (two products of 2 M d H operations) and the weight bytes the
-kernel re-streams (each block of BM rows reads both weight matrices once,
-from L2 or device memory). The row pass of the two-pass form is timed
-alone as well.
+product kernels re-stream (each row tile of the up kernel reads W1 once,
+each of the down kernel's W2, from L2 or device memory). The row pass of
+the two-pass form is timed alone as well.
 
     python -m procyon_tpu_torch.scripts.probe_fused_mlp_blocks \\
         [--dim 2560 --ffn 10240 --rows 32768]
 
 The reference's `--configs` and `--scoped_kib` choose Mosaic block shapes
-and its scoped-VMEM limit on the TPU; the CUDA kernels choose their own row
-block (32 or 16 rows, what fits shared memory), so they have no
+and its scoped-VMEM limit on the TPU; the CUDA kernels' tiles follow from
+the requantization group (fused_mlp.UP_TILES, DOWN_TILE), so they have no
 counterpart here. `--device cpu` runs both forms through the plain
 versions at the given size and times nothing.
 """
@@ -91,14 +91,16 @@ def run(d, H, M, device="cuda"):
             rows_ms = _ms(lambda: fused_mlp.ln_quant_rows(*args[:3]))
             res.update(one_pass_ms=(a1 + b1) / 2, two_pass_ms=(a2 + b2) / 2,
                        ln_quant_ms=rows_ms,
-                       row_blocks={k: fused_mlp.row_block(k, M, d, H)
-                                   for k in ("one_pass", "two_pass")})
+                       row_tiles={k: (fused_mlp.UP_TILES[g][0],
+                                      fused_mlp.DOWN_TILE[0])
+                                  for k, g in res["groups"].items()})
     ops = 4 * M * d * H
     for k in ("one_pass", "two_pass"):
         ms = res.get(f"{k}_ms")
         res[f"{k}_tops"] = ops / (ms * 1e-3) / 1e12 if ms else None
-        bm = res.get("row_blocks", {}).get(k)
-        res[f"{k}_weight_gb"] = M // bm * 2 * d * H / 1e9 if bm else None
+        tiles = res.get("row_tiles", {}).get(k)
+        res[f"{k}_weight_gb"] = sum(-(-M // t) for t in tiles) * d * H \
+            / 1e9 if tiles else None
     return res
 
 
@@ -117,8 +119,9 @@ def main(argv=None):
             print(f"  {what}: not measured (G {res['groups'][k]})")
             continue
         print(f"  {what}: {ms:8.3f} ms  {res[f'{k}_tops']:6.1f} TOP/s  "
-              f"G {res['groups'][k]}, BM {res['row_blocks'][k]}: weights "
-              f"re-streamed {res[f'{k}_weight_gb']:.2f} GB")
+              f"G {res['groups'][k]}, row tiles (up, down) "
+              f"{res['row_tiles'][k]}: weights re-streamed "
+              f"{res[f'{k}_weight_gb']:.2f} GB")
     if res.get("ln_quant_ms") is not None:
         print(f"  LN + row quantization alone: {res['ln_quant_ms']:.3f} ms")
     print(f"  max abs diff between the forms {res['max_abs_diff']:.4f} "

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at shapes beyond chip_smoke.py's: ESM2's full S=1026 (a ragged last key
 tile), head dims 16 and 128, the unfused q/k/v layout, the fused MLP's
-16-row block (d=2560) and its G=256 group; the flash forward at ragged
+widths of ESM2-8M, -650M and -3B, its G=256 group and rows that fill no
+tile, twice for the same bits, its hidden codes against the plain stage,
+and shapes it refuses; the flash forward at ragged
 lengths, every head dim, strided views, a cache shape and ESM2-35M's route,
 and at D 128 over five query tiles with leading padding and a packed row
 (fully masked leading key tiles add nothing), from a cache slice, over
@@ -165,9 +167,19 @@ def test_attention_refuses_what_the_kernel_does_not_take(cuda):
                                    head_dim=24)
 
 
-@pytest.mark.parametrize("M,d,H", [(512, 128, 512), (1024, 2560, 10240)])
+@pytest.mark.parametrize("M,d,H", [
+    (512, 128, 512),        # G 256
+    (1024, 2560, 10240),    # ESM2-3B's widths
+    (4096, 1280, 5120),     # ESM2-650M's
+    (512, 320, 1024),       # ESM2-8M's d: a ragged 128-column tile
+    (40, 1280, 5120),       # rows that fill no tile
+])
 @pytest.mark.parametrize("add_residual", [False, True])
 def test_fused_mlp_matches_plain(cuda, M, d, H, add_residual):
+    """Within _close and a mean of 2e-3 of the plain version, the same bits
+    from a second launch, and the hidden codes the kernels pass between
+    them equal to the plain up stage on the kernels' own row codes but at
+    rounding ties."""
     g = torch.Generator(device=cuda).manual_seed(M + d)
 
     def randn(*shape, scale=1.0):
@@ -187,6 +199,44 @@ def test_fused_mlp_matches_plain(cuda, M, d, H, add_residual):
     torch.cuda.synchronize()
     assert _close(out, ref)
     assert (out.float() - ref.float()).abs().mean().item() <= 2e-3
+    assert torch.equal(out, fm.fused_ln_mlp_int8(
+        *args, add_residual=add_residual))
+    _, (xq, sx, gq, sg) = fm._launch_mlp("one_pass", *args, 1e-5,
+                                         add_residual)
+    own, own_sg = fm.gelu_codes_ref(xq, sx, *args[3:6],
+                                    fm.requant_group(H))
+    diff = (gq.int() - own.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+    assert ((sg - own_sg).abs() <= 1e-6 * own_sg).all()
+
+
+def test_fused_mlp_refuses_what_it_cannot_take(cuda):
+    """Shapes and types the kernels do not take raise before a launch."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((512, 128), generator=g, device=cuda).to(torch.bfloat16)
+    ln = torch.ones(128, device=cuda)
+
+    def weights(d, H):
+        w1 = quant.quantize(torch.randn((d, H), generator=g, device=cuda))
+        w2 = quant.quantize(torch.randn((H, d), generator=g, device=cuda))
+        return (w1["q"], w1["s"], torch.zeros(H, device=cuda), w2["q"],
+                w2["s"], torch.zeros(d, device=cuda))
+
+    before = fm.launches
+    with pytest.raises(ValueError):     # H 1280: a group of 128
+        fm.fused_ln_mlp_int8(x, ln, ln, *weights(128, 1280))
+    with pytest.raises(ValueError):     # d 96, not a multiple of 64
+        fm.fused_ln_mlp_int8(x[:, :96].contiguous(), ln[:96], ln[:96],
+                             *weights(96, 1024))
+    with pytest.raises(TypeError):      # f32 rows
+        fm.fused_ln_mlp_int8(x.float(), ln, ln, *weights(128, 512))
+    with pytest.raises(ValueError):     # weights the wrong way round
+        w = weights(128, 512)
+        fm.fused_ln_mlp_int8(x, ln, ln, w[3], w[1], w[2], w[0], w[4], w[5])
+    with pytest.raises(ValueError):     # the two-pass form: no group
+        fm.fused_mlp_int8_prequant(x, ln, ln, *weights(128, 192))
+    assert fm.launches == before
 
 
 def _mlp_args(dev, M, d, H, seed):
@@ -222,11 +272,13 @@ def test_ln_quant_rows_matches_plain(cuda, M, d):
 
 
 @pytest.mark.parametrize("M,d,H", [(512, 128, 1024), (1024, 2560, 10240),
-                                   (512, 128, 768), (256, 512, 1920)])
+                                   (512, 128, 768), (256, 512, 1920),
+                                   (512, 320, 1280), (200, 128, 768)])
 @pytest.mark.parametrize("add_residual", [False, True])
 def test_prequant_mlp_matches_plain(cuda, M, d, H, add_residual):
-    """Groups 256 (two a step), 128 (two a step) and 128 (one a step);
-    the one-pass kernel's tolerance."""
+    """Groups 256 (two a step), 128 (two a step) and 128 (one a step),
+    ESM2-8M's MLP (d 320, H 1280) and rows that fill no tile; the one-pass
+    kernel's tolerance."""
     args = _mlp_args(cuda, M, d, H, M + H)
     before = (fm.launches_ln_quant, fm.launches_prequant)
     out = fm.fused_mlp_int8_prequant(*args, add_residual=add_residual)
@@ -380,6 +432,40 @@ def _flash_inputs(dev, B, Sq, Skv, Hq, Hkv, D, seed):
         seg_kv[:] = 1
         seg_kv[:, Skv - 17:] = 0                  # the cache's empty tail
     return q, k, v, seg_q, seg_kv
+
+
+def test_flash_forward_key_limit(cuda):
+    """At D 128 the forward kernel takes max_kv_len(128) keys (90,624: its
+    listing of the key tiles fills shared memory) and matches the plain
+    version there; one key more raises a ValueError that names the limit,
+    before any launch."""
+    limit = fa.max_kv_len(128)
+    B, Sq, Hq, Hkv, D = 1, 64, 2, 1, 128
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, limit + 1, Hkv, D), generator=g,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    seg_q = torch.ones((B, Sq), dtype=torch.int32, device=cuda)
+    seg_kv = torch.ones((B, limit + 1), dtype=torch.int32, device=cuda)
+    q_pos = torch.full((B, Sq), limit, dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(limit + 1, dtype=torch.int32,
+                          device=cuda).expand(B, -1).contiguous()
+    sm = 1.0 / math.sqrt(D)
+    ints = (seg_q, seg_kv[:, :limit].contiguous(), q_pos,
+            kv_pos[:, :limit].contiguous())
+    before = fa.launches
+    out, _ = fa.flash_fwd(q, k[:, :limit], v[:, :limit], *ints, causal=True,
+                          sm_scale=sm)
+    assert fa.launches == before + 1
+    ref, _ = fa.flash_fwd_ref(q, k[:, :limit], v[:, :limit], *ints,
+                              causal=True, sm_scale=sm)
+    torch.cuda.synchronize()
+    assert _close(out, ref)
+    with pytest.raises(ValueError, match=str(limit)):
+        fa.flash_fwd(q, k, v, seg_q, seg_kv, q_pos, kv_pos, causal=True,
+                     sm_scale=sm)
+    assert fa.launches == before + 1
 
 
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal", [

@@ -247,3 +247,53 @@ def test_forward_kernel_layout_check(case, error):
         return
     strides = tfa.check_fwd_layout(q, k, v, ints)
     assert strides == q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+
+
+def _kernel_listing_limit(D):
+    """The most key tiles the forward kernel's shared memory holds, counted
+    up tile by tile with its own layout (csrc/flash_attention_fwd.cu, Cfg):
+    Q tiles, K / V / mask rings, 20 mbarriers, then two listings of 1,104
+    bytes and 20 bytes a key tile, each 16-byte aligned, under the 232,448
+    bytes a block may have, with 1 KB for alignment."""
+    dp = 32 if D == 24 else D
+    bk = 128 if dp >= 64 else 64
+    list_off = (2 * 64 * dp * 2 + 2 * bk * dp * 2 + 3 * bk * dp * 2
+                + 4 * 8 * bk + 8 * 20)
+
+    def bytes_for(n):
+        return 1024 + list_off + 2 * ((1104 + 20 * n + 15) // 16 * 16)
+
+    n = 0
+    while bytes_for(n + 1) <= 232448:
+        n += 1
+    return n * bk
+
+
+@pytest.mark.parametrize("D", [16, 24, 32, 64, 128])
+def test_forward_kernel_key_limit(D):
+    """max_kv_len is the kernel's own limit at every head dim it takes:
+    90,624 keys at D 128 (708 tiles of 128)."""
+    assert tfa.max_kv_len(D) == _kernel_listing_limit(D)
+    if D == 128:
+        assert tfa.max_kv_len(D) == 90624
+
+
+def test_forward_kernel_refuses_keys_beyond_its_limit():
+    """One key past the limit raises a ValueError that names the limit
+    before any launch (the layout check reads shapes only); at the limit
+    the check passes."""
+    limit = tfa.max_kv_len(128)
+    q = torch.zeros((1, 16, 1, 128), dtype=torch.bfloat16)
+    for skv in (limit, limit + 1):
+        k = torch.zeros((1, skv, 1, 128), dtype=torch.bfloat16)
+        ints = (torch.ones((1, 16), dtype=torch.int32),
+                torch.ones((1, skv), dtype=torch.int32),
+                torch.zeros((1, 16), dtype=torch.int32),
+                torch.zeros((1, skv), dtype=torch.int32))
+        if skv == limit:
+            tfa.check_fwd_layout(q, k, k, ints)
+        else:
+            with pytest.raises(ValueError, match=str(limit)):
+                tfa.check_fwd_layout(q, k, k, ints)
+    with pytest.raises(ValueError):
+        tfa.max_kv_len(48)
