@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of procyon_tpu_torch on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py [--profile] [--only=flash,flash_bwd,flash_fit,w8a8,mlp]
+    python3 chip_smoke.py [--profile]
+        [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -45,8 +46,11 @@ source, all started together), then:
      f32 scale slab), exact; the paged decode attention at B80 Hq32 Hkv8
      D128 with 12 pages a slot and ragged lengths (a dead slot, a length
      that ends mid-page, one at a page boundary, the full 768), bf16 pools
-     and int8 pools with scales, and at B8 for the record, with the port's
-     gather route timed beside it at max_ctx 768 and 320;
+     and int8 pools with scales, and at B16 (serving's batch) and B8, each
+     against the plain version and its chunked cut, twice for the same
+     bits, timed on cold pools, with the port's gather route timed beside
+     it at max_ctx 768 and 320; and B16 with lengths 0, 1, one page and
+     the whole table in turn (whole chunks of the page walk dead);
   7. checks the caption path on the card (bf16, 2 layers at full width, the
      vocabulary cut to 8192 for this check only, 2 prompts of several pages,
      beam 4, 8 new tokens, through a BeamPoolSession), once with the cascade
@@ -67,11 +71,12 @@ source, all started together), then:
   9. holds the int4 unpack + matmul kernel against its plain version at the
      five weight shapes of Llama-3-8B (wq / wo, wk / wv, w_gate / w_up,
      w_down, lm_head; groups of 128) at 16 rows, and at 128 and 256 rows on
-     the w_gate shape, cycling over copies of the weight that together
-     exceed the L2 cache, as a forward finds them cold; beside it
+     the w_gate shape, twice for the same bits and one device kernel a
+     call (torch.profiler), cycling over copies of the weight that
+     together exceed the L2 cache, as a forward finds them cold; beside it
      `dequantize4` + `torch.matmul` (the library call) and the bf16
      `x @ w` of the same shape; the wrapper's host time a call, and the
-     per-layer launches' time by the warps the wrapper's k split aims at;
+     per-layer launches' time by the blocks an SM the plan aims at;
  10. checks continuous-batching serving on the card (bf16, int4 weights
      through the kernel, 2 layers, vocabulary 8192): a ContinuousBatcher
      with chunk-free prefill, a prefix cache and 4-step rounds against the
@@ -195,7 +200,8 @@ Bind batch.
 The build prints ptxas' registers and spills for each kernel function, and
 any note that it serialized a kernel's wgmma products.
 Stdout ends with a line that names the earlier versions of kernel rows 1,
-2, 3, 8 and 9 with their times as PERF.md section 6 records them (not
+2, 3, 4, 6, 8, 9, 10 and 13 with their times as PERF.md section 6
+records them (not
 measured here), a JSON line of per-kernel results, the main paths' lines
 (the ESM2 and training lines with the card's nvidia-smi line), the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`. Any failed check
@@ -205,8 +211,9 @@ There is no CPU path: without CUDA it exits with status 2.
 phases ("flash": the flash forward's cases; "flash_bwd"; "flash_fit": the
 forward's time split into a cost an item and a cost a tile pair; "w8a8":
 the W8A8 prefill path and its quality gates; "mlp": the int8 MLP kernels,
-rows 4-6, then the ESM2-650M main path and its throughput), and prints no
-result line.
+rows 4-6, then the ESM2-650M main path and its throughput; "int4": the
+int4 matmul's shapes; "paged": the paged decode attention's batches), and
+prints no result line.
 """
 
 import contextlib
@@ -273,7 +280,7 @@ DECODE_ATOL = 2e-3
 # probe_fused_decode: after 32 layers the kernel's chain against the int8
 # route's (bf16 scales, bf16 products), a share of the largest output
 PROBE_CHAIN_RTOL = 5e-2
-PAGED_BATCHES = (8, 80)
+PAGED_BATCHES = (8, 16, 80)        # the caption check, serving, captioning
 CAPTION_PROTEINS = 8
 CAPTION_SMALL = dict(layers=2, vocab=8192, prompts=2, beam=4, new_tokens=8)
 CAPTION_SMALL_SEEDS = (SEED + 18, SEED + 20, SEED + 21)
@@ -1238,6 +1245,17 @@ def post_json(port, path, payload):
         return resp.status, json.loads(resp.read())
 
 
+def synthetic_service(dev):
+    """The synthetic ProCyon-Full service on the card: random weights from
+    the app's seed, the synthetic protein table embedded."""
+    import torch
+    from procyon_tpu_torch.app import main as app_main
+    os.environ["PROCYON_SYNTHETIC"] = "1"
+    service = app_main._build_service(device=dev)
+    torch.cuda.synchronize()
+    return service
+
+
 def phase_retrieve(dev, profile):
     """The slice's main path: the synthetic ProCyon-Full service on the
     card behind the stdlib HTTP server, five POST /retrieve requests."""
@@ -1251,10 +1269,8 @@ def phase_retrieve(dev, profile):
     from procyon_tpu_torch.models import unified
     from procyon_tpu_torch.ops import (attention_rowblock, flash_attention,
                                        fused_mlp)
-    os.environ["PROCYON_SYNTHETIC"] = "1"
     t0 = time.perf_counter()
-    service = app_main._build_service(device=dev)
-    torch.cuda.synchronize()
+    service = synthetic_service(dev)
     lcfg = service.cfg.llama
     n_params = sum(t.numel() for t in bridge.tree_leaves(service.params))
     print(f"/retrieve: ProCyon-Full ({lcfg.n_layers} layers, dim {lcfg.dim}, "
@@ -1729,23 +1745,11 @@ def paged_lens(B, max_ctx, page, rng):
     return lens
 
 
-def phase_paged_attention(dev, B, quantized):
-    """The paged decode attention at Llama-3-8B widths, 12 pages a slot:
-    kernel against plain (out and lse), the dead slot exactly 0, times for
-    kernel, plain version, the library call (a gather of the pages, then
-    scaled_dot_product_attention under the length mask) and the port's own
-    gather route (`_decode_attention_step` over the gathered context) at
-    max_ctx 768 and 320."""
-    import numpy as np
+def paged_pools(dev, g, n, quantized):
+    """n (k, v, k_scale, v_scale) pools of the paged shape's widths."""
     import torch
-    import torch.nn.functional as F
-    from procyon_tpu_torch.models import llama
-    from procyon_tpu_torch.ops import paged_attention as pa
-    Hq, Hkv, D, page, P = (PAGED_SHAPE[k] for k in ("Hq", "Hkv", "D", "page",
-                                                    "P"))
-    n_pages = B * P + 7
-    g = torch.Generator(device=dev).manual_seed(SEED + 9 + B)
-    q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    Hkv, D, page = (PAGED_SHAPE[k] for k in ("Hkv", "D", "page"))
+    n_pages = n
     shape = (n_pages, page, Hkv * D)
     if quantized:
         k, v = (torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -1753,14 +1757,124 @@ def phase_paged_attention(dev, B, quantized):
                 for _ in range(2))
         ks, vs = (torch.rand((n_pages, page, Hkv), generator=g, device=dev)
                   * 0.02 + 1e-3 for _ in range(2))
-    else:
-        k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-                for _ in range(2))
-        ks = vs = None
+        return k, v, ks, vs
+    k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    return k, v, None, None
+
+
+def paged_inputs(dev, B, quantized):
+    """The paged shape's inputs at batch B, 12 pages a slot out of a pool
+    of B * 12 + 7: (the generator, q, (k, v, k_scale, v_scale) pools, the
+    page table, the lengths in numpy and on the card)."""
+    import numpy as np
+    import torch
+    Hq, D, page, P = (PAGED_SHAPE[k] for k in ("Hq", "D", "page", "P"))
+    n_pages = B * P + 7
+    g = torch.Generator(device=dev).manual_seed(SEED + 9 + B)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    pool = paged_pools(dev, g, n_pages, quantized)
     table = torch.randperm(n_pages, generator=g, device=dev)[:B * P].reshape(
         B, P).to(torch.int32)
     lens_np = paged_lens(B, P * page, page, np.random.default_rng(SEED + B))
     lens = torch.from_numpy(lens_np).to(dev, torch.int32)
+    return g, q, pool, table, lens_np, lens
+
+
+def paged_cold_pools(dev, g, pool, quantized):
+    """pool and copies of it that together exceed the L2 cache."""
+    copies = max(2, min(32, math.ceil(2.4 * L2_BYTES / nbytes(*pool))))
+    return [pool] + [paged_pools(dev, g, pool[0].shape[0], quantized)
+                     for _ in range(copies - 1)]
+
+
+def paged_kernel_ms(pa, q, pools, table, lens):
+    """The paged kernel's device time a call, its pools cold (the copies in
+    turn), the host kept ahead. It calls nothing but
+    `paged_decode_attention_fullpage`, which every version of the wrapper
+    has."""
+    Hkv, D = PAGED_SHAPE["Hkv"], PAGED_SHAPE["D"]
+
+    def cold(i):
+        kc, vc, ksc, vsc = pools[i % len(pools)]
+        return pa.paged_decode_attention_fullpage(
+            q, kc, vc, table, lens, n_kv_heads=Hkv, head_dim=D,
+            k_scale_pool=ksc, v_scale_pool=vsc)
+
+    return ahead_ms(cold)
+
+
+def paged_checks(name, out, lse, ref, ref_lse, cut, cut_lse, again, lens):
+    """Kernel against the plain version and against its chunked cut (out
+    and lse), a dead slot exactly 0 / -1e30, two launches the same bits;
+    returns (max_abs_err, lse err)."""
+    import torch
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
+    check(within_tol(out, ref), f"{name}: max_abs_err {err}")
+    check(within_tol(out, cut), f"{name}: the chunked plain version is "
+          f"{(out.float() - cut.float()).abs().max().item()} away")
+    dead = lens == 0
+    check(not out[dead].any().item()
+          and bool((lse[dead] == -1e30).all().item()),
+          f"{name}: a dead slot is not 0 / -1e30")
+    lse_err = max((lse[~dead] - ref_lse[~dead]).abs().max().item(),
+                  (lse[~dead] - cut_lse[~dead]).abs().max().item())
+    check(lse_err <= LSE_TOL, f"{name}: lse err {lse_err}")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"{name}: two launches differ")
+    return err, lse_err
+
+
+def phase_paged_dead_chunks(dev, quantized):
+    """Serving's 16 slots whose lengths (0, 1, one page, the whole table,
+    in turn) leave whole chunks of the kernel's page walk dead: against the
+    plain version and its chunked cut, twice for the same bits."""
+    import torch
+    from procyon_tpu_torch.ops import paged_attention as pa
+    Hq, Hkv, D, page, P = (PAGED_SHAPE[k] for k in ("Hq", "Hkv", "D", "page",
+                                                    "P"))
+    B = 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = paged_pools(dev, g, B * P + 7, quantized)
+    table = torch.randperm(B * P + 7, generator=g, device=dev)[:B * P] \
+        .reshape(B, P).to(torch.int32)
+    lens = torch.tensor([(0, 1, page, P * page)[i % 4] for i in range(B)],
+                        dtype=torch.int32, device=dev)
+    kw = dict(n_kv_heads=Hkv, head_dim=D, k_scale_pool=ks, v_scale_pool=vs)
+    args = (q, k, v, table, lens)
+    out, lse = pa.paged_decode_attention_fullpage(*args, **kw)
+    ref, ref_lse = pa.paged_decode_attention_ref(*args, **kw)
+    cut, cut_lse = pa.paged_decode_attention_chunked_ref(*args, **kw)
+    again = pa.paged_decode_attention_fullpage(*args, **kw)
+    torch.cuda.synchronize()
+    name = f"paged attention{' int8' if quantized else ''} dead chunks"
+    err, lse_err = paged_checks(name, out, lse, ref, ref_lse, cut, cut_lse,
+                                again, lens)
+    chunks, per = pa.chunk_plan(B, Hkv, P)
+    print(f"{name}: B{B}, lengths 0, 1, {page}, {P * page} in turn, "
+          f"{chunks} chunks of {per} pages: max_abs_err {err:.3e}, lse err "
+          f"{lse_err:.3e}, twice the same bits")
+
+
+def phase_paged_attention(dev, B, quantized):
+    """The paged decode attention at Llama-3-8B widths, 12 pages a slot:
+    kernel against plain and against its chunked cut (out and lse), the
+    dead slot exactly 0, twice the same bits; times for the kernel (pools
+    cold: copies in turn that together exceed the L2 cache, the host kept
+    ahead), the plain version, the library call (a gather of the pages,
+    then scaled_dot_product_attention under the length mask) and the
+    port's own gather route (`_decode_attention_step` over the gathered
+    context) at max_ctx 768 and 320."""
+    import torch
+    import torch.nn.functional as F
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import paged_attention as pa
+    Hq, Hkv, D, page, P = (PAGED_SHAPE[k] for k in ("Hq", "Hkv", "D", "page",
+                                                    "P"))
+    g, q, (k, v, ks, vs), table, lens_np, lens = paged_inputs(dev, B,
+                                                              quantized)
     kw = dict(n_kv_heads=Hkv, head_dim=D, k_scale_pool=ks, v_scale_pool=vs)
     name = f"paged attention{' int8' if quantized else ''}"
 
@@ -1772,18 +1886,18 @@ def phase_paged_attention(dev, B, quantized):
 
     before = pa.launches
     (out, lse), (ref, ref_lse) = kernel(), plain()
+    cut, cut_lse = pa.paged_decode_attention_chunked_ref(q, k, v, table,
+                                                         lens, **kw)
+    again = kernel()
     torch.cuda.synchronize()
-    check(pa.launches == before + 1, f"{name}: the wrapper did not launch")
-    err = (out.float() - ref.float()).abs().max().item()
-    check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite")
-    check(within_tol(out, ref), f"{name}: max_abs_err {err}")
+    check(pa.launches == before + 2, f"{name}: the wrapper did not launch")
+    err, lse_err = paged_checks(name, out, lse, ref, ref_lse, cut, cut_lse,
+                                again, lens)
     dead = lens == 0
-    check(not out[dead].any().item()
-          and bool((lse[dead] == -1e30).all().item()),
-          f"{name}: the dead slot is not 0 / -1e30")
-    lse_err = (lse[~dead] - ref_lse[~dead]).abs().max().item()
-    check(lse_err <= LSE_TOL, f"{name}: lse err {lse_err}")
-    ms, plain_ms = paired_ms(kernel, plain)
+    pools = paged_cold_pools(dev, g, (k, v, ks, vs), quantized)
+    copies = len(pools)
+    ms = paged_kernel_ms(pa, q, pools, table, lens)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
 
     def gather_route(n_ctx_pages):
         """(kernel ms, gather-route ms) with the context cut to the first
@@ -1820,6 +1934,7 @@ def phase_paged_attention(dev, B, quantized):
 
     k768, r768 = gather_route(P)
     k320, r320 = gather_route(5)
+    chunks, per = pa.chunk_plan(B, Hkv, P)
 
     library_ms = None
     if not quantized:
@@ -1830,9 +1945,10 @@ def phase_paged_attention(dev, B, quantized):
         mask = mask | dead[:, None, None, None]   # a dead row must not NaN
         qt = q[:, :, None, :]                      # [B, Hq, 1, D]
 
-        def library():
-            kc = k[tab_l].reshape(B, S, Hkv, D).transpose(1, 2)
-            vc = v[tab_l].reshape(B, S, Hkv, D).transpose(1, 2)
+        def library(i=0):
+            kp, vp = pools[i % copies][:2]
+            kc = kp[tab_l].reshape(B, S, Hkv, D).transpose(1, 2)
+            vc = vp[tab_l].reshape(B, S, Hkv, D).transpose(1, 2)
             return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
                                                   enable_gqa=True)
 
@@ -1840,7 +1956,8 @@ def phase_paged_attention(dev, B, quantized):
         diff = (lib[~dead].float() - out[~dead].float()).abs().max().item()
         check(diff <= LIBRARY_ATOL, f"{name}: gather + sdpa is {diff} from "
                                     "the kernel on live slots")
-        library_ms = cuda_ms(library)
+        library_ms = ahead_ms(library, iters=10)
+    del pools
 
     live_tokens = int(lens_np.sum())
     es = k.element_size()
@@ -1854,20 +1971,42 @@ def phase_paged_attention(dev, B, quantized):
     lib_s = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"{name} {shape_s}, lengths {lens_np[:4].tolist()} + "
           f"{B - 4} in [{P * page // 4}, {3 * P * page // 4}) "
-          f"({live_tokens} live tokens): max_abs_err {err:.3e}, lse err "
-          f"{lse_err:.3e} (tol {ATOL} + {RTOL}|plain|, lse {LSE_TOL}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + sdpa "
-          f"{lib_s}, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP); the port's "
-          f"gather route {r768:.4f} ms against the kernel's {k768:.4f} at "
-          f"max_ctx 768, {r320:.4f} against {k320:.4f} at max_ctx 320")
+          f"({live_tokens} live tokens; {chunks} chunks of {per} pages): "
+          f"max_abs_err {err:.3e}, lse err {lse_err:.3e} (tol {ATOL} + "
+          f"{RTOL}|plain|, lse {LSE_TOL}), twice the same bits; kernel "
+          f"{ms:.4f} ms (pools cold, {copies} copies in turn), plain "
+          f"{plain_ms:.4f} ms, gather + sdpa {lib_s}, bound {bound_ms:.4f} "
+          f"ms by {bound_by} ({n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+          f"GFLOP; {bound_ms / ms:.2f} of the bound); the port's gather "
+          f"route {r768:.4f} ms against the kernel's {k768:.4f} at max_ctx "
+          f"768, {r320:.4f} against {k320:.4f} at max_ctx 320")
     return dict(name="paged_attention", route="cuda",
                 source="procyon_tpu_torch/csrc/paged_attention.cu",
                 replaces="procyon_tpu/ops/paged_attention.py:250",
                 shape=shape_s, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                chunks=chunks, live_tokens=live_tokens,
                 gather_route_ms_ctx768=r768, gather_route_ms_ctx320=r320,
                 kernel_ms_ctx320=k320)
+
+
+def phase_paged(dev):
+    """The paged decode attention at every batch of PAGED_BATCHES, bf16 and
+    int8 pools, and the dead-chunk case. The entry of the JSON line is B80
+    in bf16 (one caption beam step); the other batches ride beside it."""
+    by_batch = {}
+    for quantized in (False, True):
+        for b in PAGED_BATCHES:
+            by_batch[(b, quantized)] = phase_paged_attention(dev, b,
+                                                             quantized)
+        phase_paged_dead_chunks(dev, quantized)
+    entry = dict(by_batch[(PAGED_BATCHES[-1], False)])
+    entry["batches"] = {
+        f"B{b}{' int8' if q else ''}": {k: r[k] for k in (
+            "ms", "bound_ms", "library_ms", "plain_ms", "chunks",
+            "live_tokens", "max_abs_err")}
+        for (b, q), r in by_batch.items()}
+    return entry
 
 
 class LongTextStore:
@@ -2343,8 +2482,9 @@ def ahead_ms(fn, iters=20, warmup=3):
 
 
 def int4_case(dev, name, k, n, rows, g):
-    """One shape of the int4 matmul: kernel against plain, then times over
-    copies of the weight that together exceed the L2 cache."""
+    """One shape of the int4 matmul: kernel against plain, twice for the
+    same bits, one device kernel a call, then times over copies of the
+    weight that together exceed the L2 cache."""
     import torch
     from procyon_tpu_torch.ops import int4_matmul as im
     from procyon_tpu_torch.ops import quant
@@ -2365,6 +2505,9 @@ def int4_case(dev, name, k, n, rows, g):
                                                 "differ")
     check(torch.equal(quant.mm(x, qw), out), f"int4 {name}: quant.mm took "
                                              "another route")
+    n_kernels, kernel_names = kernels_a_call(lambda: im.qmatvec4(x, qw))
+    check(n_kernels == 1, f"int4 {name} rows {rows}: {n_kernels} device "
+                          f"kernels a call ({kernel_names}), not 1")
     wb = w.to(torch.bfloat16)
     del w
     deq = x @ quant.dequantize4(qw, torch.bfloat16)
@@ -2374,10 +2517,9 @@ def int4_case(dev, name, k, n, rows, g):
           f"int4 {name}: {deq_err} from the dequantize route (largest "
           f"output {scale})")
     n_bytes = nbytes(qw["p"], qw["s"], x, out)
-    copies = max(2, min(64, math.ceil(2.4 * L2_BYTES / n_bytes)))
-    qws = [qw] + [{"p": qw["p"].clone(), "s": qw["s"].clone()}
-                  for _ in range(copies - 1)]
-    ms = ahead_ms(lambda i: im.qmatvec4(x, qws[i % copies]))
+    qws = int4_cold_weights(qw)
+    copies = len(qws)
+    ms = int4_kernel_ms(im, x, qws)
     plain_ms = cuda_ms(lambda: im.qmatvec4_ref(x, qw), iters=3, warmup=1)
     library_ms = ahead_ms(
         lambda i: x @ quant.dequantize4(qws[i % copies], torch.bfloat16),
@@ -2387,28 +2529,58 @@ def int4_case(dev, name, k, n, rows, g):
     bf16_ms = ahead_ms(lambda i: x @ wbs[i % n_bf16])
     ops = 2 * rows * k * n
     bound_ms, bound_by = bound(n_bytes, ops, PEAK_BF16)
-    ksplit = im.k_split(rows, n, k // 2 // INT4_GROUP,
-                        16 if rows <= 16 else 32)
-    print(f"int4 matmul {name} k{k} n{n} rows {rows} (group {INT4_GROUP}, "
-          f"{ksplit} k-slices): max_abs_err {err:.3e} (tol {ATOL} + "
-          f"{RTOL}|plain|), {deq_err:.3e} from dequantize4 + matmul; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, dequantize4 + "
-          f"matmul {library_ms:.4f} ms, bf16 x @ w {bf16_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB, "
-          f"{ops / 1e9:.2f} GFLOP; {bound_ms / ms:.2f} of the bound; "
-          f"{copies} weight copies in turn)")
+    grid = im.plan(rows, n, k // 2 // INT4_GROUP)
+    print(f"int4 matmul {name} k{k} n{n} rows {rows} (group {INT4_GROUP}; "
+          f"row tile {grid[0]}, column tile {grid[1]}, {grid[2]} k slices "
+          f"a cluster; {n_kernels:g} device kernel a call): max_abs_err "
+          f"{err:.3e} (tol {ATOL} + {RTOL}|plain|), {deq_err:.3e} from "
+          f"dequantize4 + matmul; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, dequantize4 + matmul {library_ms:.4f} ms, bf16 x @ w "
+          f"{bf16_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({n_bytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
+          f"{bound_ms / ms:.2f} of the bound; {copies} weight copies in "
+          "turn)")
     return dict(shape=f"{name} k{k} n{n} rows {rows}", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, bf16_matmul_ms=bf16_ms,
-                k_slices=ksplit)
+                grid=list(grid), kernels_a_call=n_kernels)
 
 
-def int4_host_and_grid(dev, g):
-    """Two things a decode round feels that one launch's device time does
-    not show: the wrapper's host time a call beside `x @ w`'s (an eager
-    forward makes 225 such calls and is bound by the host), and how the
-    per-layer shapes' times depend on the warps the wrapper asks for (its
-    k slices), as a sum over one forward's 224 per-layer launches."""
+def int4_cold_weights(qw):
+    """qw and copies of it that together exceed the L2 cache, so that
+    calls in turn read their weights from device memory."""
+    n_bytes = nbytes(qw["p"], qw["s"])
+    copies = max(2, min(64, math.ceil(2.4 * L2_BYTES / n_bytes)))
+    return [qw] + [{"p": qw["p"].clone(), "s": qw["s"].clone()}
+                   for _ in range(copies - 1)]
+
+
+def int4_kernel_ms(im, x, qws):
+    """The int4 kernel's device time a call, its weights cold (the copies
+    in turn), the host kept ahead. It calls nothing but `qmatvec4`, which
+    every version of the wrapper has."""
+    return ahead_ms(lambda i: im.qmatvec4(x, qws[i % len(qws)]))
+
+
+def host_us_a_call(fn, calls=200):
+    """The host's time a call of fn, with `calls` calls queued behind a
+    spin kernel, so that no call waits for the device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def int4_host_us(dev, g):
+    """What a decode round feels that one launch's device time does not
+    show: the wrapper's host time a call beside `x @ w`'s (an eager
+    forward makes 225 such calls and is bound by the host)."""
     import torch
     from procyon_tpu_torch.ops import int4_matmul as im
     from procyon_tpu_torch.ops import quant
@@ -2416,49 +2588,67 @@ def int4_host_and_grid(dev, g):
     qw, wb = quant.quantize4(w, group=INT4_GROUP), w.to(torch.bfloat16)
     x = torch.randn((INT4_ROWS, 4096), generator=g, device=dev).to(
         torch.bfloat16)
-    host_us = {}
-    for name, fn in (("qmatvec4", lambda: im.qmatvec4(x, qw)),
-                     ("quant.mm on an int4 leaf", lambda: quant.mm(x, qw)),
-                     ("bf16 x @ w", lambda: x @ wb)):
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(200_000_000)      # the host runs ahead of the card
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        host_us[name] = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
+    host_us = {name: host_us_a_call(fn) for name, fn in (
+        ("qmatvec4", lambda: im.qmatvec4(x, qw)),
+        ("quant.mm on an int4 leaf", lambda: quant.mm(x, qw)),
+        ("bf16 x @ w", lambda: x @ wb))}
     print("int4 matmul, host time a call (200 calls queued behind a spin "
           "kernel): " + ", ".join(f"{k} {v:.1f} us"
                                   for k, v in host_us.items()))
-    del w, qw, wb
-    kept = im.TARGET_WARPS
-    sums = {}
-    try:
-        for per_sm in (8, 16, 24):
-            im.TARGET_WARPS = 132 * per_sm
-            total = 0.0
-            for name, k, n, per_forward in INT4_SHAPES[:4]:
-                wq = quant.quantize4(
-                    torch.randn((k, n), generator=g, device=dev) * k ** -0.5,
-                    group=INT4_GROUP)
-                xs = torch.randn((INT4_ROWS, k), generator=g,
-                                 device=dev).to(torch.bfloat16)
-                copies = max(2, min(64, math.ceil(
-                    2.4 * L2_BYTES / nbytes(wq["p"], wq["s"]))))
-                qws = [wq] + [{"p": wq["p"].clone(), "s": wq["s"].clone()}
-                              for _ in range(copies - 1)]
-                total += per_forward * ahead_ms(
-                    lambda i: im.qmatvec4(xs, qws[i % copies]))
-                del wq, qws
-            sums[per_sm] = total
-    finally:
-        im.TARGET_WARPS = kept
-    print(f"int4 matmul, the 224 per-layer launches of a {INT4_ROWS}-row "
-          "forward by the warps an SM the wrapper's k split aims at: "
-          + ", ".join(f"{k}: {v:.3f} ms" for k, v in sums.items())
-          + f" (the wrapper keeps {kept // 132})")
-    torch.cuda.empty_cache()
+    return host_us
+
+
+def phase_times(dev):
+    """Rows 13 and 10 by the yardsticks phase_int4 and phase_paged_attention
+    time them with (weights and pools cold, the host kept ahead), and the
+    wrappers' host time a call, through no call but `qmatvec4` and
+    `paged_decode_attention_fullpage`, which the first versions had as
+    well: this script, copied into a checkout of an earlier commit and run
+    there with --only=times, times that commit's kernels the same way."""
+    import torch
+    from procyon_tpu_torch.ops import int4_matmul as im
+    from procyon_tpu_torch.ops import paged_attention as pa
+    from procyon_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    wide = INT4_SHAPES[2]
+    cases = [(name, k, n, INT4_ROWS, c) for name, k, n, c in INT4_SHAPES] \
+        + [(*wide[:3], rows, 0) for rows in INT4_MORE_ROWS]
+    int4, forward = {}, 0.0
+    for name, k, n, rows, per_forward in cases:
+        qw = quant.quantize4(torch.randn((k, n), generator=g, device=dev)
+                             * k ** -0.5, group=INT4_GROUP)
+        x = torch.randn((rows, k), generator=g, device=dev).to(
+            torch.bfloat16)
+        int4[f"{name} rows {rows}"] = ms = int4_kernel_ms(
+            im, x, int4_cold_weights(qw))
+        forward += per_forward * ms
+        del qw
+        torch.cuda.empty_cache()
+    int4_host = int4_host_us(dev, g)
+    paged, paged_host = {}, None
+    Hkv, D = PAGED_SHAPE["Hkv"], PAGED_SHAPE["D"]
+    for quantized in (False, True):
+        for B in PAGED_BATCHES:
+            gp, q, pool, table, _, lens = paged_inputs(dev, B, quantized)
+            pools = paged_cold_pools(dev, gp, pool, quantized)
+            paged[f"B{B}{' int8' if quantized else ''}"] = paged_kernel_ms(
+                pa, q, pools, table, lens)
+            if B == SERVING["slots"] and not quantized:
+                paged_host = host_us_a_call(
+                    lambda: pa.paged_decode_attention_fullpage(
+                        q, *pool[:2], table, lens, n_kv_heads=Hkv,
+                        head_dim=D))
+            del pools
+            torch.cuda.empty_cache()
+    print("times, weights and pools cold, host kept ahead: int4 "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in int4.items())
+          + f"; a {INT4_ROWS}-row forward's launches {forward:.3f} ms; "
+          "paged " + ", ".join(f"{k} {v:.4f} ms" for k, v in paged.items())
+          + f"; paged host time a call at B{SERVING['slots']} "
+          f"{paged_host:.1f} us")
+    return dict(int4_ms=int4, int4_forward_ms=forward,
+                int4_host_us=int4_host, paged_ms=paged,
+                paged_host_us=paged_host)
 
 
 def phase_int4(dev):
@@ -2470,22 +2660,24 @@ def phase_int4(dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
     per_shape, forward = [], dict(ms=0.0, bound_ms=0.0, library_ms=0.0,
                                   bf16_matmul_ms=0.0)
+    kernels = 0.0
     for name, k, n, per_forward in INT4_SHAPES:
         r = int4_case(dev, name, k, n, INT4_ROWS, g)
         per_shape.append(r)
         for key in forward:
             forward[key] += per_forward * r[key]
+        kernels += per_forward * r["kernels_a_call"]
         torch.cuda.empty_cache()
     for rows in INT4_MORE_ROWS:
         name, k, n, _ = INT4_SHAPES[2]
         per_shape.append(int4_case(dev, name, k, n, rows, g))
         torch.cuda.empty_cache()
-    int4_host_and_grid(dev, g)
+    host_us = int4_host_us(dev, g)
     n_calls = sum(c for *_, c in INT4_SHAPES)
     print(f"int4 matmul, one forward of {INT4_ROWS} rows at Llama-3-8B "
-          f"({n_calls} launches): kernel {forward['ms']:.3f} ms, bound "
-          f"{forward['bound_ms']:.3f} ms, dequantize4 + matmul "
-          f"{forward['library_ms']:.3f} ms, bf16 x @ w "
+          f"({n_calls} calls, {kernels:g} device kernels): kernel "
+          f"{forward['ms']:.3f} ms, bound {forward['bound_ms']:.3f} ms, "
+          f"dequantize4 + matmul {forward['library_ms']:.3f} ms, bf16 x @ w "
           f"{forward['bf16_matmul_ms']:.3f} ms (sums of the shapes' times)")
     main = per_shape[2]
     return dict(name="int4_matmul", route="cuda",
@@ -2495,7 +2687,8 @@ def phase_int4(dev):
                                         "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
                 per_shape=per_shape,
-                forward_16_rows={k: round(v, 4) for k, v in forward.items()})
+                forward_16_rows={k: round(v, 4) for k, v in forward.items()},
+                device_kernels_a_forward=kernels, host_us_a_call=host_us)
 
 
 class ForwardLog:
@@ -3150,6 +3343,29 @@ def device_ms_by_kernel(fn, names, reps=5, traces=3):
               f"{list(names)}; tracing again")
     check(False, f"the profiler saw {sorted(found)} of {list(names)} in "
                  f"{traces} traces")
+
+
+def kernels_a_call(fn, reps=4, traces=3):
+    """The device kernels one call of fn runs (copies and fills aside),
+    counted in a torch.profiler trace of `reps` calls; a trace with no
+    kernels at all (which the tracer on the H100 machine now and then
+    hands back) is taken again, up to `traces` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "Memcpy" not in e.name and "Memset" not in e.name]
+        if names:
+            return len(names) / reps, sorted(set(names))
+    check(False, f"the profiler saw no kernel in {traces} traces")
 
 
 def sdpa_bwd_ms(q, k, v, do, mask):
@@ -4430,8 +4646,12 @@ def run_only(dev, names, profile):
     iteration on one kernel or one check: "flash" (the forward's cases),
     "flash_bwd", "flash_fit" (the forward's cost an item and a tile pair),
     "w8a8" (phase_w8a8_prefill), "mlp" (rows 4, 5 and 6, then the ESM2-650M
-    main path and its throughput, with --profile its W8A8 batch traced).
-    Prints their lines and no result line."""
+    main path and its throughput, with --profile its W8A8 batch traced),
+    "int4" (row 13's shapes and kernels a call), "paged" (row 10 at every
+    batch, bf16 and int8, and the dead-chunk case), "times" (rows 13 and
+    10 timed alone, see phase_times), "serving" (phase_serving on the
+    synthetic service, with --profile a decode round traced). Prints their
+    lines and no result line."""
     def mlp():
         rows = [phase_mlp(dev, m) for m in MLP_ROWS]
         prequant = phase_prequant_mlp(dev)
@@ -4449,6 +4669,11 @@ def run_only(dev, names, profile):
         "flash_fit": lambda: flash_fit(dev),
         "w8a8": lambda: phase_w8a8_prefill(dev, profile)[1],
         "mlp": mlp,
+        "int4": lambda: phase_int4(dev),
+        "paged": lambda: phase_paged(dev),
+        "times": lambda: phase_times(dev),
+        "serving": lambda: phase_serving(dev, synthetic_service(dev),
+                                         profile)[1],
     }
     for name in names:
         check(name in groups, f"--only: no group {name!r} (of "
@@ -4505,11 +4730,7 @@ def main():
     phase_flash_cache(dev)
     kernels.append(phase_rowblock_fwd(dev))
     kernels.append(phase_page_move(dev))
-    for quantized in (False, True):
-        paged = [phase_paged_attention(dev, b, quantized)
-                 for b in PAGED_BATCHES][-1]
-        if not quantized:
-            kernels.append(paged)
+    kernels.append(phase_paged(dev))
     kernels.append(phase_int4(dev))
     kernels.extend(phase_flash_bwd(dev))
     torch.cuda.empty_cache()
@@ -4594,7 +4815,11 @@ def main():
           "rowblock_fwd 0.1161 ms at B16 S512 H20 D24 (mma.sync), "
           "fused_ln_mlp_int8 5.7185 ms at M32768 d1280 H5120 (mma.sync), "
           "fused_mlp_int8_prequant 33.8074 ms at M32768 d2560 H10240 "
-          "(mma.sync, the MLP kernel's device time)")
+          "(mma.sync, the MLP kernel's device time), paged_attention "
+          "0.1014 ms at B80 Hq32 Hkv8 D128 P12 (int8 0.0918; SIMT f32, a "
+          "block a slot and kv head), int4_matmul 0.0294 ms at w_gate k4096 "
+          "n14336 16 rows and 4.732 ms a 16-row forward in 449 device "
+          "kernels (a k-split kernel and a reduce kernel a call)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
         "model": "esm2-650m W8A8 fused-QKV", "card": smi,

@@ -446,48 +446,13 @@ mlp_down_kernel(const __grid_constant__ CUtensorMap mg,
   wg::cluster_sync();
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // an int8 [rows, inner] row-major matrix read in boxes of [box_rows, KC],
 // in the 128-byte swizzle, zero-filled outside
 bool make_map(CUtensorMap* map, const void* base, int inner, long long rows,
               int box_rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner)};
-  const cuuint32_t box[2] = {KC, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
-             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return wg::tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, inner,
+                           rows, inner, KC, box_rows,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // a persistent grid of CL-block clusters: as many as the card holds at

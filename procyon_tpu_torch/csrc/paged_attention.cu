@@ -22,73 +22,81 @@
 //
 // What bounds it on the H100: bytes. Every live K and V row is read once:
 // at the caption path's shape (80 slots, 8 kv heads of 128, about 300
-// cached tokens) that is 98 MB a layer, about 29 us at 3.35 TB/s, against
-// 0.05 GFLOP.
+// cached tokens) that is 124 MB a layer, 37 us at 3.35 TB/s, against
+// 0.06 GFLOP; at serving's 16 slots a tenth of that, where the fixed cost
+// of a launch weighs.
 //
 // What the design does about it. The TPU kernel ran a sequential (slot,
 // page) grid with the page table prefetched as scalars, carried m, l and
 // the accumulator in lane-broadcast VMEM scratch, and folded all heads into
 // one matrix-unit pass through block-diagonal queries [Hq, Hkv*D]; none of
-// that is carried over. Here one block of 128 threads owns a (slot, kv
-// head) pair: 640 blocks at 80 slots, about five resident on each SM, so
-// one block's loads run under another's arithmetic. The block reads its own
-// table row and length and loops over the slot's live pages only. For each
-// page it copies the head's K and V tiles [page, D] into shared memory with
-// 16-byte loads (rows padded by 16 bytes, so the row-per-thread reads below
-// fall on distinct banks), and the Hq / Hkv query heads of the group share
-// each tile:
-//   scores   a thread takes one token (and, when the page has fewer tokens
-//            than the block has threads, one slice of head_dim) and all the
-//            group's heads: K row from shared memory 16 bytes at a time, q
-//            in f32 from shared memory as broadcast reads;
-//   softmax  one warp per head: page max and sum by shuffles, the running
-//            m / l / rescale factor in shared memory, p rounded to bf16;
-//   P.V      a thread owns one of the D output lanes for GROUP * D / 128
-//            heads and walks the page's tokens, V read once for all heads.
-// SIMT f32 arithmetic is enough while the bytes bound it (about 2 FLOP per
-// byte). Known and not built: with few slots (8 slots are 64 blocks for 132
-// SMs) the grid does not fill the card and the walk wants a split over
-// pages with a log-sum-exp merge; cp.async or TMA prefetch of the next
-// page under the arithmetic; mma.sync for the two products.
+// that is carried over. Here:
+//   * a block of four warps owns a (slot, kv head, chunk of pages): the
+//     wrapper cuts the table's P pages into chunks from the shapes alone
+//     (ops/paged_attention.chunk_plan; never from seq_lens, which stay on
+//     the device), so that 8 or 16 slots fill the card as 80 do. The
+//     chunks of a (slot, kv head) are one thread-block cluster: each
+//     leaves its normalised output and log-sum-exp in shared memory, and
+//     the cluster merges them through distributed shared memory in chunk
+//     order, inside the launch. A chunk wholly past the slot's length
+//     reads nothing and has lse -1e30: weight exactly 0 in the merge;
+//   * the next pages' K and V tiles (tokens past the length zero-filled)
+//     come with cp.async into a ring of STAGES stages while the current
+//     page is computed;
+//   * both products run on the tensor cores (mma.sync m16n8k16, bf16 in,
+//     f32 sums): the group's query heads are the rows of the m16 tile
+//     (the rest zeros), K through ldmatrix, V through ldmatrix.trans, from
+//     tiles in wgmma.cuh's swizzled layout (conflict-free). Every warp
+//     computes the page's scores and softmax for all heads (the same
+//     values in each), so the probabilities pass from the score fragments
+//     to P.V's A fragments in registers; a warp owns a quarter of the
+//     head dimension in P.V. int8 tiles are converted to bf16 in shared
+//     memory once a page.
+// Measured times and what holds the kernel back: PERF.md section 6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int NT = 128;  // four warps
+constexpr int NT = 128;              // four warps
+constexpr int WARPS = NT / 32;
 constexpr float MASK = -1e30f;
-constexpr int MAX_PAGE = 128;
+constexpr int MAX_CHUNKS = 8;
+constexpr int MAX_GROUP = 8;
+constexpr int STAGES = 2;            // the ring's stages (3 measured no faster)
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest STAGES - 1 has landed
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
 }
 
-// 16 bytes of a K row as floats: 8 bf16 values or 16 int8 codes
-template <bool Q8>
-__device__ __forceinline__ void unpack16(const uint4& raw, float* f) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-  if constexpr (Q8) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        f[i * 4 + j] = static_cast<float>(
-            static_cast<int8_t>((w[i] >> (8 * j)) & 0xffu));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[i * 2] = __uint_as_float(w[i] << 16);
-      f[i * 2 + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
+// D: head dim. TT: tokens of a tile (the page, at least 16; rows past the
+// page are zeros). Q8: int8 pools.
+template <int D, int TT, bool Q8>
+struct Smem {
+  using T = wg::Tile<D, TT>;                  // a [TT][D] bf16 tile
+  static constexpr int ES = Q8 ? 1 : 2;       // bytes of a pool element
+  static constexpr int LANDED = TT * D * ES;  // a tile as cp.async lands it
+  static constexpr int RING = STAGES * 2 * LANDED;  // stages of (K, V)
+  static constexpr int CONV = Q8 ? 2 * T::BYTES : 0;  // (K, V) in bf16
+  static constexpr int SCALES = Q8 ? STAGES * 2 * TT * 4 : 0;
+  static constexpr int MERGE = (MAX_GROUP * D + MAX_GROUP) * 4;
+  static constexpr int BODY = RING + CONV + SCALES;
+  static constexpr int BYTES = 1024 + (BODY > MERGE ? BODY : MERGE);
+  static_assert(LANDED % 1024 == 0, "tile alignment");
+};
 
-template <int D, int GROUP, bool Q8>
+// grid (chunks, Hkv, B), cluster (chunks, 1, 1): block c walks the live
+// pages of table entries [c * chunk_pages, (c + 1) * chunk_pages)
+template <int D, int TT, bool Q8>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const unsigned char* __restrict__ k_pool,
@@ -98,269 +106,371 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ page_table,
                     const int* __restrict__ seq_lens,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                    int Hkv, int page, int P, int n_rows, float sm_scale) {
-  constexpr int ES = Q8 ? 1 : 2;     // bytes per pool element
-  constexpr int EPC = 16 / ES;       // elements per 16-byte chunk
-  constexpr int ROWB = D * ES;       // bytes of one head's row
-  constexpr int LDB = ROWB + 16;     // padded shared-memory row stride
-  constexpr int CPR = ROWB / 16;     // 16-byte chunks per row
-  constexpr int ACC_N = GROUP * D / NT;  // outputs per thread
-  constexpr int GSTEP = NT / D;      // head stride between a thread's outputs
-  static_assert((GROUP * D) % NT == 0 && NT % D == 0, "unsupported shape");
+                    int Hkv, int group, int page, int P, int n_rows,
+                    int chunk_pages, float sm_scale) {
+  using L = Smem<D, TT, Q8>;
+  using T = typename L::T;
+  constexpr int ES = L::ES;
+  constexpr int CPR = D * ES / 16;           // 16-byte chunks of a row
+  constexpr int KS = D / 16;                 // k16 steps of q . k
+  constexpr int NS = TT / 8;                 // n8 token tiles of a page
+  constexpr int DW = D / WARPS;              // head columns a warp owns
+  constexpr int NO = DW / 8;                 // n8 tiles of a warp's output
+  extern __shared__ unsigned char raw[];
+  unsigned char* smem = wg::aligned_smem(raw);
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* k_tile = smem;
-  unsigned char* v_tile = k_tile + page * LDB;
-  float* q_s = reinterpret_cast<float*>(v_tile + page * LDB);  // [GROUP][D]
-  float* s_part = q_s + GROUP * D;     // [split][GROUP][page]
-  float* p_s = s_part + NT * GROUP;    // [page][GROUP]
-  float* ks_s = p_s + page * GROUP;    // [page]
-  float* vs_s = ks_s + page;           // [page]
-  float* m_s = vs_s + page;            // [GROUP] running max
-  float* l_s = m_s + GROUP;            // [GROUP] running sum
-  float* a_s = l_s + GROUP;            // [GROUP] this page's rescale factor
+  const int chunk = blockIdx.x, chunks = gridDim.x;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix, row
+  const int Hq = Hkv * group;
+  const int h0 = kvh * group;
 
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int Hq = Hkv * GROUP;
-  const int h0 = kvh * GROUP;          // the group's first query head
+  const int len = min(max(seq_lens[b], 0), P * page);
+  const int p0 = chunk * chunk_pages;
+  const int p_end = min(min(P, p0 + chunk_pages), (len + page - 1) / page);
+  const int n_pages = max(0, p_end - p0);
+  const size_t tok_stride = static_cast<size_t>(Hkv) * D * ES;   // bytes
 
-  const int len = min(seq_lens[b], P * page);
-  const int n_live = (len + page - 1) / page;
-
-  for (int i = tid; i < GROUP * D; i += NT) {
-    q_s[i] = __bfloat162float(
-        q[(static_cast<size_t>(b) * Hq + h0) * D + i]);
-  }
-  if (tid < GROUP) {
-    m_s[tid] = MASK;
-    l_s[tid] = 0.f;
-    a_s[tid] = 0.f;
-  }
-  float acc[ACC_N];
+  // the group's query rows as m16 A fragments (rows past the group zero)
+  uint32_t qa[KS][4];
 #pragma unroll
-  for (int i = 0; i < ACC_N; ++i) acc[i] = 0.f;
+  for (int kk = 0; kk < KS; ++kk) {
+    qa[kk][0] = qa[kk][1] = qa[kk][2] = qa[kk][3] = 0u;
+    if (g < group) {
+      const __nv_bfloat16* qr =
+          q + (static_cast<size_t>(b) * Hq + h0 + g) * D + 16 * kk + 2 * t;
+      qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
+      qa[kk][2] = *reinterpret_cast<const uint32_t*>(qr + 8);
+    }
+  }
 
-  // score phase: thread -> (token, slice of head_dim)
-  const int split = NT / page;
-  const int ds = D / split;            // head_dim elements per slice
-  const int tok = tid % page;
-  const int sp = tid / page;
-  // P.V phase: thread -> output lane d of heads g0, g0 + GSTEP, ...
-  const int d = tid % D;
-  const int g0 = tid / D;
-
-  const size_t tok_stride = static_cast<size_t>(Hkv) * ROWB;  // bytes
-
-  for (int j = 0; j < n_live; ++j) {
-    __syncthreads();  // the tiles and p_s of the page before are done with
-    int row = page_table[static_cast<size_t>(b) * P + j];
+  // page j of the chunk into stage `buf`: K and V rows of the kv head,
+  // tokens past the slot's length zero-filled (never read)
+  auto issue = [&](int j, int buf) {
+    const int pj = p0 + j;
+    int row = page_table[static_cast<size_t>(b) * P + pj];
     row = max(0, min(row, n_rows - 1));
-    const int n_tok = min(page, len - j * page);
-    const size_t base = static_cast<size_t>(row) * page * tok_stride
-        + static_cast<size_t>(kvh) * ROWB;
-    for (int c = tid; c < n_tok * CPR; c += NT) {
-      const int t = c / CPR, cc = c % CPR;
-      const size_t off = base + t * tok_stride + cc * 16;
-      *reinterpret_cast<uint4*>(k_tile + t * LDB + cc * 16) =
-          __ldg(reinterpret_cast<const uint4*>(k_pool + off));
-      *reinterpret_cast<uint4*>(v_tile + t * LDB + cc * 16) =
-          __ldg(reinterpret_cast<const uint4*>(v_pool + off));
+    const int n_tok = min(page, len - pj * page);
+    const size_t base = static_cast<size_t>(row) * page * tok_stride +
+                        static_cast<size_t>(kvh) * D * ES;
+    unsigned char* kt = smem + buf * 2 * L::LANDED;
+    unsigned char* vt = kt + L::LANDED;
+    for (int i = tid; i < TT * CPR; i += NT) {
+      const int tok = i / CPR, c = i % CPR;
+      const bool live = tok < n_tok;
+      const size_t off = live ? base + tok * tok_stride + c * 16 : 0;
+      // bf16 tiles land in the swizzled layout the products read; int8
+      // codes land row by row and are converted below
+      const uint32_t dst = Q8 ? static_cast<uint32_t>(tok * D + c * 16)
+                              : T::offset(tok, c);
+      wg::cp16(wg::smem_u32(kt + dst), k_pool + off, live);
+      wg::cp16(wg::smem_u32(vt + dst), v_pool + off, live);
     }
     if constexpr (Q8) {
-      for (int t = tid; t < n_tok; t += NT) {
-        const size_t s_off =
-            (static_cast<size_t>(row) * page + t) * Hkv + kvh;
-        ks_s[t] = k_scale[s_off];
-        vs_s[t] = v_scale[s_off];
+      float* sc = reinterpret_cast<float*>(smem + L::RING + L::CONV) +
+                  buf * 2 * TT;
+      for (int i = tid; i < 2 * TT; i += NT) {
+        const int tok = i % TT;
+        const bool live = tok < n_tok;
+        const float* src = (i < TT ? k_scale : v_scale) +
+                           (live ? (static_cast<size_t>(row) * page + tok) *
+                                           Hkv + kvh
+                                 : 0);
+        wg::cp4(wg::smem_u32(sc + i), src, live);
       }
     }
-    __syncthreads();
+    cp_commit();
+  };
 
-    // scores: partial dot products of this thread's slice, all heads
-    if (tok < n_tok) {
-      float sc[GROUP];
+  float o[NO][4];
 #pragma unroll
-      for (int g = 0; g < GROUP; ++g) sc[g] = 0.f;
-      const unsigned char* kr = k_tile + tok * LDB + sp * ds * ES;
-      const float* qr = q_s + sp * ds;
-      for (int c = 0; c < ds / EPC; ++c) {
-        float kf[EPC];
-        unpack16<Q8>(*reinterpret_cast<const uint4*>(kr + c * 16), kf);
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run = MASK, l_lane = 0.f;   // row g's running max; this lane's sum
+
 #pragma unroll
-        for (int g = 0; g < GROUP; ++g) {
-          const float4* q4 =
-              reinterpret_cast<const float4*>(qr + g * D + c * EPC);
-#pragma unroll
-          for (int e = 0; e < EPC / 4; ++e) {
-            const float4 qv = q4[e];
-            sc[g] += qv.x * kf[e * 4] + qv.y * kf[e * 4 + 1]
-                + qv.z * kf[e * 4 + 2] + qv.w * kf[e * 4 + 3];
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
-        s_part[(sp * GROUP + g) * page + tok] = sc[g];
-      }
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < n_pages) {
+      issue(j, j);
+    } else {
+      cp_commit();
     }
-    __syncthreads();
-
-    // online softmax: one warp per head
-    for (int g = warp; g < GROUP; g += NT / 32) {
-      const float m_prev = m_s[g];
-      const float l_prev = l_s[g];
-      float sv[MAX_PAGE / 32];
-      float m_cur = MASK;
-#pragma unroll
-      for (int i = 0; i < MAX_PAGE / 32; ++i) {
-        const int t = lane + 32 * i;
-        float s = MASK;
-        if (t < n_tok) {
-          float dot = 0.f;
-          for (int k = 0; k < split; ++k) {
-            dot += s_part[(k * GROUP + g) * page + t];
-          }
-          s = dot * sm_scale;
-          if constexpr (Q8) s *= ks_s[t];
-        }
-        sv[i] = s;
-        m_cur = fmaxf(m_cur, s);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
-      }
-      const float m_new = fmaxf(m_prev, m_cur);
-      const float safe_m = m_new <= 0.5f * MASK ? 0.f : m_new;
-      const float alpha =
-          m_prev <= 0.5f * MASK ? 0.f : expf(m_prev - safe_m);
-      float l_sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < MAX_PAGE / 32; ++i) {
-        const int t = lane + 32 * i;
-        if (t < n_tok) {
-          float p = expf(sv[i] - safe_m);
-          l_sum += p;
-          if constexpr (Q8) p *= vs_s[t];
-          p_s[t * GROUP + g] = bf16_round(p);
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        l_sum += __shfl_xor_sync(0xffffffffu, l_sum, o);
-      }
-      if (lane == 0) {
-        m_s[g] = m_new;
-        l_s[g] = alpha * l_prev + l_sum;
-        a_s[g] = alpha;
-      }
+  }
+  for (int j = 0; j < n_pages; ++j) {
+    const int buf = j % STAGES;
+    const int ahead = j + STAGES - 1;
+    if (ahead < n_pages) {
+      issue(ahead, ahead % STAGES);
+    } else {
+      cp_commit();
     }
-    __syncthreads();
-
-    // P.V: rescale, then add this page's tokens
+    cp_wait_ring();
+    __syncthreads();                     // page j has landed in every thread
+    const int n_tok = min(page, len - (p0 + j) * page);
+    uint32_t kt = wg::smem_u32(smem + buf * 2 * L::LANDED);
+    uint32_t vt = kt + L::LANDED;
+    const float* sc = nullptr;
+    if constexpr (Q8) {
+      // codes -> bf16 tiles in the swizzled layout
+      const unsigned char* kc = smem + buf * 2 * L::LANDED;
+      unsigned char* conv = smem + L::RING;
+      for (int i = tid; i < 2 * TT * (D / 16); i += NT) {
+        const int which = i / (TT * (D / 16));        // 0: K, 1: V
+        const int r = i % (TT * (D / 16));
+        const int tok = r / (D / 16), c16 = r % (D / 16);
+        const uint4 raw16 = *reinterpret_cast<const uint4*>(
+            kc + which * L::LANDED + tok * D + c16 * 16);
+        const uint32_t w[4] = {raw16.x, raw16.y, raw16.z, raw16.w};
+        uint32_t h[8];
 #pragma unroll
-    for (int i = 0; i < ACC_N; ++i) acc[i] *= a_s[g0 + i * GSTEP];
-    const unsigned char* vcol = v_tile + d * ES;
-    for (int t = 0; t < n_tok; ++t) {
-      float v;
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t word = w[e / 2];
+          const int sh = (e % 2) * 16;
+          const float lo = static_cast<float>(
+              static_cast<int8_t>((word >> sh) & 0xffu));
+          const float hi = static_cast<float>(
+              static_cast<int8_t>((word >> (sh + 8)) & 0xffu));
+          h[e] = wg::pack_bf16(lo, hi);
+        }
+        unsigned char* dst = conv + which * T::BYTES;
+        *reinterpret_cast<uint4*>(dst + T::offset(tok, 2 * c16)) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(dst + T::offset(tok, 2 * c16 + 1)) =
+            make_uint4(h[4], h[5], h[6], h[7]);
+      }
+      __syncthreads();
+      kt = wg::smem_u32(conv);
+      vt = kt + T::BYTES;
+      sc = reinterpret_cast<const float*>(smem + L::RING + L::CONV) +
+           buf * 2 * TT;
+    }
+
+    // scores of every token of the page for the group's heads
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t kb[4];
+        wg::ldsm_x4(kb, kt + T::offset((2 * n2 + (mi >> 1)) * 8 + mr,
+                                       2 * kk + (mi & 1)));
+        wg::mma16816(s[2 * n2], qa[kk], kb[0], kb[1]);
+        wg::mma16816(s[2 * n2 + 1], qa[kk], kb[2], kb[3]);
+      }
+    // online softmax of row g (and the padding row g + 8, never written)
+    float pmax = MASK;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tok = 8 * n + 2 * t + (e & 1);
+        float v = s[n][e] * sm_scale;
+        if constexpr (Q8) v *= sc[tok];
+        v = tok < n_tok ? v : MASK;
+        s[n][e] = v;
+        if (e < 2) pmax = fmaxf(pmax, v);
+      }
+    pmax = fmaxf(pmax, __shfl_xor_sync(0xffffffffu, pmax, 1));
+    pmax = fmaxf(pmax, __shfl_xor_sync(0xffffffffu, pmax, 2));
+    const float m_new = fmaxf(m_run, pmax);  // a live page: finite
+    const float alpha = expf(m_run - m_new);
+    m_run = m_new;
+    l_lane *= alpha;
+    uint32_t pa[NS / 2][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // rows g + 8 are padding: their values are never used
+        p[e] = e < 2 ? expf(s[n][e] - m_new) : 0.f;
+      }
+      l_lane += p[0] + p[1];
       if constexpr (Q8) {
-        v = static_cast<float>(
-            *reinterpret_cast<const int8_t*>(vcol + t * LDB));
-      } else {
-        v = __bfloat162float(
-            *reinterpret_cast<const __nv_bfloat16*>(vcol + t * LDB));
+        p[0] *= sc[TT + 8 * n + 2 * t];
+        p[1] *= sc[TT + 8 * n + 2 * t + 1];
       }
-      const float* pr = p_s + t * GROUP + g0;
-#pragma unroll
-      for (int i = 0; i < ACC_N; ++i) acc[i] += pr[i * GSTEP] * v;
+      pa[n / 2][(n & 1) * 2] = wg::pack_bf16(p[0], p[1]);
+      pa[n / 2][(n & 1) * 2 + 1] = wg::pack_bf16(p[2], p[3]);
     }
-  }
-  __syncthreads();
-
+    // P . V for the warp's head columns
 #pragma unroll
-  for (int i = 0; i < ACC_N; ++i) {
-    const int g = g0 + i * GSTEP;
-    const float l = l_s[g];
-    const float val = l == 0.f ? 0.f : acc[i] / l;
-    out[(static_cast<size_t>(b) * Hq + h0 + g) * D + d] =
-        __float2bfloat16_rn(val);
+    for (int j2 = 0; j2 < NO; ++j2)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j2][e] *= alpha;
+#pragma unroll
+    for (int kk = 0; kk < TT / 16; ++kk)
+#pragma unroll
+      for (int j2 = 0; j2 < NO / 2; ++j2) {
+        uint32_t vb[4];
+        wg::ldsm_x4_trans(vb, vt + T::offset(16 * kk + (mi & 1) * 8 + mr,
+                                             warp * DW / 8 + 2 * j2 +
+                                                 (mi >> 1)));
+        wg::mma16816(o[2 * j2], pa[kk], vb[0], vb[1]);
+        wg::mma16816(o[2 * j2 + 1], pa[kk], vb[2], vb[3]);
+      }
+    __syncthreads();               // the stage is free for page j + STAGES
   }
-  if (tid < GROUP) {
-    const float l = l_s[tid];
-    lse[static_cast<size_t>(b) * Hq + h0 + tid] =
-        l == 0.f ? MASK : m_s[tid] + logf(l);
+
+  // this chunk's normalised output and log-sum-exp of row g
+  float l_row = l_lane;
+  l_row += __shfl_xor_sync(0xffffffffu, l_row, 1);
+  l_row += __shfl_xor_sync(0xffffffffu, l_row, 2);
+  const bool live = l_row > 0.f;
+  const float lse_c = live ? m_run + logf(l_row) : MASK;
+  float on[NO][2];                       // acc / l, 0 where nothing is live
+#pragma unroll
+  for (int j2 = 0; j2 < NO; ++j2) {
+    on[j2][0] = live ? o[j2][0] / l_row : 0.f;
+    on[j2][1] = live ? o[j2][1] / l_row : 0.f;
   }
+
+  if (chunks == 1) {
+    if (g < group) {
+      __nv_bfloat16* orow =
+          out + (static_cast<size_t>(b) * Hq + h0 + g) * D + warp * DW;
+#pragma unroll
+      for (int j2 = 0; j2 < NO; ++j2)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j2 + 2 * t) =
+            __floats2bfloat162_rn(on[j2][0], on[j2][1]);
+      if (warp == 0 && t == 0)
+        lse[static_cast<size_t>(b) * Hq + h0 + g] = lse_c;
+    }
+    return;
+  }
+
+  // the cluster's chunks merge by log-sum-exp, in chunk order
+  __syncthreads();                       // every stage is done with
+  float* oc = reinterpret_cast<float*>(smem);     // [group][D]
+  float* lc = oc + MAX_GROUP * D;                 // [group]
+  if (g < group) {
+#pragma unroll
+    for (int j2 = 0; j2 < NO; ++j2)
+      *reinterpret_cast<float2*>(oc + g * D + warp * DW + 8 * j2 + 2 * t) =
+          make_float2(on[j2][0], on[j2][1]);
+    if (warp == 0 && t == 0) lc[g] = lse_c;
+  }
+  wg::cluster_sync();
+  for (int e = chunk * NT + tid; e < group * D; e += chunks * NT) {
+    const int gh = e / D;
+    const uint32_t la = wg::smem_u32(lc + gh);
+    float w[MAX_CHUNKS];
+    float mx = MASK;
+    for (int c = 0; c < chunks; ++c) {
+      w[c] = wg::ld_cluster_f32(la, c);
+      mx = fmaxf(mx, w[c]);
+    }
+    float acc = 0.f, wsum = 0.f;
+    const uint32_t oa = wg::smem_u32(oc + e);
+    for (int c = 0; c < chunks; ++c) {
+      // a chunk with nothing live weighs exactly 0 (no exp of -1e30 - -1e30)
+      const float wc = w[c] <= 0.5f * MASK ? 0.f : expf(w[c] - mx);
+      wsum += wc;
+      if (wc != 0.f) acc += wc * wg::ld_cluster_f32(oa, c);
+    }
+    out[(static_cast<size_t>(b) * Hq + h0) * D + e] =
+        __float2bfloat16_rn(wsum > 0.f ? acc / wsum : 0.f);
+    if (e % D == 0)
+      lse[static_cast<size_t>(b) * Hq + h0 + gh] =
+          wsum > 0.f ? mx + logf(wsum) : MASK;
+  }
+  wg::cluster_sync();    // no block leaves while another reads its results
 }
 
-template <int D, int GROUP, bool Q8>
+template <int D, int TT, bool Q8>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* k_scale, const void* v_scale, const void* page_table,
            const void* seq_lens, void* out, void* lse, int B, int Hkv,
-           int page, int P, int n_rows, float sm_scale,
-           cudaStream_t stream) {
-  constexpr int LDB = D * (Q8 ? 1 : 2) + 16;
-  const size_t smem = static_cast<size_t>(2) * page * LDB
-      + sizeof(float) * (GROUP * D + NT * GROUP + page * GROUP + 2 * page
-                         + 3 * GROUP);
-  auto kernel = paged_decode_kernel<D, GROUP, Q8>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+           int group, int page, int P, int n_rows, int chunk_pages,
+           float sm_scale, cudaStream_t stream) {
+  using L = Smem<D, TT, Q8>;
+  auto kernel = paged_decode_kernel<D, TT, Q8>;
+  const cudaError_t attr = wg::set_attributes_once(
+      reinterpret_cast<const void*>(kernel), L::BYTES, false);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<dim3(B, Hkv), NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
+  const int chunks = (P + chunk_pages - 1) / chunk_pages;
+  cudaLaunchAttribute cl;
+  cl.id = cudaLaunchAttributeClusterDimension;
+  cl.val.clusterDim.x = chunks;
+  cl.val.clusterDim.y = 1;
+  cl.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(chunks, Hkv, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = &cl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
       static_cast<const unsigned char*>(k_pool),
       static_cast<const unsigned char*>(v_pool),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Hkv, page,
-      P, n_rows, sm_scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Hkv, group,
+      page, P, n_rows, chunk_pages, sm_scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool Q8>
+int launch_tt(int tt, const void* q, const void* k_pool, const void* v_pool,
+              const void* k_scale, const void* v_scale,
+              const void* page_table, const void* seq_lens, void* out,
+              void* lse, int B, int Hkv, int group, int page, int P,
+              int n_rows, int chunk_pages, float sm_scale, cudaStream_t s) {
+#define TT_CASE(TTV)                                                        \
+  if (tt == TTV)                                                            \
+    return launch<D, TTV, Q8>(q, k_pool, v_pool, k_scale, v_scale,          \
+                              page_table, seq_lens, out, lse, B, Hkv, group, \
+                              page, P, n_rows, chunk_pages, sm_scale, s);
+  TT_CASE(16)
+  TT_CASE(32)
+  TT_CASE(64)
+  TT_CASE(128)
+#undef TT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-#define PAGED_CASE(DD, GG)                                                  \
-  if (D == DD && group == GG) {                                             \
-    return quantized                                                        \
-        ? launch<DD, GG, true>(q, k_pool, v_pool, k_scale, v_scale,         \
-                               page_table, seq_lens, out, lse, B, Hkv,      \
-                               page, P, n_rows, sm_scale, s)                \
-        : launch<DD, GG, false>(q, k_pool, v_pool, k_scale, v_scale,        \
-                                page_table, seq_lens, out, lse, B, Hkv,     \
-                                page, P, n_rows, sm_scale, s);              \
-  }
-
 // q, out: bf16 [B, Hq, D]; pools: [n_rows, page, Hkv*D] bf16, or int8 with
 // f32 scales [n_rows, page, Hkv] when `quantized`; page_table int32 [B, P];
-// seq_lens int32 [B]; lse f32 [B, Hq]. All contiguous. The page size must
-// divide 128 threads with 16-byte slices of a head row each (the wrapper
-// checks it).
+// seq_lens int32 [B]; lse f32 [B, Hq]. All contiguous. D is 64 or 128, the
+// group Hq / Hkv 1 to 8, the page 8, 16, 32, 64 or 128 tokens; the table's
+// P pages are walked in chunks of chunk_pages, at most 8 chunks.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* seq_lens, void* out, void* lse, int B, int Hq, int Hkv, int D,
-    int page, int P, int n_rows, int quantized, float sm_scale,
-    void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv || page <= 0 || page > MAX_PAGE
-      || NT % page || P <= 0 || n_rows <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int split = NT / page;
-  if ((D * (quantized ? 1 : 2)) % (16 * split)) {
+    int page, int P, int n_rows, int quantized, int chunk_pages,
+    float sm_scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAX_GROUP || P <= 0 ||
+      n_rows <= 0 || chunk_pages <= 0 ||
+      (P + chunk_pages - 1) / chunk_pages > MAX_CHUNKS ||
+      (page != 8 && page != 16 && page != 32 && page != 64 && page != 128) ||
+      (D != 64 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int group = Hq / Hkv;
+  const int tt = page < 16 ? 16 : page;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PAGED_CASE(128, 1)
-  PAGED_CASE(128, 2)
-  PAGED_CASE(128, 4)
-  PAGED_CASE(128, 8)
-  PAGED_CASE(64, 2)
-  PAGED_CASE(64, 4)
-  PAGED_CASE(64, 8)
+#define D_CASE(DD)                                                           \
+  if (D == DD)                                                               \
+    return quantized                                                         \
+               ? launch_tt<DD, true>(tt, q, k_pool, v_pool, k_scale,         \
+                                     v_scale, page_table, seq_lens, out, lse, \
+                                     B, Hkv, group, page, P, n_rows,          \
+                                     chunk_pages, sm_scale, s)               \
+               : launch_tt<DD, false>(tt, q, k_pool, v_pool, k_scale,        \
+                                      v_scale, page_table, seq_lens, out,    \
+                                      lse, B, Hkv, group, page, P, n_rows,   \
+                                      chunk_pages, sm_scale, s);
+  D_CASE(64)
+  D_CASE(128)
+#undef D_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

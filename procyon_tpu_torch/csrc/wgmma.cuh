@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the port's wgmma kernels
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels
 // (rowblock_attention.cu, flash_attention_fwd.cu, flash_attention_bwd.cu,
-// fused_ln_mlp_int8.cu): the shared-memory tile layout wgmma reads, its
-// matrix descriptors, the warpgroup products with A in registers (RS) or in
-// shared memory (SS, bf16 and s8), cp.async and TMA tile copies and the
-// mbarriers that signal them.
+// fused_ln_mlp_int8.cu, int4_matmul.cu, paged_attention.cu): the
+// shared-memory tile layout wgmma and ldmatrix read, its matrix
+// descriptors, the warpgroup products with A in registers (RS) or in
+// shared memory (SS, bf16 and s8), cp.async and TMA tile copies, the
+// mbarriers that signal them, and the host's TMA tensor maps.
 //
 // Tile layout. A [ROWS][D] bf16 tile is cut along its columns into atoms
 // of A = min(D, 64) elements, so that an atom row is RB = 2A bytes: 32, 64
@@ -28,8 +29,12 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace wg {
 
@@ -392,6 +397,155 @@ __device__ __forceinline__ void arrive_cluster_if(uint32_t bar, uint32_t rank,
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   const uint32_t a = smem_u32(raw);
   return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+// one arrival on a barrier of this block
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// 16 bytes (four f32) at the address `local` has in block `rank` of the
+// cluster (distributed shared memory)
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t local,
+                                                uint32_t rank) {
+  float4 v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %4, %5;\n"
+      "ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [remote];\n}\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(local), "r"(rank)
+      : "memory");
+  return v;
+}
+// one f32 of block `rank` of the cluster
+__device__ __forceinline__ float ld_cluster_f32(uint32_t local,
+                                                uint32_t rank) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [remote];\n}\n"
+      : "=f"(v)
+      : "r"(local), "r"(rank)
+      : "memory");
+  return v;
+}
+
+// four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8); r[i] is matrix i's fragment, lane (g, t)
+// holding its row g, columns 2t and 2t + 1 (.trans: column g, rows 2t and
+// 2t + 1)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d[m16 x n8] += a[m16 x k16] . b[k16 x n8], bf16 in, f32 sums (mma.sync;
+// registers only, so the compiler may schedule it among other work)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- host side ----
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major [outer, inner] matrix (rows `stride` bytes apart) read in
+// boxes of [box_outer, box_inner] elements, zero-filled outside
+inline bool tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, unsigned long long inner,
+                          unsigned long long outer, unsigned long long stride,
+                          unsigned box_inner, unsigned box_outer,
+                          CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t steps[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box,
+             steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a kernel's dynamic shared memory (and, where asked, clusters of more than
+// 8 blocks) set once a device rather than at every launch: the decode paths
+// launch their kernels hundreds of times a step, and these calls cost host
+// time each
+inline cudaError_t set_attributes_once(const void* kernel, int smem_bytes,
+                                       bool nonportable_clusters) {
+  constexpr int KERNELS = 64;
+  static std::mutex lock;
+  static const void* kernels[KERNELS];
+  static uint64_t devices_done[KERNELS];
+  static int n_kernels = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  std::lock_guard<std::mutex> guard(lock);
+  int i = 0;
+  while (i < n_kernels && kernels[i] != kernel) ++i;
+  if (i < n_kernels && (devices_done[i] & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (err == cudaSuccess && nonportable_clusters)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess || i == KERNELS) return err;
+  if (i == n_kernels) {
+    kernels[i] = kernel;
+    devices_done[i] = 0;
+    ++n_kernels;
+  }
+  devices_done[i] |= bit;
+  return cudaSuccess;
 }
 
 }  // namespace wg

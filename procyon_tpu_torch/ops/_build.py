@@ -24,6 +24,9 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "procyon_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# the H100 SXM's streaming multiprocessors, which the kernels' grid plans
+# (ops/int4_matmul.plan, ops/paged_attention.chunk_plan) aim to fill
+SMS = 132
 
 _libs: dict = {}
 _lock = threading.Lock()

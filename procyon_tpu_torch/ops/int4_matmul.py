@@ -13,8 +13,10 @@ with f32 accumulation and applies each group's f32 scale after its dot.
     it, and CPU tensors take it.
   * `qmatvec4`: the one wrapper. On a CUDA tensor it launches the
     hand-written kernel in csrc/int4_matmul.cu or raises; on a CPU tensor
-    it runs the plain version. `launches` counts kernel launches (one a
-    call: the k-split's second pass belongs to its call).
+    it runs the plain version. `launches` counts kernel launches: one a
+    call, the k slices being added inside the launch.
+  * `plan`: the kernel's grid for a call's shapes (row tile, column tile,
+    k slices), pure Python.
 
 `x @ dequantize4(qw)` is another function numerically (it rounds q * s to
 x's dtype before the product); ops/quant.qmatmul4 keeps it for calls of
@@ -26,7 +28,7 @@ lacks; they compute this same function, and one kernel stands for both.
 """
 
 import ctypes
-import threading
+import functools
 
 import torch
 
@@ -34,17 +36,22 @@ from procyon_tpu_torch.ops import _build
 
 launches = 0
 
-# the grid: one warp per (32 columns, k slice, row block), eight warps a
-# block. The wrapper splits k until about this many warps exist, so that
-# narrow weights (n = 1024 or 4096) still spread over the card's 132 SMs
-# with two or three blocks each; 8, 16 and 24 warps an SM were timed on the
-# H100 at the Llama-3-8B shapes, 24 was the fastest (PERF.md)
-TARGET_WARPS = 132 * 24
+# the grid: a block per (row tile, column tile, k slice); the k slices of a
+# tile are one thread-block cluster and add their partials inside the
+# launch. Measured on the H100 at the Llama-3-8B shapes (PERF.md):
+# fewer slices stream faster (the weights' rows are read in fewer places
+# at once), uneven ones lose, 256-column tiles never won; the plan aims at
+# BLOCKS_PER_SM blocks an SM with at most MAX_SLICES slices (above 8 a
+# cluster is non-portable; the H100 takes 16)
+SMS = _build.SMS
+BLOCKS_PER_SM = 2
+MAX_SLICES = 16
+COL_TILES = (128, 64)
 MAX_ROWS = 256
 
 _SIG = {"int4_matmul":
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
 def _shapes(x, qw):
@@ -81,35 +88,36 @@ def qmatvec4_ref(x, qw):
     return out.to(x.dtype).reshape(*x.shape[:-1], n)
 
 
-def k_split(rows: int, n: int, packed_groups: int, rows_per_warp: int) -> int:
-    """How many slices of whole groups the kernel's grid cuts k into."""
-    mblocks = -(-rows // rows_per_warp)
-    want = -(-TARGET_WARPS // ((n // 32) * mblocks))
-    return max(1, min(packed_groups, want))
+@functools.lru_cache(maxsize=256)
+def plan(rows: int, n: int, packed_groups: int,
+         blocks_per_sm: int = BLOCKS_PER_SM) -> tuple:
+    """(row tile, column tile, k slices) of the kernel's grid for `rows`
+    rows of x against n columns with `packed_groups` groups in each nibble
+    half of k, from the shapes alone. 16-row tiles up to 16 rows, 32-row
+    ones above; the widest column tile whose tiles, cut into at most
+    MAX_SLICES slices, give every SM a block (else 64 columns); slices a
+    divisor of the groups (even slices), the most that stays within
+    `blocks_per_sm` blocks an SM, or else the fewest that give every SM a
+    block."""
+    row_tile = 16 if rows <= 16 else 32
+    mblocks = -(-rows // row_tile)
+    most = min(MAX_SLICES, packed_groups)
+    for col_tile in COL_TILES:
+        if n % col_tile == 0 and (n // col_tile) * mblocks * most >= SMS:
+            break
+    tiles = (n // col_tile) * mblocks
+    even = [d for d in range(1, most + 1) if packed_groups % d == 0]
+    slices = max(d for d in even
+                 if d == 1 or tiles * d <= blocks_per_sm * SMS)
+    if tiles * slices < SMS:
+        slices = min([d for d in even if tiles * d >= SMS] or [even[-1]])
+    return row_tile, col_tile, slices
 
 
 def _raw_stream(dev) -> int:
     """The current stream's handle on `dev`, without building a Stream
     object: the wrapper runs 225 times a forward."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
-_scratch = {}       # (device index, stream) -> f32 buffer of the k slices
-# ctypes releases the interpreter lock during the call: two threads on one
-# stream must not interleave their two passes over the shared scratch
-_scratch_lock = threading.Lock()
-
-
-def _partials(dev, stream: int, numel: int) -> torch.Tensor:
-    """The f32 scratch of a k-split launch. Launches on one stream run in
-    order, so they share one buffer a stream, grown when a shape needs
-    more; a launch's second pass has read it before the next one writes."""
-    key = (dev.index, stream)
-    buf = _scratch.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = _scratch[key] = torch.empty(numel, dtype=torch.float32,
-                                          device=dev)
-    return buf
 
 
 def _launch(x, qw):
@@ -132,7 +140,8 @@ def _launch(x, qw):
     if n % 128 or group % 16:
         raise ValueError(f"int4 matmul kernel: n = {n} must be a multiple "
                          f"of 128 and the group size {group} of 16")
-    # the kernel copies x in 16-byte pieces, row by row
+    # the kernel's TMA copies read x, p and s through tensor maps: 16-byte
+    # aligned bases and row strides
     if x.is_contiguous() and x.data_ptr() % 16 == 0:
         x2, ldx = x, k
     else:
@@ -141,24 +150,17 @@ def _launch(x, qw):
             x2 = x2.contiguous()
         ldx = x2.stride(0)
     ldp, lds = p.stride(0), s.stride(0)
-    if p.stride(1) != 1 or ldp % 4 or p.data_ptr() % 4 \
+    if p.stride(1) != 1 or ldp % 16 or p.data_ptr() % 16 \
             or s.stride(2) != 1 or lds % 4 or s.data_ptr() % 16:
         raise ValueError(
-            "int4 matmul kernel reads p in 4-byte and s in 16-byte words "
-            f"along n: strides {p.stride()} / {s.stride()} do not fit")
-    rows_per_warp = 16 if rows <= 16 else 32
-    ksplit = k_split(rows, n, G // 2, rows_per_warp)
+            "int4 matmul kernel reads p and s through TMA: 16-byte aligned "
+            f"rows needed, strides {p.stride()} / {s.stride()} do not fit")
+    row_tile, col_tile, slices = plan(rows, n, G // 2)
     out = torch.empty((*x.shape[:-1], n), dtype=torch.bfloat16, device=dev)
     lib = _build.load("int4_matmul", _SIG)
-    stream = _raw_stream(dev)
-    args = (rows, k, n, group, ldx, ldp, lds, ksplit, rows_per_warp, stream)
-    ptrs = (x2.data_ptr(), p.data_ptr(), s.data_ptr(), out.data_ptr())
-    if ksplit > 1:
-        with _scratch_lock:
-            part = _partials(dev, stream, ksplit * rows * n)
-            err = lib.int4_matmul(*ptrs, part.data_ptr(), *args)
-    else:
-        err = lib.int4_matmul(*ptrs, None, *args)
+    err = lib.int4_matmul(x2.data_ptr(), p.data_ptr(), s.data_ptr(),
+                          out.data_ptr(), rows, k, n, group, ldx, ldp, lds,
+                          row_tile, col_tile, slices, _raw_stream(dev))
     _build.check(err, "int4_matmul")
     launches += 1
     return out

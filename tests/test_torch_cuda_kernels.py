@@ -22,9 +22,12 @@ quantization and the two-pass MLP at ESM2-3B's widths and every group
 they take; the fused decode MLP at 1 to 16 rows; the RMSNorm + W8A8
 SwiGLU MLP at every group it takes (128 to 512 columns), ragged rows and
 d 4096; the paged decode attention at
-other head dims, groups and page sizes, bf16 and int8 pools; the int4
-matmul at the five Llama-3-8B weight shapes (n cut where it can be), rows
-1 to 256, groups of 64 and 128, and one batcher run with int4 weights.
+other head dims, groups and page sizes, bf16 and int8 pools, serving's 16
+slots and 8 with whole chunks of the page walk dead, against the plain
+version and its chunked cut, twice for the same bits; the int4 matmul at
+the five Llama-3-8B weight shapes (n cut where it can be), rows 1 to 256,
+groups of 64 and 128, at full size at 16 rows twice for the same bits, one
+device kernel a call, and one batcher run with int4 weights.
 
 Marked `cuda`: needs a CUDA device, and without one every test skips (the
 fixture decides, at run time). This file imports torch only (the machine
@@ -912,6 +915,12 @@ def _paged_case(dev, B, Hq, Hkv, D, page, P, lens, quantized, seed):
     return (q, k, v, table, lens), kw
 
 
+# a page's worth of tokens, each slot's lengths: dead chunks of the chunk
+# plan's cut wherever a slot is shorter than the table
+_DEAD_CHUNKS_16 = [0, 1, 64, 768, 0, 1, 64, 768, 2, 63, 65, 129, 300, 767,
+                   700, 5]
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("B,Hq,Hkv,D,page,P,lens", [
     # Llama-3-8B widths: dead slot, mid-page, page boundary, full context
@@ -919,17 +928,18 @@ def _paged_case(dev, B, Hq, Hkv, D, page, P, lens, quantized, seed):
     (3, 8, 8, 128, 64, 3, [5, 64, 192]),        # no grouping (MHA)
     (4, 16, 2, 64, 32, 5, [0, 33, 96, 160]),    # D 64, group 8, page 32
     (2, 4, 2, 128, 128, 2, [130, 256]),         # one token per thread
-    (3, 8, 4, 64, 16, 4, [7, 16, 64]),          # 8 slices of head_dim
+    (3, 8, 4, 64, 16, 4, [7, 16, 64]),          # 16-token pages
+    (2, 8, 8, 128, 8, 6, [3, 48]),              # 8-token pages
+    # serving's B16 and the caption check's B8 at Llama-3-8B widths: the
+    # chunk plan cuts their tables, and slots of length 0, 1, one page and
+    # the whole table leave whole chunks dead
+    (16, 32, 8, 128, 64, 12, _DEAD_CHUNKS_16),
+    (8, 32, 8, 128, 64, 12, [0, 1, 64, 768, 128, 383, 640, 65]),
 ])
 def test_paged_attention_matches_plain(cuda, B, Hq, Hkv, D, page, P, lens,
                                        quantized):
     args, kw = _paged_case(cuda, B, Hq, Hkv, D, page, P, lens, quantized,
                            seed=B * 100 + page)
-    if (D * (1 if quantized else 2)) % (16 * (128 // page)):
-        # a head row that does not split into 16-byte slices over the block
-        with pytest.raises(ValueError, match="page_size"):
-            pa.paged_decode_attention_fullpage(*args, **kw)
-        return
     before = pa.launches
     out, lse = pa.paged_decode_attention_fullpage(*args, **kw)
     ref, ref_lse = pa.paged_decode_attention_ref(*args, **kw)
@@ -939,6 +949,44 @@ def test_paged_attention_matches_plain(cuda, B, Hq, Hkv, D, page, P, lens,
     dead = args[4] == 0
     assert not out[dead].any() and bool((lse[dead] == -1e30).all())
     assert (lse[~dead] - ref_lse[~dead]).abs().max() <= 1e-3
+    # the kernel's own cut in plain code, and twice the same bits
+    cut, cut_lse = pa.paged_decode_attention_chunked_ref(*args, **kw)
+    assert _close(out, cut)
+    assert (lse[~dead] - cut_lse[~dead]).abs().max() <= 1e-3
+    again, again_lse = pa.paged_decode_attention_fullpage(*args, **kw)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_attention_ignores_the_pool_past_each_length(cuda, quantized):
+    """Rows of a slot's pages past its length are garbage by contract: NaN
+    and inf there (in the codes, and the scales of an int8 pool) change no
+    bit of the output. The tensor cores multiply P = 0 by those rows, so
+    the kernel must read them as zeros."""
+    lens = [0, 1, 63, 64, 65, 700, 767, 768]
+    args, kw = _paged_case(cuda, 8, 32, 8, 128, 64, 12, lens, quantized,
+                           seed=12)
+    q, k, v, table, n = args
+    out, lse = pa.paged_decode_attention_fullpage(*args, **kw)
+    k2, v2 = k.clone(), v.clone()
+    ks2 = None if kw["k_scale_pool"] is None else kw["k_scale_pool"].clone()
+    vs2 = None if kw["v_scale_pool"] is None else kw["v_scale_pool"].clone()
+    page = k.shape[1]
+    for b, length in enumerate(lens):
+        for j, row in enumerate(table[b].tolist()):
+            dead = slice(max(0, min(page, length - j * page)), page)
+            if quantized:
+                k2[row, dead] = -128
+                v2[row, dead] = 127
+                ks2[row, dead] = float("nan")
+                vs2[row, dead] = float("inf")
+            else:
+                k2[row, dead] = float("nan")
+                v2[row, dead] = float("inf")
+    kw2 = dict(kw, k_scale_pool=ks2, v_scale_pool=vs2)
+    out2, lse2 = pa.paged_decode_attention_fullpage(q, k2, v2, table, n,
+                                                    **kw2)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 def test_paged_attention_refuses_what_it_cannot_take(cuda):
@@ -1063,6 +1111,71 @@ def test_int4_matmul_matches_plain(cuda, k, n, group, rows):
     deq = x @ quant.dequantize4(qw, torch.bfloat16)
     assert (out.float() - deq.float()).abs().max() \
         <= 4 * 2.0 ** -8 * deq.float().abs().max()
+
+
+@pytest.mark.parametrize("k,n", [
+    (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+    (4096, 128256)])
+def test_int4_matmul_llama_shapes_at_16_rows(cuda, k, n):
+    """The five Llama-3-8B weight shapes at full size and a decode round's
+    16 rows (groups of 128), against the plain version, twice for the same
+    bits: the slices of a tile add in one order whatever the plan."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    qw = quant.quantize4(w, group=128)
+    del w
+    x = torch.randn((16, k), generator=g, device=cuda).to(torch.bfloat16)
+    out = i4.qmatvec4(x, qw)
+    ref = i4.qmatvec4_ref(x, qw)
+    assert _close(out, ref)
+    for _ in range(2):
+        assert torch.equal(out, i4.qmatvec4(x, qw))
+
+
+def test_int4_matmul_is_one_kernel_a_call(cuda):
+    """One qmatvec4 call is one device kernel at every shape the plan cuts
+    into slices (the slices add up inside the launch), counted by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    for k, n in ((4096, 1024), (4096, 4096), (14336, 4096)):
+        qw = quant.quantize4(torch.randn((k, n), device=cuda) / 64,
+                             group=128)
+        x = torch.randn((16, k), device=cuda).to(torch.bfloat16)
+        i4.qmatvec4(x, qw)
+        torch.cuda.synchronize()
+        assert i4.plan(16, n, k // 256)[2] > 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            i4.qmatvec4(x, qw)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "int4" in e.name]
+        others = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "int4" not in e.name and "Memcpy" not in e.name
+                  and "Memset" not in e.name]
+        assert len(kernels) == 1 and not others, (k, n, others)
+
+
+def test_int4_matmul_weights_reused_at_one_address(cuda):
+    """The kernel keeps the weights' tensor maps from call to call, keyed
+    by address and layout: weights freed and made again, of the same shape
+    with other values, then of other shapes and group sizes (the caching
+    allocator hands the same addresses back), still match the plain
+    version, as do column slices of one packed tensor at other offsets."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((16, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    for n, group in ((512, 128), (512, 128), (256, 128), (512, 64),
+                     (1024, 32)):
+        qw = quant.quantize4(torch.randn((1024, n), generator=g,
+                                         device=cuda) / 32, group=group)
+        assert _close(i4.qmatvec4(x, qw), i4.qmatvec4_ref(x, qw)), (n, group)
+        del qw
+    qw = quant.quantize4(torch.randn((1024, 1024), generator=g, device=cuda)
+                         / 32, group=128)
+    for c0 in (0, 256, 512):
+        part = {"p": qw["p"][:, c0:c0 + 512], "s": qw["s"][:, :, c0:c0 + 512]}
+        assert _close(i4.qmatvec4(x, part), i4.qmatvec4_ref(x, part)), c0
 
 
 def test_int4_matmul_layer_slices_and_3d_x(cuda):

@@ -196,19 +196,59 @@ def test_qmatvec4_refuses_bad_inputs():
         tint4.qmatvec4(torch.zeros(2, 256, device="meta"), qw)
 
 
+# the Llama-3-8B weight shapes (k, n) a decode forward multiplies
+LLAMA3_8B_SHAPES = dict(wq=(4096, 4096), wk=(4096, 1024),
+                        w_gate=(4096, 14336), w_down=(14336, 4096),
+                        lm_head=(4096, 128256))
+
+
+def _blocks(rows, n, plan):
+    row_tile, col_tile, slices = plan
+    return -(-rows // row_tile) * (n // col_tile) * slices
+
+
 def test_k_split_fills_the_card():
-    """The wrapper's grid rule at the Llama-3-8B shapes, 16 rows: narrow
-    weights are split over k (in whole groups), the head is not."""
-    ks = {name: tint4.k_split(16, n, (k // 2) // 128, 16)
-          for name, (k, n) in dict(wq=(4096, 4096), wk=(4096, 1024),
-                                   w_gate=(4096, 14336),
-                                   w_down=(14336, 4096),
-                                   lm_head=(4096, 128256)).items()}
-    # wq / wk have 16 packed groups of 128: 16 slices is the most
-    assert ks == dict(wq=16, wk=16, w_gate=8, w_down=25, lm_head=1)
-    assert tint4.k_split(256, 14336, 16, 32) == 1
-    assert ks["w_down"] * (4096 // 32) >= tint4.TARGET_WARPS
-    assert ks["w_gate"] * (14336 // 32) >= tint4.TARGET_WARPS
+    """The wrapper's grid rule (`plan`) at the Llama-3-8B shapes, 16 rows:
+    one row tile; narrow weights are split over k (in whole groups, each
+    tile's slices one cluster of at most 16 blocks), the head is not, and
+    every shape has a block for each of the H100's 132 SMs."""
+    plans = {name: tint4.plan(16, n, (k // 2) // 128)
+             for name, (k, n) in LLAMA3_8B_SHAPES.items()}
+    assert plans == dict(wq=(16, 128, 8), wk=(16, 64, 16),
+                         w_gate=(16, 128, 2), w_down=(16, 128, 8),
+                         lm_head=(16, 128, 1))
+    for name, (k, n) in LLAMA3_8B_SHAPES.items():
+        assert _blocks(16, n, plans[name]) >= tint4.SMS, name
+
+
+@pytest.mark.parametrize("rows", [1, 16, 256])
+@pytest.mark.parametrize("name", sorted(LLAMA3_8B_SHAPES))
+def test_plan_fills_the_card_within_what_the_kernel_takes(name, rows):
+    """At every shape and row count the kernel meets: at least one block an
+    SM, a column tile that divides n, row tiles of 16 or 32, and at most
+    16 slices (the largest cluster), each the same number of groups."""
+    k, n = LLAMA3_8B_SHAPES[name]
+    groups = (k // 2) // 128
+    row_tile, col_tile, slices = tint4.plan(rows, n, groups)
+    assert row_tile == (16 if rows <= 16 else 32)
+    assert col_tile in tint4.COL_TILES and n % col_tile == 0
+    assert 1 <= slices <= min(tint4.MAX_SLICES, groups)
+    assert groups % slices == 0
+    assert _blocks(rows, n, (row_tile, col_tile, slices)) >= tint4.SMS
+
+
+@pytest.mark.parametrize("rows,n,groups", [
+    (1, 128, 1), (4, 256, 2), (100, 1792, 16), (256, 2176, 16),
+    (16, 512, 56), (33, 384, 3)])
+def test_plan_stays_within_what_the_kernel_takes(rows, n, groups):
+    """Small and odd shapes: slices never exceed the groups there are and
+    divide them, and the column tile divides n (every n the wrapper takes
+    is a multiple of 128)."""
+    row_tile, col_tile, slices = tint4.plan(rows, n, groups)
+    assert n % col_tile == 0 and col_tile in tint4.COL_TILES
+    assert 1 <= slices <= min(tint4.MAX_SLICES, groups)
+    assert groups % slices == 0
+    assert row_tile * -(-rows // row_tile) >= rows
 
 
 class _OnCard:

@@ -6,7 +6,8 @@ The reference takes block-diagonal queries [B, Hq, Hkv*D] and returns
 block-diagonal output lanes; the test builds the former and selects each
 head's own slice from the latter, as models/llama.py does around it. out
 and lse agree to 2e-5 (5e-5 on the int8 variant): the same f32 function,
-the reference's softmax online over pages and the port's in one pass."""
+the reference's softmax online over pages and the port's in one pass, or
+(the kernel's cut) in chunks of pages merged by log-sum-exp."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +72,49 @@ def test_plain_version_matches_pallas_interpret(quantized, tol):
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
     np.testing.assert_allclose(lse.numpy(), want_lse, atol=tol, rtol=tol)
     assert not got[0].any() and bool((lse[0] == -1e30).all())   # dead slot
+
+
+@pytest.mark.parametrize("chunk_pages", [1, 2, 3])
+@pytest.mark.parametrize("quantized,tol", [(False, 2e-5), (True, 5e-5)])
+def test_chunked_plain_version_matches_pallas_interpret(quantized, tol,
+                                                        chunk_pages):
+    """The kernel's cut of the page walk, in plain PyTorch: chunks of
+    `chunk_pages` table entries, each over its own live tokens, merged by
+    log-sum-exp in chunk order. LENS hold a dead slot (every chunk dead),
+    one token (every chunk but the first dead), a chunk that ends
+    mid-page and the full table; with 3 pages a chunk the last chunk is
+    one page."""
+    q, k, v, ks, vs, table, lens = _inputs(np.random.default_rng(7),
+                                           quantized)
+    want, want_lse = _reference(q, k, v, ks, vs, table, lens)
+    t = torch.from_numpy
+    scales = {} if ks is None else dict(k_scale_pool=t(ks),
+                                        v_scale_pool=t(vs))
+    got, lse = tpa.paged_decode_attention_chunked_ref(
+        t(q), t(k), t(v), t(table), t(lens), n_kv_heads=HKV, head_dim=D,
+        chunk_pages=chunk_pages, **scales)
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=tol, rtol=tol)
+    assert not got[0].any() and bool((lse[0] == -1e30).all())   # dead slot
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("B,Hkv,P", [
+    (8, 8, 12), (16, 8, 10), (16, 8, 12), (80, 8, 12), (1, 8, 12),
+    (3, 2, 1), (4, 1, 7), (2, 8, 200)])
+def test_chunk_plan_covers_the_table(B, Hkv, P):
+    """The chunk plan takes the shapes only (no lengths: those stay on the
+    device) and cuts the table's P pages into at most 8 chunks that cover
+    every page once; serving's B16 and the caption check's B8 reach a
+    block for each of the H100's 132 SMs, as B80 does with one chunk."""
+    chunks, per = tpa.chunk_plan(B, Hkv, P)
+    assert 1 <= chunks <= tpa.MAX_CHUNKS and chunks <= P
+    assert chunks * per >= P and (chunks - 1) * per < P
+    covered = [p for c in range(chunks) for p in range(c * per,
+                                                       min(P, (c + 1) * per))]
+    assert covered == list(range(P))
+    if B * Hkv * min(P, tpa.MAX_CHUNKS) >= tpa.SMS:
+        assert B * Hkv * chunks >= tpa.SMS
 
 
 def test_plain_version_is_attention_over_the_live_tokens():
