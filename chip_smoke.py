@@ -2,7 +2,8 @@
 """Smoke run of procyon_tpu_torch on one NVIDIA GPU (built for the H100).
 
     python3 chip_smoke.py [--profile]
-        [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged]
+        [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged,times,
+                swiglu,decode,serving]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -200,7 +201,7 @@ Bind batch.
 The build prints ptxas' registers and spills for each kernel function, and
 any note that it serialized a kernel's wgmma products.
 Stdout ends with a line that names the earlier versions of kernel rows 1,
-2, 3, 4, 6, 8, 9, 10 and 13 with their times as PERF.md section 6
+2, 3, 4, 6, 7, 8, 9, 10, 13 and 14 with their times as PERF.md section 6
 records them (not
 measured here), a JSON line of per-kernel results, the main paths' lines
 (the ESM2 and training lines with the card's nvidia-smi line), the card's
@@ -212,8 +213,11 @@ phases ("flash": the flash forward's cases; "flash_bwd"; "flash_fit": the
 forward's time split into a cost an item and a cost a tile pair; "w8a8":
 the W8A8 prefill path and its quality gates; "mlp": the int8 MLP kernels,
 rows 4-6, then the ESM2-650M main path and its throughput; "int4": the
-int4 matmul's shapes; "paged": the paged decode attention's batches), and
-prints no result line.
+int4 matmul's shapes; "paged": the paged decode attention's batches;
+"times": rows 13, 10, 7 and 14 timed alone by the wrappers' calls, for
+pairing with an earlier commit; "swiglu": row 7's checks and times;
+"decode": row 14's checks and its probe; "serving"), and prints no result
+line.
 """
 
 import contextlib
@@ -276,6 +280,7 @@ SX_RTOL = 1e-6
 # neighbouring value, which moves the output by far less than DECODE_ATOL
 DECODE_SHAPE = dict(d=4096, I=14336, layers=32)
 DECODE_ROWS = (8, 16)
+DECODE_COLD = 4                    # distinct layers in turn: 704 MB
 DECODE_ATOL = 2e-3
 # probe_fused_decode: after 32 layers the kernel's chain against the int8
 # route's (bf16 scales, bf16 products), a share of the largest output
@@ -379,7 +384,7 @@ TRAIN_PARAM_STEPS = 0.25
 SWIGLU_SHAPES = ((4096, 4096, 11008), (4096, 4096, 14336))
 SWIGLU_STEPS = 16.0
 SWIGLU_OFF_ULP = 1e-2
-SWIGLU_ROW_TILE = 64       # rows of a block of the kernel's launches
+SWIGLU_ROW_TILE = 128      # rows of a tile of the up and down kernels
 # the W8A8 prefill path (bench_bind / bench_retrieval / bench_prefill at
 # the reference's defaults): a 2-layer copy on the card (bf16) against the
 # CPU (f32), both W8A8. bf16 rounding of an activation flips its int8 code
@@ -1667,7 +1672,8 @@ def phase_fused_decode(dev):
     """Kernel row 14 at Llama-3-8B width (d 4096, I 14336) at 8 and 16
     rows: against its plain version within DECODE_ATOL + one bf16 ulp,
     bitwise the same on a second launch; the plain version's time and each
-    of the two kernels' device time at 16 rows."""
+    of the two kernels' device time at 16 rows (the down launch overlaps
+    gate / up's end: its time counts from its early start)."""
     import torch
     from procyon_tpu_torch.ops import fused_decode as fd
     errs = {}
@@ -1692,10 +1698,12 @@ def phase_fused_decode(dev):
     split = device_ms_by_kernel(lambda: fd.fused_decode_mlp(*args),
                                 ["decode_gate_up_kernel",
                                  "decode_down_kernel"])
+    grid = fd.plan(DECODE_SHAPE["d"], DECODE_SHAPE["I"])
     print(f"fused decode mlp M{M}: plain {plain_ms:.4f} ms; device time "
           f"(weights re-read, 176 MB > L2) gate / up "
           f"{split['decode_gate_up_kernel']:.4f} ms, down "
-          f"{split['decode_down_kernel']:.4f} ms")
+          f"{split['decode_down_kernel']:.4f} ms; k slices (gate / up, "
+          f"down) {grid}")
     return dict(max_abs_err=max(errs.values()), plain_ms=plain_ms,
                 gate_up_ms=split["decode_gate_up_kernel"],
                 down_ms=split["decode_down_kernel"])
@@ -2646,9 +2654,59 @@ def phase_times(dev):
           "paged " + ", ".join(f"{k} {v:.4f} ms" for k, v in paged.items())
           + f"; paged host time a call at B{SERVING['slots']} "
           f"{paged_host:.1f} us")
+    mlps = mlp_times(dev)
     return dict(int4_ms=int4, int4_forward_ms=forward,
                 int4_host_us=int4_host, paged_ms=paged,
-                paged_host_us=paged_host)
+                paged_host_us=paged_host, **mlps)
+
+
+def mlp_times(dev):
+    """Rows 7 and 14 timed as phase_times times rows 13 and 10, through no
+    call but `fused_rms_swiglu_int8` and `fused_decode_mlp`: row 7 at both
+    SWIGLU_SHAPES on the weight layout its wrapper reads without a copy
+    (135 / 176 MB of weights, more than the L2 holds), row 14 at each of
+    DECODE_ROWS over DECODE_COLD distinct layers in turn; each with the
+    device time of every kernel a call runs."""
+    import torch
+    from procyon_tpu_torch.ops import fused_decode as fd
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    swiglu, decode = {}, {}
+    layout = swiglu_layout(fm)
+    for i, (M, d, H) in enumerate(SWIGLU_SHAPES):
+        args = swiglu_args(dev, M, d, H, SEED + 40 + i, layout)
+
+        def call(_=0):
+            return fm.fused_rms_swiglu_int8(*args)
+
+        swiglu[f"M{M} d{d} H{H}"] = dict(ms=ahead_ms(call, iters=10),
+                                         split=device_ms_all(call))
+        del args
+        torch.cuda.empty_cache()
+    for M in DECODE_ROWS:
+        layers = [decode_args(dev, M, SEED + 24 + M + i)
+                  for i in range(DECODE_COLD)]
+        x, nw = layers[0][:2]
+        turn = [0]
+
+        def call(i=None):
+            if i is None:
+                i = turn[0] = turn[0] + 1
+            return fd.fused_decode_mlp(x, nw, *layers[i % DECODE_COLD][2:])
+
+        decode[f"M{M}"] = dict(ms=ahead_ms(call, iters=32),
+                               split=device_ms_all(call, reps=8))
+        del layers
+        torch.cuda.empty_cache()
+    print(f"times, weights cold, host kept ahead ({swiglu_layout(fm)} "
+          "weights for row 7): fused_rms_swiglu_int8 "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (" + ", ".join(
+              f"{n} {t:.4f}" for n, t in v["split"].items()) + ")"
+              for k, v in swiglu.items())
+          + "; fused_decode_mlp "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (" + ", ".join(
+              f"{n} {t:.4f}" for n, t in v["split"].items()) + ")"
+              for k, v in decode.items()))
+    return dict(swiglu_ms=swiglu, decode_ms=decode)
 
 
 def phase_int4(dev):
@@ -3368,6 +3426,35 @@ def kernels_a_call(fn, reps=4, traces=3):
     check(False, f"the profiler saw no kernel in {traces} traces")
 
 
+def device_ms_all(fn, reps=5, traces=3):
+    """Device time a call of fn spends in each kernel it runs, by kernel
+    name (template arguments cut), from one torch.profiler trace of `reps`
+    calls: the split of a wrapper's launches without naming them, so that
+    it reads the kernels of any version of the wrapper. A trace with no
+    kernels in it is taken again, up to `traces` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("<")[0]
+                name = name.split("(")[0].strip()
+                found[name] = found.get(name, 0.0) \
+                    + e.self_device_time_total / 1e3 / reps
+        if found:
+            return found
+    check(False, f"the profiler saw no kernel in {traces} traces")
+
+
 def sdpa_bwd_ms(q, k, v, do, mask):
     """The backward of F.scaled_dot_product_attention (the library call,
     used nowhere in the port) on the same tensors: forward + backward less
@@ -3969,9 +4056,18 @@ def phase_train_cli(dev):
           "loaded as a model by checkpoint_io.load_model")
 
 
-def swiglu_args(dev, M, d, H, seed):
+def swiglu_layout(fm):
+    """The weight layout fused_rms_swiglu_int8 reads without a copy, as its
+    module says (SWIGLU_WEIGHT_LAYOUT): "out_in", [in, out] views of
+    [out, in] storage, or "in_out", contiguous [in, out]; a module that
+    does not say is the first version's, which reads "in_out"."""
+    return getattr(fm, "SWIGLU_WEIGHT_LAYOUT", "in_out")
+
+
+def swiglu_args(dev, M, d, H, seed, layout="out_in"):
     """bf16 x and norm weight, int8 gate / up / down quantized from seeded
-    N(0, 1/fan_in) weights, as a decoder layer hands them over."""
+    N(0, 1/fan_in) weights, as a decoder layer hands them over: [in, out]
+    codes, as views of [out, in] storage with layout "out_in"."""
     import torch
     from procyon_tpu_torch.ops import quant
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -3981,6 +4077,9 @@ def swiglu_args(dev, M, d, H, seed):
 
     ws = [quant.quantize(randn(*shape, scale=shape[0] ** -0.5))
           for shape in ((d, H), (d, H), (H, d))]
+    if layout == "out_in":
+        for w in ws:
+            w["q"] = w["q"].t().contiguous().t()
     return [randn(M, d).to(torch.bfloat16),
             (1 + randn(d, scale=0.1)).to(torch.bfloat16)] \
         + [t for w in ws for t in (w["q"], w["s"])]
@@ -4071,13 +4170,24 @@ def swiglu_case(dev, M, d, H, seed):
         check(n > SWIGLU_STEPS, f"fused_rms_swiglu_int8: the planted fault "
                                 f"({name}) passes the check ({n:.2f} steps)")
     del part, doubled, dropped, xq, aq
-    route = swiglu_route(args)
+    # the route on the layout the decoder keeps, contiguous [in, out]
+    route_args = [t.contiguous() for t in args]
+    route = swiglu_route(route_args)
     cos = mlp_cos(out, route, x)
     check(cos >= QUALITY_GATE_COS, f"fused_rms_swiglu_int8 H{H}: MLP cosine "
                                    f"{cos} to the W8A8 route")
-    ms, plain_ms = paired_ms(lambda: fm.fused_rms_swiglu_int8(*args),
+
+    def kernel():
+        return fm.fused_rms_swiglu_int8(*args)
+
+    ms, plain_ms = paired_ms(kernel,
                              lambda: fm.fused_rms_swiglu_int8_ref(*args))
-    route_ms = cuda_ms(lambda: swiglu_route(args))
+    route_ms = cuda_ms(lambda: swiglu_route(route_args))
+    split = device_ms_all(kernel)
+    # what the K-major layout saves: the same call on contiguous [in, out]
+    # weights, which the wrapper transposes at every call
+    copy_ms = cuda_ms(lambda: fm.fused_rms_swiglu_int8(*route_args))
+    del route_args
     ops = 6 * M * d * H
     n_bytes = nbytes(x, nw, gq, gs, uq, us, dq, ds, out)
     bound_ms, bound_by = bound(n_bytes, ops, PEAK_INT8)
@@ -4093,15 +4203,18 @@ def swiglu_case(dev, M, d, H, seed):
           f"{codes['aq_of']}, and {codes['aq_own']} (by at most "
           f"{codes['aq_own_max']}) against the plain stage on the kernel's "
           f"own row codes; MLP cosine to the W8A8 route {cos:.6f}"
-          f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
-          f"{plain_ms:.4f} ms, W8A8 route {route_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({ops / 1e12:.3f} T int8 ops, "
-          f"{n_bytes / 1e6:.1f} MB)")
+          f"; kernels {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s; device time: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; on contiguous [in, out] weights, transposed at each call, "
+          f"{copy_ms:.4f} ms), plain {plain_ms:.4f} ms, W8A8 route "
+          f"{route_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({ops / 1e12:.3f} T int8 ops, {n_bytes / 1e6:.1f} MB)")
     return dict(shape=f"M{M} d{d} H{H}", G=G, max_abs_err=err,
                 steps=steps, off_ulp=off, faults=faults, codes=codes,
                 cos_route=cos,
                 ms=ms, plain_ms=plain_ms, route_ms=route_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, device_ms=split,
+                in_out_ms=copy_ms)
 
 
 def phase_swiglu(dev):
@@ -4123,9 +4236,11 @@ def phase_swiglu(dev):
                 route_ms=main["route_ms"], cos_route=main["cos_route"],
                 steps=main["steps"], faults=main["faults"],
                 codes=main["codes"],
+                device_ms=main["device_ms"], in_out_ms=main["in_out_ms"],
                 h14336={k: other[k] for k in ("ms", "plain_ms", "route_ms",
                                               "bound_ms", "steps", "codes",
-                                              "cos_route")})
+                                              "cos_route", "device_ms",
+                                              "in_out_ms")})
 
 
 def w8a8_cpu_copy(params, cfg):
@@ -4236,7 +4351,8 @@ def phase_w8a8_small(dev):
 
 def swiglu_on_layers(cfg, params, batch):
     """The Bind prefill once more with llama._mlp wrapped: at each W8A8
-    layer row 7 runs on that layer's MLP input and weights, beside the
+    layer row 7 runs on that layer's MLP input and weights (as [in, out]
+    views of [out, in] copies, made outside the timed region), beside the
     route (CUDA events around each; the layer's int8 weights, 135 MB, are
     not in L2), and the route's output goes on, so the path stays the
     reference's. Returns (per-layer records, the yes-probabilities)."""
@@ -4252,11 +4368,14 @@ def swiglu_on_layers(cfg, params, batch):
             return orig(x, lp, c, mode)
         x2 = x.reshape(-1, x.shape[-1])
         w = [lp["mlp"][k] for k in ("w_gate", "w_up", "w_down")]
+        # the layout the kernels read without a copy, made before the
+        # events: a wiring of row 7 would keep the weights so
+        q = [v["q"].t().contiguous().t() for v in w]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        k = fm.fused_rms_swiglu_int8(x2, lp["mlp_norm"], w[0]["q"],
-                                     w[0]["s"], w[1]["q"], w[1]["s"],
-                                     w[2]["q"], w[2]["s"], eps=c.norm_eps)
+        k = fm.fused_rms_swiglu_int8(x2, lp["mlp_norm"], q[0], w[0]["s"],
+                                     q[1], w[1]["s"], q[2], w[2]["s"],
+                                     eps=c.norm_eps)
         ev[1].record()
         ev[2].record()
         r = orig(x, lp, c, mode)
@@ -4648,10 +4767,12 @@ def run_only(dev, names, profile):
     "w8a8" (phase_w8a8_prefill), "mlp" (rows 4, 5 and 6, then the ESM2-650M
     main path and its throughput, with --profile its W8A8 batch traced),
     "int4" (row 13's shapes and kernels a call), "paged" (row 10 at every
-    batch, bf16 and int8, and the dead-chunk case), "times" (rows 13 and
-    10 timed alone, see phase_times), "serving" (phase_serving on the
-    synthetic service, with --profile a decode round traced). Prints their
-    lines and no result line."""
+    batch, bf16 and int8, and the dead-chunk case), "times" (rows 13, 10,
+    7 and 14 timed alone, see phase_times), "swiglu" (row 7 at both
+    SWIGLU_SHAPES: checks, planted faults, times and each launch's device
+    time), "decode" (row 14 at 8 and 16 rows and the probe chains),
+    "serving" (phase_serving on the synthetic service, with --profile a
+    decode round traced). Prints their lines and no result line."""
     def mlp():
         rows = [phase_mlp(dev, m) for m in MLP_ROWS]
         prequant = phase_prequant_mlp(dev)
@@ -4672,6 +4793,8 @@ def run_only(dev, names, profile):
         "int4": lambda: phase_int4(dev),
         "paged": lambda: phase_paged(dev),
         "times": lambda: phase_times(dev),
+        "swiglu": lambda: phase_swiglu(dev),
+        "decode": lambda: [phase_fused_decode(dev), phase_probes(dev)[1]],
         "serving": lambda: phase_serving(dev, synthetic_service(dev),
                                          profile)[1],
     }
@@ -4819,7 +4942,10 @@ def main():
           "0.1014 ms at B80 Hq32 Hkv8 D128 P12 (int8 0.0918; SIMT f32, a "
           "block a slot and kv head), int4_matmul 0.0294 ms at w_gate k4096 "
           "n14336 16 rows and 4.732 ms a 16-row forward in 449 device "
-          "kernels (a k-split kernel and a reduce kernel a call)")
+          "kernels (a k-split kernel and a reduce kernel a call), "
+          "fused_rms_swiglu_int8 4.4386 ms at M4096 d4096 H11008 and "
+          "5.1191 at H14336 (mma.sync), fused_decode_mlp 0.1099 ms a layer "
+          "at M16 d4096 I14336 and 0.1029 at M8 (cp.async rings a warp)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
         "model": "esm2-650m W8A8 fused-QKV", "card": smi,

@@ -46,18 +46,19 @@
 //     the products drain once a step; then the groups' parts are summed in
 //     order and added to the accumulator, which waits in shared memory, a
 //     thread's own 64 values.
-// Both product kernels: s8 wgmma m64nNk32 (N 256 or 128) with both operands
-// K-major in shared memory, read through TMA in the 128-byte swizzle (the
-// weights as [out, in] copies, which the ESM2 serving layout keeps, the
-// codes as they lie), a ring of stages of 128 reduction bytes under full /
-// empty mbarriers fed by one producer warp; clusters of two blocks on
-// neighbouring row tiles, each block copying half of a stage's weight rows
-// and multicasting it to both; a persistent grid, a block an SM, walking
-// its tiles with the producer running ahead into the next tile while the
-// consumers work an epilogue. Rows beyond M and columns beyond d are
-// zero-filled by TMA and never stored, so M needs no padding. The hidden
-// codes go to device memory (2 x 168 MB a layer at ESM2-650M), which the
-// TPU kernel avoids.
+// Both product kernels (on the ring of int8_ring.cuh, which the RMSNorm +
+// W8A8 SwiGLU kernels share): s8 wgmma m64nNk32 (N 256 or 128) with both
+// operands K-major in shared memory, read through TMA in the 128-byte
+// swizzle (the weights as [out, in] copies, which the ESM2 serving layout
+// keeps, the codes as they lie), a ring of stages of 128 reduction bytes
+// under full / empty mbarriers fed by one producer warp; clusters of two
+// blocks on neighbouring row tiles, each block copying half of a stage's
+// weight rows and multicasting it to both; a persistent grid, a block an
+// SM, walking its tiles with the producer running ahead into the next tile
+// while the consumers work an epilogue. Rows beyond M and columns beyond d
+// are zero-filled by TMA and never stored, so M needs no padding. The
+// hidden codes go to device memory (2 x 168 MB a layer at ESM2-650M), which
+// the TPU kernel avoids.
 // What holds it back (PERF.md section 6): the up kernel's epilogue (an IEEE
 // tanh and division a hidden value, and the codes' stores) takes most of
 // its time and overlaps none of its products; the down kernel's N 128
@@ -72,161 +73,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "wgmma.cuh"
+#include "int8_ring.cuh"
 
 namespace {
 
+using namespace ring;
+
 constexpr int NW = 8;               // warps of a row-pass block
 constexpr int NT = NW * 32;
-constexpr int SMEM_LIMIT = 232448;
-constexpr int KC = 128;             // reduction bytes a ring stage
-constexpr int NC = 256;             // two consumer warpgroups
-constexpr int NTHREADS = NC + 32;   // and one producer warp
-constexpr int CL = 2;               // blocks a cluster
-constexpr int MAX_STAGES = 8;
 constexpr int SLAB = 64 * NC * 4;   // the down kernel's f32 accumulator
-
-// A product block's shape: two consumer warpgroups of 64 rows x BNW
-// columns, side by side (WN 2: 64 rows, 2 BNW columns) or stacked (WN 1:
-// 128 rows, BNW columns); the CL blocks of a cluster take neighbouring row
-// tiles of the same columns. A ring of stages, each the A rows then the B
-// rows of KC reduction bytes (B in CL parts, one a block, multicast to
-// all); EXTRA bytes after the ring, then the barriers.
-template <int BNW, int WN, int EXTRA>
-struct Ring {
-  static constexpr int BM = 128 / WN, BN = BNW * WN;
-  static constexpr int A_BYTES = BM * KC, B_BYTES = BN * KC;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int B_PART = BN / CL;   // B rows a block copies
-  static constexpr int S0 =
-      (SMEM_LIMIT - 1024 - EXTRA - 16 * MAX_STAGES) / STAGE;
-  static constexpr int S = S0 < MAX_STAGES ? S0 : MAX_STAGES;
-  static constexpr int EXTRA_OFF = S * STAGE;
-  static constexpr int BAR_OFF = EXTRA_OFF + EXTRA;
-  static constexpr int BYTES = 1024 + BAR_OFF + 16 * S;
-  static_assert(S >= 2 && BYTES <= SMEM_LIMIT, "ring");
-  static_assert(B_PART <= 256 && B_PART % 8 == 0, "a TMA box's rows");
-};
-
-// The tiles of a cluster: CL neighbouring row tiles of one column tile,
-// the cluster's tiles strided over the grid's clusters; block `rank` takes
-// row tile CL * (p / n_col) + rank of the cluster's tile p.
-struct Walk {
-  int n_col, n_tiles, cluster, n_clusters, rank;
-  template <class R>
-  __device__ static Walk make(int M, int n_col) {
-    const int n_row = (M + R::BM - 1) / R::BM;
-    return {n_col, (n_row + CL - 1) / CL * n_col,
-            static_cast<int>(blockIdx.x) / CL,
-            static_cast<int>(gridDim.x) / CL,
-            static_cast<int>(wg::cluster_rank())};
-  }
-  __device__ int row_tile(int p) const { return p / n_col * CL + rank; }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ int8_t quant(float v, float s) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f),
-                                   127.f));
-}
-
-// the producer (lane 0 of the last warp): for every tile, its A rows and
-// this block's part of its B rows, chunk by chunk, into the ring (the B
-// part into every block of the cluster). A stage is refilled once the
-// consumer warps of all CL blocks released it: the part this block
-// multicasts lands in all of them.
-template <class R>
-__device__ void produce(const CUtensorMap* ma, const CUtensorMap* mb,
-                        unsigned char* smem, uint64_t* full, uint64_t* empty,
-                        const Walk& wk, int nk) {
-  int it = 0;
-  for (int p = wk.cluster; p < wk.n_tiles; p += wk.n_clusters) {
-    const int m0 = wk.row_tile(p) * R::BM;
-    const int nb = p % wk.n_col * R::BN + wk.rank * R::B_PART;
-    for (int kc = 0; kc < nk; ++kc, ++it) {
-      const int s = it % R::S;
-      if (it >= R::S)
-        wg::mbar_wait(wg::smem_u32(empty + s), ((it / R::S) & 1) ^ 1);
-      const uint32_t bar = wg::smem_u32(full + s);
-      const uint32_t dst = wg::smem_u32(smem + s * R::STAGE);
-      // the whole stage: own A rows, and every block's B part
-      wg::arrive_expect_tx(bar, R::STAGE);
-      wg::tma_2d(dst, ma, kc * KC, m0, bar);
-      wg::tma_2d_multicast(dst + R::A_BYTES + wk.rank * R::B_PART * KC, mb,
-                           kc * KC, nb, bar, (1u << CL) - 1);
-    }
-  }
-}
-
-// one chunk of a warpgroup's products: its 64 A rows (wm) against its BNW B
-// rows (wn), four k-steps of 32 bytes, into acc (afresh when `fresh`). The
-// previous chunk's products complete here, and with `release` its stage is
-// released in every block of the cluster (else it was released where its
-// sums were read).
-template <class R, int BNW>
-__device__ __forceinline__ void mma_chunk(uint32_t (&acc)[BNW / 2],
-                                          unsigned char* smem,
-                                          const uint64_t* full,
-                                          const uint64_t* empty, int it,
-                                          bool fresh, bool release, int wm,
-                                          int wn, int lane) {
-  const int s = it % R::S;
-  wg::mbar_wait(wg::smem_u32(full + s), (it / R::S) & 1);
-  const uint32_t a = wg::smem_u32(smem + s * R::STAGE) + wm * 64 * KC;
-  const uint32_t b =
-      wg::smem_u32(smem + s * R::STAGE + R::A_BYTES) + wn * BNW * KC;
-  wg::fence();
-#pragma unroll
-  for (int kk = 0; kk < KC / 32; ++kk)
-    wg::ss_s8<BNW>(acc, wg::kmajor_s8(a, kk), wg::kmajor_s8(b, kk),
-                   !fresh || kk > 0);
-  wg::commit();
-  wg::wait_one();
-  const uint32_t bar = wg::smem_u32(empty + (it + R::S - 1) % R::S);
-#pragma unroll
-  for (int r = 0; r < CL; ++r)
-    wg::arrive_cluster_if(bar, r, lane == 0 && release);
-}
-
-// every product issued so far complete (the sums in acc may be read); the
-// last chunk's stage released
-template <class R, int N>
-__device__ __forceinline__ void drain(uint32_t (&acc)[N],
-                                      const uint64_t* empty, int it,
-                                      int lane) {
-  wg::wait_all();
-  wg::hold(acc);
-  const uint32_t bar = wg::smem_u32(empty + (it - 1) % R::S);
-#pragma unroll
-  for (int r = 0; r < CL; ++r) wg::arrive_cluster_if(bar, r, lane == 0);
-}
-
-// the barriers, ready in every block of the cluster before any copy or
-// arrival can reach them
-template <class R>
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < R::S; ++i) {
-      wg::mbar_init(wg::smem_u32(full + i), 1);
-      wg::mbar_init(wg::smem_u32(empty + i), CL * NC / 32);
-    }
-    wg::mbar_fence_init();
-  }
-  wg::cluster_sync();
-}
 
 // The up kernel: gq = codes(GELU(xq W1 * (sx s1) + b1)) and sg, for one
 // group of G = BNW * WN columns a tile. xq int8 [M, d] and w1t int8 [H, d]
@@ -245,11 +100,14 @@ mlp_up_kernel(const __grid_constant__ CUtensorMap mx,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::BAR_OFF);
   uint64_t* empty = full + R::S;
   const int nk = (d + KC - 1) / KC, n_col = H / R::BN;
-  const Walk wk = Walk::make<R>(M, n_col);
+  const Walk wk = Walk::make<R>(M, n_col, 1);
   init_ring<R>(full, empty);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == NC / 32) {
-    if (lane == 0) produce<R>(&mx, &mw, smem, full, empty, wk, nk);
+    if (lane == 0)
+      produce<R>(&mx, smem, full, empty, wk, nk, 1, [&](int p, int) {
+        return BPart{&mw, wk.col(p) * R::BN + wk.rank * R::B_PART};
+      });
   } else {
     const int w = warp >> 2, wm = WN == 1 ? w : 0, wn = WN == 1 ? 0 : w;
     const int g = lane >> 2, t = lane & 3;
@@ -262,7 +120,7 @@ mlp_up_kernel(const __grid_constant__ CUtensorMap mx,
     int it = 0, parity = 0;
     for (int p = wk.cluster; p < wk.n_tiles;
          p += wk.n_clusters, parity ^= 1) {
-      const int m0 = wk.row_tile(p) * R::BM, grp = p % n_col;
+      const int m0 = wk.row_tile(p) * R::BM, grp = wk.col(p);
       for (int kc = 0; kc < nk; ++kc, ++it)
         mma_chunk<R, BNW>(acc, smem, full, empty, it, kc == 0, kc > 0, wm,
                           wn, lane);
@@ -359,11 +217,14 @@ mlp_down_kernel(const __grid_constant__ CUtensorMap mg,
   uint64_t* empty = full + R::S;
   const int nk = H / KC, n_groups = H / (CPG * KC);
   const int n_col = (d + R::BN - 1) / R::BN;
-  const Walk wk = Walk::make<R>(M, n_col);
+  const Walk wk = Walk::make<R>(M, n_col, 1);
   init_ring<R>(full, empty);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp == NC / 32) {
-    if (lane == 0) produce<R>(&mg, &mw, smem, full, empty, wk, nk);
+    if (lane == 0)
+      produce<R>(&mg, smem, full, empty, wk, nk, 1, [&](int p, int) {
+        return BPart{&mw, wk.col(p) * R::BN + wk.rank * R::B_PART};
+      });
   } else {
     const int w = warp >> 2, ct = threadIdx.x;
     const int g = lane >> 2, t = lane & 3;
@@ -379,7 +240,7 @@ mlp_down_kernel(const __grid_constant__ CUtensorMap mg,
     for (int p = wk.cluster; p < wk.n_tiles; p += wk.n_clusters) {
       const long long r0 = static_cast<long long>(wk.row_tile(p)) * R::BM +
                            rl;
-      const int c0 = p % n_col * R::BN + 2 * t;
+      const int c0 = wk.col(p) * R::BN + 2 * t;
       for (int grp = 0; grp < n_groups; grp += SPG) {
 #pragma unroll
         for (int q = 0; q < SPG; ++q)
@@ -444,50 +305,6 @@ mlp_down_kernel(const __grid_constant__ CUtensorMap mg,
     }
   }
   wg::cluster_sync();
-}
-
-// an int8 [rows, inner] row-major matrix read in boxes of [box_rows, KC],
-// in the 128-byte swizzle, zero-filled outside
-bool make_map(CUtensorMap* map, const void* base, int inner, long long rows,
-              int box_rows) {
-  return wg::tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, inner,
-                           rows, inner, KC, box_rows,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// a persistent grid of CL-block clusters: as many as the card holds at
-// once, or one a cluster tile
-template <class K, class... Args>
-int launch_clusters(K kernel, int bytes, int n_tiles, cudaStream_t st,
-                    Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CL;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(NTHREADS);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cfg.gridDim = dim3(sms / CL * CL);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cfg.gridDim = dim3(CL * (n_tiles < clusters ? n_tiles : clusters));
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BNW, int WN>

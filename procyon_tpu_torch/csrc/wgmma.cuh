@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels
 // (rowblock_attention.cu, flash_attention_fwd.cu, flash_attention_bwd.cu,
-// fused_ln_mlp_int8.cu, int4_matmul.cu, paged_attention.cu): the
+// fused_ln_mlp_int8.cu and fused_rms_swiglu_int8.cu through int8_ring.cuh,
+// int4_matmul.cu, paged_attention.cu, fused_decode_mlp.cu): the
 // shared-memory tile layout wgmma and ldmatrix read, its matrix
 // descriptors, the warpgroup products with A in registers (RS) or in
 // shared memory (SS, bf16 and s8), cp.async and TMA tile copies, the
@@ -194,7 +195,7 @@ __device__ __forceinline__ void ss128(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// s8 products (fused_ln_mlp_int8.cu): d[m64 x N] (+)= A[m64 x k32] .
+// s8 products (int8_ring.cuh): d[m64 x N] (+)= A[m64 x k32] .
 // B[k32 x N], both K-major descriptors over 128-byte rows, s32
 // accumulators, N / 2 a thread laid out as the f32 ones above
 #define WG_R8(d, i)                                                     \

@@ -23,8 +23,11 @@ other device raises.
     pass counts in `launches_ln_quant`).
   * `fused_rms_swiglu_int8` (`fused_rms_swiglu_int8_ref`): the Llama W8A8
     MLP with its residual, `x + W8A8-SwiGLU(rms_norm(x))`, for the prefill;
-    its requantization group comes from `swiglu_group`.
-    `launches_swiglu` counts calls that launched its three kernels.
+    its requantization group comes from `swiglu_group`. On a CUDA tensor
+    the row pass, then the s8 wgmma gate / up and down kernels, which read
+    the weights K-major: [in, out] views of [out, in] storage without a
+    copy (`SWIGLU_WEIGHT_LAYOUT`). `launches_swiglu` counts calls that
+    launched its three kernels.
 
 Numerics (both versions, as the TPU kernel): LayerNorm in f32, per-row int8
 quantization of its output, s8 x s8 -> s32 with W1, `h1 = acc*(sx*s1)+b1`,
@@ -47,6 +50,10 @@ launches = 0
 launches_ln_quant = 0
 launches_prequant = 0
 launches_swiglu = 0
+# the weight layout `fused_rms_swiglu_int8` reads without a copy: [in, out]
+# views of [out, in] storage ("out_in", what bridge.int8_k_major leaves as
+# it is); a contiguous [in, out] weight is transposed at every call
+SWIGLU_WEIGHT_LAYOUT = "out_in"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -475,13 +482,18 @@ def _launch_swiglu(x, nw, wgq, sg, wuq, su, wdq, sd, eps, block_n,
     M, d = x.shape
     H = wgq.shape[1]
     for w, shape in ((wgq, (d, H)), (wuq, (d, H)), (wdq, (H, d))):
-        if w.dtype != torch.int8 or tuple(w.shape) != shape \
-                or not w.is_contiguous() or w.data_ptr() % 16:
-            raise ValueError(f"contiguous, aligned int8 weights [d, H] / "
-                             f"[H, d] expected, got {w.dtype} "
-                             f"{tuple(w.shape)} against {shape}")
+        if w.dtype != torch.int8 or tuple(w.shape) != shape:
+            raise ValueError(f"int8 weights [d, H] / [H, d] expected, got "
+                             f"{w.dtype} {tuple(w.shape)} against {shape}")
         if w.device != x.device:
             raise ValueError("weights and x on different devices")
+    # K-major, as s8 wgmma reads B: no copy for [in, out] views of
+    # [out, in] storage (SWIGLU_WEIGHT_LAYOUT), a transposed copy else
+    wgt, wut, wdt = (bridge.int8_k_major(w) for w in (wgq, wuq, wdq))
+    if any(w.data_ptr() % 16 for w in (wgt, wut, wdt)):
+        raise ValueError("the RMSNorm + W8A8 SwiGLU kernels read the "
+                         "weights through TMA: 16-byte aligned storage "
+                         "needed")
     block_n, sub_tiles = _swiglu_tiles(d, H, block_n, sub_tiles)
     G = block_n // sub_tiles
     if d % 128 or H % 128 or G % 128 or G > 512:
@@ -498,8 +510,8 @@ def _launch_swiglu(x, nw, wgq, sg, wuq, su, wdq, sd, eps, block_n,
     out = torch.empty_like(x)
     lib = _build.load("fused_rms_swiglu_int8", _SWIGLU_SIG)
     err = lib.fused_rms_swiglu_int8_bf16(
-        x.data_ptr(), nwf.data_ptr(), wgq.data_ptr(), sgf.data_ptr(),
-        wuq.data_ptr(), suf.data_ptr(), wdq.data_ptr(), sdf.data_ptr(),
+        x.data_ptr(), nwf.data_ptr(), wgt.data_ptr(), sgf.data_ptr(),
+        wut.data_ptr(), suf.data_ptr(), wdt.data_ptr(), sdf.data_ptr(),
         xq.data_ptr(), sx.data_ptr(), aq.data_ptr(), sa.data_ptr(),
         out.data_ptr(), M, d, H, G, sub_tiles, eps,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -513,8 +525,13 @@ def fused_rms_swiglu_int8(x, nw, wgq, sg, wuq, su, wdq, sd, *,
                           sub_tiles: int = 2) -> torch.Tensor:
     """x [M, d] -> x + W8A8-SwiGLU(rms_norm(x)), the reference's signature
     (without its TPU block_m): block_n and sub_tiles only set the
-    requantization group (`swiglu_group`). The CUDA kernels (three launches)
-    for CUDA tensors, the plain version for CPU tensors."""
+    requantization group (`swiglu_group`). The CUDA kernels (three launches:
+    the row pass, the s8 wgmma gate / up and down products) for CUDA
+    tensors, the plain version for CPU tensors. The int8 weights are
+    [in, out]; the kernels read them K-major, so [in, out] views of
+    [out, in] storage (`w.t().contiguous().t()`, SWIGLU_WEIGHT_LAYOUT) go
+    in without a copy, and contiguous [in, out] weights are transposed at
+    every call. Either layout gives the same bits."""
     _build.refuse_grad("RMSNorm + W8A8 SwiGLU", x, nw, sg, su, sd)
     if x.is_cuda:
         return _launch_swiglu(x, nw, wgq, sg, wuq, su, wdq, sd, eps,

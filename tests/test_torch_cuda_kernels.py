@@ -19,9 +19,11 @@ dim, a row whose leading key tiles are padding, twice for the same bits;
 the page move on bf16, int8 and f32 rows, direct and staged (swaps,
 cycles, chains: the only test of the staged move's order); the LN + row
 quantization and the two-pass MLP at ESM2-3B's widths and every group
-they take; the fused decode MLP at 1 to 16 rows; the RMSNorm + W8A8
-SwiGLU MLP at every group it takes (128 to 512 columns), ragged rows and
-d 4096; the paged decode attention at
+they take; the fused decode MLP at every row count from 1 to 16; the
+RMSNorm + W8A8 SwiGLU MLP at every group it takes (128 to 512 columns),
+ragged rows, d 4096, the Bind prefill's shape, three and four groups a
+block_n step, on K-major views and on contiguous weights (the same
+bits); the paged decode attention at
 other head dims, groups and page sizes, bf16 and int8 pools, serving's 16
 slots and 8 with whole chunks of the page walk dead, against the plain
 version and its chunked cut, twice for the same bits; the int4 matmul at
@@ -310,6 +312,19 @@ def _decode_args(dev, M, d, I, seed):
     return x, nw, leaf(d, I), leaf(d, I), leaf(I, d)
 
 
+@pytest.mark.parametrize("M", range(1, 17))
+def test_fused_decode_mlp_every_row_count(cuda, M):
+    """Every row count the kernels take, at d 256, I 1024: within 2e-3 +
+    one bf16 ulp of the plain version and bitwise the same twice."""
+    args = _decode_args(cuda, M, 256, 1024, 100 + M)
+    out = fd.fused_decode_mlp(*args)
+    ref = fd.fused_decode_mlp_ref(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    assert (err <= 2e-3 + 2.0 ** -7 * ref.float().abs()).all()
+    assert torch.equal(out, fd.fused_decode_mlp(*args))
+
+
 @pytest.mark.parametrize("M", [1, 5, 8, 16])
 @pytest.mark.parametrize("d,I", [(128, 512), (4096, 14336)])
 def test_fused_decode_mlp_matches_plain(cuda, M, d, I):
@@ -340,7 +355,10 @@ def test_fused_decode_mlp_refuses_what_it_cannot_take(cuda):
         fd.fused_decode_mlp(x[:4].requires_grad_(), nw, wg, wu, wd)
 
 
-def _swiglu_args(dev, M, d, H, seed):
+def _swiglu_args(dev, M, d, H, seed, k_major=True):
+    """x, the norm weight and the int8 [in, out] weights with their scales;
+    with k_major the weights are views of [out, in] storage, the layout
+    the kernels read without a copy (fm.SWIGLU_WEIGHT_LAYOUT)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -348,9 +366,27 @@ def _swiglu_args(dev, M, d, H, seed):
 
     ws = [quant.quantize(randn(*shape, scale=shape[0] ** -0.5))
           for shape in ((d, H), (d, H), (H, d))]
+    if k_major:
+        for w in ws:
+            w["q"] = w["q"].t().contiguous().t()
     return [randn(M, d).to(torch.bfloat16),
             (1 + randn(d, scale=0.1)).to(torch.bfloat16)] \
         + [t for w in ws for t in (w["q"], w["s"])]
+
+
+def _swiglu_within_steps(out, ref, args, G, block_n):
+    """The error beyond one bf16 ulp of the plain value at most 16
+    hidden-code steps (a row's largest group scale times the largest |down
+    weight| of the column), at most 1% of the elements more than one ulp
+    off: chip_smoke.py's check of row 7."""
+    xq, sx = fm.rms_quant_rows_ref(args[0], args[1])
+    _, sa = fm.swiglu_codes_ref(xq, sx, *args[2:6], G)
+    step = sa.amax(1, keepdim=True) * (
+        args[6].abs().amax(0, keepdim=True).float() * args[7].float())
+    err = (out.float() - ref.float()).abs()
+    ulp = 2.0 ** -7 * ref.float().abs()
+    return ((err - ulp).clamp_min(0) / step).max().item() <= 16.0 \
+        and (err > ulp).float().mean().item() <= 1e-2
 
 
 @pytest.mark.parametrize("M,d,H,block_n,G", [
@@ -372,17 +408,34 @@ def test_fused_rms_swiglu_matches_plain(cuda, M, d, H, block_n, G):
     out = fm.fused_rms_swiglu_int8(*args, block_n=block_n)
     assert fm.launches_swiglu == before + 1
     ref = fm.fused_rms_swiglu_int8_ref(*args, block_n=block_n)
-    xq, sx = fm.rms_quant_rows_ref(args[0], args[1])
-    _, sa = fm.swiglu_codes_ref(xq, sx, *args[2:6], G)
     torch.cuda.synchronize()
-    step = sa.amax(1, keepdim=True) * (
-        args[6].abs().amax(0, keepdim=True).float() * args[7].float())
-    err = (out.float() - ref.float()).abs()
-    ulp = 2.0 ** -7 * ref.float().abs()
-    assert ((err - ulp).clamp_min(0) / step).max().item() <= 16.0
-    assert (err > ulp).float().mean().item() <= 1e-2
+    assert _swiglu_within_steps(out, ref, args, G, block_n)
     assert torch.equal(out, fm.fused_rms_swiglu_int8(*args,
                                                      block_n=block_n))
+
+
+@pytest.mark.parametrize("M,d,H,block_n,sub_tiles,G", [
+    (4096, 4096, 11008, 512, 2, 128),   # the Bind prefill
+    (328, 4096, 1024, 512, 2, 128),     # 2 x 128 + 72 rows
+    (72, 512, 1024, 512, 4, 128),       # four groups a block_n step
+    (200, 384, 768, 384, 3, 128),       # three, an odd number
+])
+def test_fused_rms_swiglu_weight_layouts_and_steps(cuda, M, d, H, block_n,
+                                                   sub_tiles, G):
+    """Row 7 on K-major views and on contiguous [in, out] weights (which
+    the wrapper transposes): the same bits; within the check of the plain
+    version at ragged row counts and with more than two groups a block_n
+    step (the down kernel's running total in shared memory)."""
+    kw = dict(block_n=block_n, sub_tiles=sub_tiles)
+    assert fm.swiglu_group(d, H, block_n, sub_tiles) == G
+    args = _swiglu_args(cuda, M, d, H, M + d, k_major=True)
+    flat = [t.contiguous() for t in args]
+    assert not args[2].is_contiguous() and flat[2].is_contiguous()
+    out = fm.fused_rms_swiglu_int8(*args, **kw)
+    assert torch.equal(out, fm.fused_rms_swiglu_int8(*flat, **kw))
+    ref = fm.fused_rms_swiglu_int8_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert _swiglu_within_steps(out, ref, args, G, block_n)
 
 
 def test_fused_rms_swiglu_refuses_what_it_cannot_take(cuda):

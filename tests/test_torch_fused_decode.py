@@ -11,9 +11,11 @@ same f32 function; only the order of the f32 sums over d and over I
 differs (the reference adds its I blocks in turn, the plain version sums
 in one product).
 
-Also: the wrapper takes the plain version for CPU tensors and launches
-nothing; other devices raise; the port's probe script runs its three
-routes on the CPU.
+Also: the kernels' grid plan (k slices of each launch) fills the card at
+Llama-3-8B's and the Bind decoder's widths and stays within what the
+kernels take at small widths; the wrapper takes the plain version for CPU
+tensors and launches nothing; other devices raise; the port's probe
+script runs its three routes on the CPU.
 """
 
 import functools
@@ -80,6 +82,42 @@ def test_plain_version_matches_pallas_interpret(jprobe, M):
     # the MLP's own part is of the order of x: the check sees it
     assert np.abs(want - args[0]).max() > 0.1 * scale
     np.testing.assert_allclose(got, want, rtol=0, atol=RTOL_OF_MAX * scale)
+
+
+def _plan_blocks(d, I):
+    gu, dn = tfd.plan(d, I)
+    return (I // tfd.COL_TILE) * gu, (d // tfd.COL_TILE) * dn
+
+
+@pytest.mark.parametrize("d,I", [(4096, 14336), (8192, 28672)])
+def test_plan_fills_the_card_within_what_the_kernel_takes(d, I):
+    """At Llama-3-8B's MLP (and Llama-3-70B's), both launches give every
+    SM a block and stay within two blocks an SM (what the kernels' shared
+    memory allows at once), with slices that divide the k range into whole
+    ring stages, at most 16 (the largest cluster)."""
+    for blocks, slices, k in zip(_plan_blocks(d, I), tfd.plan(d, I),
+                                 (d, I)):
+        assert tfd._build.SMS <= blocks <= tfd.BLOCKS_PER_SM * tfd._build.SMS
+        assert 1 <= slices <= tfd.MAX_SLICES
+        assert (k // tfd.STAGE_ROWS) % slices == 0
+
+
+@pytest.mark.parametrize("d,I", [(128, 512), (256, 1024), (128, 256),
+                                 (384, 768), (1024, 2816), (4096, 11008)])
+def test_plan_stays_within_what_the_kernel_takes(d, I):
+    """Small shapes (the card tests' d 128 / I 512 and d 256 / I 1024) and
+    the Bind decoder's (its down launch: 32 column tiles, 172 stages, whose
+    divisors up to 16 are 1, 2 and 4): where the column tiles times the
+    even slices cannot fill 132 SMs, the plan takes the most even slices
+    there are, and never slices that do not divide the stages."""
+    for blocks, slices, k, n in zip(_plan_blocks(d, I), tfd.plan(d, I),
+                                    (d, I), (I, d)):
+        stages = k // tfd.STAGE_ROWS
+        assert 1 <= slices <= min(tfd.MAX_SLICES, stages)
+        assert stages % slices == 0
+        if blocks < tfd._build.SMS:
+            assert slices == max(s for s in range(1, tfd.MAX_SLICES + 1)
+                                 if stages % s == 0)
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():

@@ -16,6 +16,9 @@ numpy inputs and the same int8 leaves (procyon_tpu.ops.quant.quantize):
     exact f32 MLP on dequantized weights, the bound of
     tests/test_quant_kernels.py::TestFusedRmsSwiglu;
   * the group rule at the path's shapes and the reference test's;
+  * the same bits for contiguous [in, out] weights and for [in, out]
+    views of [out, in] storage (what the CUDA kernels read without a
+    copy);
   * the wrapper on other devices and on inputs that require grad.
 """
 
@@ -115,6 +118,23 @@ def test_no_worse_than_the_w8a8_route():
 ])
 def test_group_rule(d, H, block_n, G):
     assert tfm.swiglu_group(d, H, block_n) == G
+
+
+@pytest.mark.parametrize("M,d,H,block_n", [(64, 256, 512, 256),
+                                             (40, 128, 384, 512)])
+def test_weight_layouts_give_the_same_bits(M, d, H, block_n):
+    """The [in, out] weights as contiguous tensors and as views of
+    [out, in] storage (the layout the CUDA kernels read without a copy,
+    SWIGLU_WEIGHT_LAYOUT): the same bits through the wrapper."""
+    args = [torch.from_numpy(a) for a in _inputs(M, d, H, 7)]
+    views = [t.t().contiguous().t() if t.dtype == torch.int8 else t
+             for t in args]
+    assert tfm.SWIGLU_WEIGHT_LAYOUT == "out_in"
+    assert not views[2].is_contiguous() and views[2].t().is_contiguous()
+    assert torch.equal(views[2], args[2])
+    want = tfm.fused_rms_swiglu_int8(*args, block_n=block_n)
+    got = tfm.fused_rms_swiglu_int8(*views, block_n=block_n)
+    assert torch.equal(got, want)
 
 
 def test_wrapper_refuses_other_devices_and_grad():
