@@ -128,13 +128,17 @@ source, all started together), then:
  17. runs `python -m procyon_tpu_torch.scripts.run_pretrain --synthetic true
      --max_steps 20` in its own process on the card and restores the
      checkpoint it wrote;
- 18. holds the staged page move (gather into a scratch buffer, then
-     scatter) against its plain version, exactly, at the caption pool's
-     shape with 2,560 moves whose sources overlap their destinations (a
-     swap, a 3-cycle, a chain, 64 destinations permuted, repeated
-     sources), for bf16, int8 and f32 slabs; the same plan through the
-     direct move must differ; index_select + index_copy_ beside it;
- 19. holds the LN + row quantization (codes, scales) and the two-pass int8
+ 18. holds the staged page move (one launch: its plan on the device, the
+     rows that are a source and a destination copied aside, then the
+     moves grouped by source) against its plain version, exactly, twice
+     for the same bits, at the caption pool's shape with 2,560 moves whose
+     sources overlap their destinations (a swap, a 3-cycle, a chain, 64
+     destinations permuted, repeated sources), for bf16, int8 and f32
+     slabs; the same plan through the direct move must differ;
+     index_select + index_copy_ beside it; the direct and staged moves'
+     rates as shares of the card's copy rate (a 1 GiB Tensor.copy_);
+ 19. holds the LN + row quantization (codes, scales, twice for the same
+     bits, its share of the copy rate) and the two-pass int8
      MLP (with and without the residual, twice for the same bits, its
      hidden codes against the plain stage, the W8A8 route beside it)
      against their plain versions at ESM2-3B's MLP on a B64 x L512 batch,
@@ -201,8 +205,8 @@ Bind batch.
 The build prints ptxas' registers and spills for each kernel function, and
 any note that it serialized a kernel's wgmma products.
 Stdout ends with a line that names the earlier versions of kernel rows 1,
-2, 3, 4, 6, 7, 8, 9, 10, 13 and 14 with their times as PERF.md section 6
-records them (not
+2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13 and 14 with their times as PERF.md
+section 6 records them (not
 measured here), a JSON line of per-kernel results, the main paths' lines
 (the ESM2 and training lines with the card's nvidia-smi line), the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`. Any failed check
@@ -214,14 +218,15 @@ forward's time split into a cost an item and a cost a tile pair; "w8a8":
 the W8A8 prefill path and its quality gates; "mlp": the int8 MLP kernels,
 rows 4-6, then the ESM2-650M main path and its throughput; "int4": the
 int4 matmul's shapes; "paged": the paged decode attention's batches;
-"times": rows 13, 10, 7 and 14 timed alone by the wrappers' calls, for
-pairing with an earlier commit; "swiglu": row 7's checks and times;
-"decode": row 14's checks and its probe; "serving"), and prints no result
-line.
+"times": rows 5, 11, 12, 13, 10, 7 and 14 timed alone by the wrappers'
+calls, with the card's copy rate, for pairing with an earlier commit;
+"swiglu": row 7's checks and times; "decode": row 14's checks and its
+probe; "serving"), and prints no result line.
 """
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1381,6 +1386,42 @@ def phase_retrieve(dev, profile):
     return launches, qps1, qps16, service
 
 
+def direct_moves(dev, N, M, g):
+    """One beam step's M moves over N rows: distinct destinations, sources
+    that repeat (children of one parent) and never are destinations."""
+    import torch
+    perm = torch.randperm(N, generator=g, device=dev)
+    dst = perm[:M].to(torch.int32)
+    src = perm[M:][torch.randint(0, M // 4, (M,), generator=g,
+                                 device=dev)].to(torch.int32)
+    return src, dst
+
+
+@functools.cache
+def copy_rate(dev):
+    """(ms, TB/s) of one `Tensor.copy_` of a 1 GiB buffer, counting the
+    bytes read and written: the card's copy rate, measured once a run."""
+    import torch
+    a = torch.empty(2 ** 30, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    ms = cuda_ms(lambda: b.copy_(a), iters=20, warmup=3)
+    tbs = 2 * 2 ** 30 / ms / 1e9
+    del a, b
+    torch.cuda.empty_cache()
+    print(f"Tensor.copy_ of 1 GiB: {ms:.4f} ms, {tbs:.3f} TB/s counting "
+          f"read and write bytes ({tbs * 1e12 / PEAK_BYTES:.1%} of "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+    return ms, tbs
+
+
+def rate_shares(n_bytes, ms, dev):
+    """A byte-bound kernel's rate as shares of the card's copy rate and of
+    the published memory rate."""
+    tbs = n_bytes / ms / 1e9
+    return dict(tb_s=tbs, copy_share=tbs / copy_rate(dev)[1],
+                peak_share=tbs * 1e12 / PEAK_BYTES)
+
+
 def phase_page_move(dev):
     """The page move at the caption path's shape: the session's bf16 pool
     (32 layers x 881 pages of [64, 1024]), one beam step's 2,560 moves with
@@ -1393,10 +1434,7 @@ def phase_page_move(dev):
                                                     "KD"))
     N, M = L * n_pages, PAGE_MOVES
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
-    perm = torch.randperm(N, generator=g, device=dev)
-    dst = perm[:M].to(torch.int32)
-    src = perm[M:][torch.randint(0, M // 4, (M,), generator=g,
-                                 device=dev)].to(torch.int32)
+    src, dst = direct_moves(dev, N, M, g)
     check(src.unique().numel() < M, "page move: sources do not repeat")
     result = None
     for dtype, tail in ((torch.bfloat16, (page, KD)), (torch.int8, (page, KD)),
@@ -1437,7 +1475,8 @@ def phase_page_move(dev):
                 replaces="procyon_tpu/ops/page_move.py:83",
                 shape=f"pool [{N}, {page}, {KD}] bf16, {M} moves",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms,
+                **rate_shares(n_bytes, ms, dev))
         del pool, got
         torch.cuda.empty_cache()
     return result
@@ -1466,9 +1505,10 @@ def phase_staged_move(dev):
     the session's bf16 pool (32 layers x 881 pages of [64, 1024]), 2,560
     moves whose sources overlap their destinations (staged_moves), then an
     int8 pool and an f32 scale slab [.., 64, 8]. Its path: the three moves,
-    counted; each equal to the plain version, exactly. Interpret mode on
-    the CPU cannot tell a kernel that writes before every source is read,
-    so this is the check of that order."""
+    counted; each equal to the plain version, exactly, and two launches on
+    copies of the pool the same bits. Interpret mode on the CPU cannot
+    tell a kernel that writes before every source is read, so this is the
+    check of that order."""
     import torch
     from procyon_tpu_torch.ops import page_move as pm
     L, n_pages, page, KD = (POOL_SHAPE[k] for k in ("L", "n_pages", "page",
@@ -1492,12 +1532,17 @@ def phase_staged_move(dev):
     path_launches = pm.launches_staged
     check(path_launches == len(slabs), f"staged move: {path_launches} "
           f"launches on its path, not {len(slabs)}")
+    n_staged = pm.staging_plan(src, dst, N)[0].numel()
     result = None
     for dtype, pool in slabs.items():
         start = starts.pop(dtype)
         want = pm.move_pages_ref(start.clone(), src, dst)
         check(torch.equal(pool, want),
               f"staged page move ({dtype}): differs from the plain version")
+        again = pm.move_pages(start.clone(), src, dst)
+        check(torch.equal(again, pool), f"staged page move ({dtype}): two "
+                                        "launches on the same pool differ")
+        del again
         # the same plan through the direct kernel, which copies without
         # staging: the check above would have seen that order
         pm.move_pages_direct(start, src, dst)
@@ -1514,21 +1559,26 @@ def phase_staged_move(dev):
         n_bytes = (n_src + M) * row_bytes + nbytes(src, dst)
         bound_ms, bound_by = bound(n_bytes, 0, PEAK_BF16)
         name = str(dtype).split(".")[1]
+        shares = rate_shares(n_bytes, ms, dev)
         print(f"staged page move {name} pool {list(pool.shape)}, {M} moves "
               f"of {row_bytes} bytes, {n_src} distinct sources, swap, "
-              f"3-cycle, chain and 64 destinations permuted: equal to the "
-              f"plain version (the in-place copy is not); kernel {ms:.4f} "
-              f"ms (gather + scatter), plain {plain_ms:.4f} ms, "
-              f"index_select + index_copy_ {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB)")
+              f"3-cycle, chain and 64 destinations permuted ({n_staged} rows "
+              f"staged): equal to the plain version (the in-place copy is "
+              f"not), two launches the same bits; kernel {ms:.4f} ms (one "
+              f"launch), plain {plain_ms:.4f} ms, index_select + "
+              f"index_copy_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({n_bytes / 1e6:.1f} MB; {shares['copy_share']:.1%}"
+              f" of the copy rate, {shares['peak_share']:.1%} of "
+              f"{PEAK_BYTES / 1e12:.2f} TB/s)")
         if result is None:
             result = dict(
                 name="page_move_staged", route="cuda",
                 source="procyon_tpu_torch/csrc/page_move.cu",
                 replaces="procyon_tpu/ops/page_move.py:46",
                 shape=f"pool [{N}, {page}, {KD}] bf16, {M} overlapping "
-                      "moves", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                      f"moves, {n_staged} rows staged", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, **shares)
     del slabs, pool
     torch.cuda.empty_cache()
     result["path_launches"] = path_launches
@@ -1559,7 +1609,8 @@ def phase_prequant_mlp(dev):
     """Kernel rows 5 and 6 at ESM2-3B's MLP (d 2560, H 10240) on a B64 x
     L512 batch (32768 rows): the LN + row quantization against its plain
     version (codes equal but at rounding ties, at most CODE_FLIPS of them
-    and each by one step; scales within SX_RTOL), the two-pass MLP with
+    and each by one step; scales within SX_RTOL; two launches the same
+    bits) and its share of the card's copy rate, the two-pass MLP with
     and without the residual within the one-pass kernel's tolerance, two
     launches bitwise equal, its hidden codes against the plain stage, and
     its time beside the port's W8A8 route for the same layer."""
@@ -1571,7 +1622,11 @@ def phase_prequant_mlp(dev):
     d, H = x.shape[1], args[3].shape[1]
     xq, sx = fm.ln_quant_rows(x, lnw, lnb)
     rq, rs = fm.ln_quant_rows_ref(x, lnw, lnb)
+    again = fm.ln_quant_rows(x, lnw, lnb)
     torch.cuda.synchronize()
+    check(torch.equal(again[0], xq) and torch.equal(again[1], sx),
+          "ln_quant_rows: two launches on the same inputs differ")
+    del again
     diff = (xq.int() - rq.int()).abs()
     flips = (diff > 0).float().mean().item()
     sx_err = ((sx - rs).abs() / rs).max().item()
@@ -1582,17 +1637,22 @@ def phase_prequant_mlp(dev):
                              lambda: fm.ln_quant_rows_ref(x, lnw, lnb))
     n_bytes = nbytes(x, lnw, lnb, xq, sx)
     bound_ms, bound_by = bound(n_bytes, 0, PEAK_INT8)
+    shares = rate_shares(n_bytes, ms, dev)
     print(f"LN + row quantization M{M} d{d}: {flips:.2e} of the codes "
           f"differ by one (tol {CODE_FLIPS}), scales within {sx_err:.2e} "
-          f"(tol {SX_RTOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB); "
-          "no single PyTorch call computes it")
+          f"(tol {SX_RTOL}), two launches the same bits; kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({n_bytes / 1e6:.1f} MB; {shares['copy_share']:.1%} "
+          f"of the copy rate, {shares['peak_share']:.1%} of "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s); no single PyTorch call computes "
+          "it")
     rows = dict(name="ln_quant_rows", route="cuda",
                 source="procyon_tpu_torch/csrc/fused_ln_mlp_int8.cu",
                 replaces="procyon_tpu/ops/fused_mlp.py:203",
                 shape=f"M{M} d{d}", max_abs_err=float(diff.max().item()),
                 code_flips=flips, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                **shares)
     del rq, rs, diff
     errs = []
     for residual in (False, True):
@@ -2606,14 +2666,66 @@ def int4_host_us(dev, g):
     return host_us
 
 
-def phase_times(dev):
-    """Rows 13 and 10 by the yardsticks phase_int4 and phase_paged_attention
-    time them with (weights and pools cold, the host kept ahead), and the
-    wrappers' host time a call, through no call but `qmatvec4` and
-    `paged_decode_attention_fullpage`, which the first versions had as
-    well: this script, copied into a checkout of an earlier commit and run
-    there with --only=times, times that commit's kernels the same way."""
+def row_and_move_times(dev):
+    """Rows 5, 11 and 12 timed as phase_prequant_mlp and phase_staged_move
+    time them, inputs cold (three copies of x in turn: 168 MB each at
+    d 2560; the moves' 420 MB over a 3.44 GiB pool) and the host kept
+    ahead, through no call but `ln_quant_rows`, `move_pages` and
+    `move_pages_direct`, which the first versions had as well; each beside
+    its bytes' share of the card's copy rate and of the published memory
+    rate. Row 5 at ESM2-3B's d 2560 and at row 4's d 1280 (ESM2-650M),
+    32768 rows; row 11 at path g's plan (staged_moves), row 12 at one beam
+    step's (direct_moves), both on the caption pool in bf16."""
     import torch
+    from procyon_tpu_torch.ops import fused_mlp as fm
+    from procyon_tpu_torch.ops import page_move as pm
+    out = {}
+    M = ESM3B_MLP["M"]
+    for d in (ESM3B_MLP["d"], MLP_SHAPE["d"]):
+        g = torch.Generator(device=dev).manual_seed(SEED + 50 + d)
+        xs = [torch.randn((M, d), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(3)]
+        lnw = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+        lnb = 0.1 * torch.randn(d, generator=g, device=dev)
+        ms = ahead_ms(lambda i: fm.ln_quant_rows(xs[i % 3], lnw, lnb))
+        out[f"ln_quant_rows M{M} d{d}"] = dict(
+            ms=ms, **rate_shares(3 * M * d + 4 * (M + 2 * d), ms, dev))
+        del xs
+    L, n_pages, page, KD = (POOL_SHAPE[k] for k in ("L", "n_pages", "page",
+                                                    "KD"))
+    N, M = L * n_pages, PAGE_MOVES
+    pool = torch.zeros((N, page, KD), dtype=torch.bfloat16, device=dev)
+    row_bytes = page * KD * 2
+    for name, plan, fn in (
+            ("move_pages (row 11, path g)", staged_moves, pm.move_pages),
+            ("move_pages_direct (row 12, a beam step)", direct_moves,
+             pm.move_pages_direct)):
+        src, dst = plan(dev, N, M, torch.Generator(device=dev).manual_seed(
+            SEED + 22 if fn is pm.move_pages else SEED + 8))
+        n_bytes = (src.unique().numel() + M) * row_bytes + nbytes(src, dst)
+        ms = ahead_ms(lambda i: fn(pool, src, dst))
+        out[name] = dict(ms=ms, **rate_shares(n_bytes, ms, dev))
+    del pool
+    torch.cuda.empty_cache()
+    print("times, inputs cold, host kept ahead: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms ({v['copy_share']:.1%} of the copy rate, "
+        f"{v['peak_share']:.1%} of {PEAK_BYTES / 1e12:.2f} TB/s)"
+        for k, v in out.items()))
+    return out
+
+
+def phase_times(dev):
+    """Rows 5, 11 and 12 (row_and_move_times), rows 13 and 10 by the
+    yardsticks phase_int4 and phase_paged_attention time them with
+    (weights and pools cold, the host kept ahead), the wrappers' host time
+    a call, and rows 7 and 14 (mlp_times), through no call but
+    `ln_quant_rows`, `move_pages`, `move_pages_direct`, `qmatvec4`,
+    `paged_decode_attention_fullpage`, `fused_rms_swiglu_int8` and
+    `fused_decode_mlp`, which the first versions had as well: this
+    script, copied into a checkout of an earlier commit and run there
+    with --only=times, times that commit's kernels the same way."""
+    import torch
+    rows_moves = row_and_move_times(dev)
     from procyon_tpu_torch.ops import int4_matmul as im
     from procyon_tpu_torch.ops import paged_attention as pa
     from procyon_tpu_torch.ops import quant
@@ -2655,9 +2767,9 @@ def phase_times(dev):
           + f"; paged host time a call at B{SERVING['slots']} "
           f"{paged_host:.1f} us")
     mlps = mlp_times(dev)
-    return dict(int4_ms=int4, int4_forward_ms=forward,
-                int4_host_us=int4_host, paged_ms=paged,
-                paged_host_us=paged_host, **mlps)
+    return dict(rows_moves_ms=rows_moves, int4_ms=int4,
+                int4_forward_ms=forward, int4_host_us=int4_host,
+                paged_ms=paged, paged_host_us=paged_host, **mlps)
 
 
 def mlp_times(dev):
@@ -4767,8 +4879,8 @@ def run_only(dev, names, profile):
     "w8a8" (phase_w8a8_prefill), "mlp" (rows 4, 5 and 6, then the ESM2-650M
     main path and its throughput, with --profile its W8A8 batch traced),
     "int4" (row 13's shapes and kernels a call), "paged" (row 10 at every
-    batch, bf16 and int8, and the dead-chunk case), "times" (rows 13, 10,
-    7 and 14 timed alone, see phase_times), "swiglu" (row 7 at both
+    batch, bf16 and int8, and the dead-chunk case), "times" (rows 5, 11,
+    12, 13, 10, 7 and 14 timed alone, see phase_times), "swiglu" (row 7 at both
     SWIGLU_SHAPES: checks, planted faults, times and each launch's device
     time), "decode" (row 14 at 8 and 16 rows and the probe chains),
     "serving" (phase_serving on the synthetic service, with --profile a
@@ -4945,7 +5057,12 @@ def main():
           "kernels (a k-split kernel and a reduce kernel a call), "
           "fused_rms_swiglu_int8 4.4386 ms at M4096 d4096 H11008 and "
           "5.1191 at H14336 (mma.sync), fused_decode_mlp 0.1099 ms a layer "
-          "at M16 d4096 I14336 and 0.1029 at M8 (cp.async rings a warp)")
+          "at M16 d4096 I14336 and 0.1029 at M8 (cp.async rings a warp), "
+          "ln_quant_rows 0.1683 ms at M32768 d2560 and 0.0950 at d1280 (a "
+          "warp a row, a one-shot grid, an IEEE division a code), "
+          "page_move_staged 0.4018 ms at 2,560 overlapping moves of 128 KiB "
+          "(a gather of every source into a scratch of all the moves' rows, "
+          "then a scatter)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": {
         "model": "esm2-650m W8A8 fused-QKV", "card": smi,

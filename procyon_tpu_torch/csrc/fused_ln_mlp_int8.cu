@@ -34,7 +34,8 @@
 // The design. A wgmma tile of 64 rows cannot keep the one-pass kernel's
 // [rows, d] f32 accumulator (327 KB at d 1280) in a block's shared memory
 // or registers, so the MLP is three launches on one stream, no atomics:
-//   row pass (ln_quant_rows_kernel): a warp a row, xq int8 [M, d] and sx;
+//   row pass (ln_quant_rows_kernel): a warp a row, rows streamed through
+//     a ring in shared memory ahead of it, xq int8 [M, d] and sx;
 //   up (mlp_up_kernel): gq int8 [M, H] and sg f32 [M, H / G]. A block owns
 //     one requantization group of G columns for 64 or 128 rows: two
 //     consumer warpgroups of 64 rows x 256 columns side by side at G 512
@@ -79,8 +80,6 @@ namespace {
 
 using namespace ring;
 
-constexpr int NW = 8;               // warps of a row-pass block
-constexpr int NT = NW * 32;
 constexpr int SLAB = 64 * NC * 4;   // the down kernel's f32 accumulator
 
 // The up kernel: gq = codes(GELU(xq W1 * (sx s1) + b1)) and sg, for one
@@ -373,103 +372,266 @@ int mlp_on_codes(const void* xq, const void* sx, const void* w1t,
   return launch_down<1, 1>(g8, sgf, w2, s2f, b2f, xr, o, M, d, H, st);
 }
 
-// h = (x - mean) * rstd * w + b for the 8 values of one 16-byte vector,
-// rounded as the reference's separate operations are
-__device__ __forceinline__ void ln_affine(const uint4& xv,
-                                          const float* __restrict__ w,
-                                          const float* __restrict__ b,
-                                          float mean, float rstd,
-                                          float (&h)[8]) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&xv);
-  const float4 w0 = __ldg(reinterpret_cast<const float4*>(w));
-  const float4 w1 = __ldg(reinterpret_cast<const float4*>(w) + 1);
-  const float4 b0 = __ldg(reinterpret_cast<const float4*>(b));
-  const float4 b1 = __ldg(reinterpret_cast<const float4*>(b) + 1);
-  const float ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-  const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+// The row pass (ln_quant_rows_kernel): LayerNorm and per-row int8 codes,
+// xq int8 [M, d] and sx f32 [M]. What bounds it on the H100: bytes (2 d
+// read and d written a row: 0.075 ms at M 32768, d 2560), with arithmetic
+// of about the same length beside them. Its first version (a warp a row,
+// h computed twice, an IEEE division a code, a one-shot grid) ran at 45% of
+// that bound. This design overlaps the bytes with the arithmetic and cuts
+// the arithmetic (PERF.md section 6 has the variants measured):
+//   * a block of T threads owns a row at a time: thread t holds the row's
+//     16-byte column vectors t, t + T, ... (V <= 5 of them; T the fewest
+//     warps that hold the row so), with the LayerNorm weight and bias of
+//     those columns in registers for the whole grid walk. A warp a row
+//     would need them again for every row (8 bytes an element through the
+//     L1, which took more time than the rows' own bytes), and more rows a
+//     block spread the statistics' fixed cost over fewer values;
+//   * a persistent grid; each block walks rows strided over the grid, a
+//     ring of 3 rows in shared memory ahead of it, one bulk copy
+//     (cp.async.bulk) a row completing on the slot's mbarrier; a slot is
+//     refilled as soon as every thread holds its values, so the next rows'
+//     bytes arrive while the block works;
+//   * the values are read from shared memory once, into f32 registers,
+//     centred in place and turned into h once; each statistic meets in one
+//     block reduction (a warp's butterfly, then the warps in order);
+//   * a code is rint(h r), r = 1 / s rounded, from one fma with 1.5 2^23
+//     and one fma for its distance from the tie; where some h r of a
+//     vector lies within 2^-14 of a rounding tie (or is no number), the
+//     vector's codes are recomputed with the IEEE division, so every code
+//     is clip(rint(h / s)) bit for bit (h r lies under 2^-16 from h / s,
+//     and the division's rounding adds under 2^-17);
+//   * a thread's 8 codes of a vector go out as one 8-byte store, a warp's
+//     store 256 contiguous bytes.
+// The statistics use the first version's operations (f32 sums, __fdiv_rn,
+// __frsqrt_rn, __fmul_rn / __fadd_rn without FMA contraction) in another
+// order of summation.
+constexpr int ROW_SLOTS = 3;
+constexpr int ROW_MAX_V = 5;
+constexpr int ROW_MAX_T = 256;
+constexpr int ROW_BAR_OFF = 3 * 8 * 4;    // after [3][8 warps] f32 partials
+constexpr int ROW_RING_OFF = 128;         // after the slots' mbarriers
+constexpr float TIE_GAP = 1.0f / 16384.0f;
+static_assert(ROW_BAR_OFF + 8 * ROW_SLOTS <= ROW_RING_OFF, "row pass smem");
+
+// `bytes` (a multiple of 16) at src into this block's shared memory at dst,
+// completing on the mbarrier at bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the 8 bf16 of a 16-byte vector as f32
+__device__ __forceinline__ void unpack8(const uint4& v, float (&e)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float cx = __fsub_rn(__bfloat162float(e[k]), mean);
-    h[k] = __fadd_rn(__fmul_rn(__fmul_rn(cx, rstd), ws[k]), bs[k]);
+  for (int j = 0; j < 4; ++j) {
+    e[2 * j] = __uint_as_float(w[j] << 16);
+    e[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
   }
 }
 
-// LayerNorm + per-row int8 quantization, one warp a row, the row held in
-// registers: VPL 16-byte vectors (8 bf16) a lane, d <= 256 * VPL.
-template <int VPL>
-__global__ void __launch_bounds__(NT)
+// the 8 codes rint(h r) of a vector, packed in 8 bytes: fma(h, r, 1.5 2^23)
+// holds rint(h r) in its low bits, fma(h, r, -rint(h r)) is h r's distance
+// from it; `near` is set where that distance is within 2^-14 of a tie (or
+// no number)
+__device__ __forceinline__ uint2 codes_by_reciprocal(const float (&h)[8],
+                                                     float r, bool& near) {
+  constexpr float MAGIC = 12582912.0f;
+  uint32_t t[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float m = __fmaf_rn(h[k], r, MAGIC);
+    const float f = __fmaf_rn(h[k], r, -__fsub_rn(m, MAGIC));
+    near |= !(fabsf(f) <= 0.5f - TIE_GAP);
+    t[k] = __float_as_uint(m);
+  }
+  return make_uint2(
+      __byte_perm(__byte_perm(t[0], t[1], 0x0040),
+                  __byte_perm(t[2], t[3], 0x0040), 0x5410),
+      __byte_perm(__byte_perm(t[4], t[5], 0x0040),
+                  __byte_perm(t[6], t[7], 0x0040), 0x5410));
+}
+
+// the 8 codes clip(rint(h / s)) of a vector by the IEEE division
+__device__ __forceinline__ uint2 codes_by_division(const float (&h)[8],
+                                                   float s) {
+  uint32_t t[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t[k] = static_cast<uint8_t>(quant(h[k], s));
+  return make_uint2(t[0] | t[1] << 8 | t[2] << 16 | t[3] << 24,
+                    t[4] | t[5] << 8 | t[6] << 16 | t[7] << 24);
+}
+
+// the 8 lanes of a thread's partial sums, pairwise in a fixed order
+__device__ __forceinline__ float sum8(const float (&a)[8]) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), __fadd_rn(a[2], a[3])),
+                   __fadd_rn(__fadd_rn(a[4], a[5]), __fadd_rn(a[6], a[7])));
+}
+
+// p over the block: the warp's butterfly, then the warps in order through
+// red (this reduction's 8 partials in shared memory)
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float p, float* red,
+                                              int warps) {
+  p = MAX ? warp_max(p) : warp_sum(p);
+  if (warps == 1) return p;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = p;
+  __syncthreads();
+  p = red[0];
+  for (int w = 1; w < warps; ++w)
+    p = MAX ? fmaxf(p, red[w]) : __fadd_rn(p, red[w]);
+  return p;
+}
+
+// V 16-byte column vectors a thread (blockDim.x = T threads, a multiple of
+// 32, T V >= d / 8).
+template <int V>
+__global__ void __launch_bounds__(ROW_MAX_T)
 ln_quant_rows_kernel(const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ lnw,
                      const float* __restrict__ lnb, int8_t* __restrict__ xq,
                      float* __restrict__ sx, int M, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * NW + (threadIdx.x >> 5);
-  if (row >= M) return;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);
+  const uint32_t bar0 = wg::smem_u32(smem + ROW_BAR_OFF);
+  const unsigned char* ring = smem + ROW_RING_OFF;
+  const uint32_t ring0 = wg::smem_u32(ring);
+  const int T = blockDim.x, warps = T >> 5, tid = threadIdx.x;
   const int vecs = d / 8;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
-  uint4 v[VPL];
-  float sum = 0.f;
+  const uint32_t row_bytes = 2u * d;
+  // the LayerNorm affine of this thread's columns
+  float w[V][8], b[V][8];
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
+  for (int j = 0; j < V; ++j) {
+    const int c = tid + T * j;
     if (c < vecs) {
-      v[i] = __ldg(xr + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) sum += __bfloat162float(e[k]);
-    }
-  }
-  const float mean = __fdiv_rn(warp_sum(sum), (float)d);
-  float vs = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    if (lane + 32 * i < vecs) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
+      const float4* wv = reinterpret_cast<const float4*>(lnw) + 2 * c;
+      const float4* bv = reinterpret_cast<const float4*>(lnb) + 2 * c;
+      const float4 w0 = __ldg(wv), w1 = __ldg(wv + 1);
+      const float4 b0 = __ldg(bv), b1 = __ldg(bv + 1);
+      const float ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const float cx = __fsub_rn(__bfloat162float(e[k]), mean);
-        vs = __fadd_rn(vs, __fmul_rn(cx, cx));
+        w[j][k] = ws[k];
+        b[j][k] = bs[k];
       }
     }
   }
-  const float rstd =
-      __frsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(vs), (float)d), eps));
-  // h is computed twice (for the row's amax, then for its codes) rather
-  // than kept: the same operations give the same bits
-  float amax = 0.f;
+  // row `row` into slot s (none past the last row)
+  auto fetch = [&](int s, long long row) {
+    if (row < M) {
+      wg::arrive_expect_tx(bar0 + 8 * s, row_bytes);
+      bulk_copy(ring0 + s * row_bytes, x + row * d, row_bytes, bar0 + 8 * s);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < ROW_SLOTS; ++s) wg::mbar_init(bar0 + 8 * s, 1);
+    wg::mbar_fence_init();
+    for (int s = 0; s < ROW_SLOTS; ++s)
+      fetch(s, blockIdx.x + static_cast<long long>(s) * gridDim.x);
+  }
+  __syncthreads();
+  int s = 0;
+  uint32_t parity = 0;
+  for (long long row = blockIdx.x; row < M; row += gridDim.x) {
+    wg::mbar_wait(bar0 + 8 * s, parity);
+    const uint4* xs = reinterpret_cast<const uint4*>(ring + s * row_bytes);
+    // a thread's sums run in 8 independent lanes (k), so that no chain of
+    // dependent adds holds the row up
+    float v[V][8], p[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < vecs) {
-      float h[8];
-      ln_affine(v[i], lnw + c * 8, lnb + c * 8, mean, rstd, h);
+    for (int j = 0; j < V; ++j) {
+      const int c = tid + T * j;
+      if (c < vecs) {
+        unpack8(xs[c], v[j]);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(h[k]));
+        for (int k = 0; k < 8; ++k) p[k] = __fadd_rn(p[k], v[j][k]);
+      }
+    }
+    __syncthreads();                    // every thread holds its values
+    if (tid == 0)
+      fetch(s, row + static_cast<long long>(ROW_SLOTS) * gridDim.x);
+    const float mean = __fdiv_rn(block_reduce<false>(sum8(p), red, warps),
+                                 (float)d);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) p[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (tid + T * j < vecs) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float cx = __fsub_rn(v[j][k], mean);
+          v[j][k] = cx;
+          p[k] = __fadd_rn(p[k], __fmul_rn(cx, cx));
+        }
+      }
+    }
+    const float rstd = __frsqrt_rn(__fadd_rn(
+        __fdiv_rn(block_reduce<false>(sum8(p), red + 8, warps), (float)d),
+        eps));
+#pragma unroll
+    for (int k = 0; k < 8; ++k) p[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (tid + T * j < vecs) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float h = __fadd_rn(
+              __fmul_rn(__fmul_rn(v[j][k], rstd), w[j][k]), b[j][k]);
+          v[j][k] = h;
+          p[k] = fmaxf(p[k], fabsf(h));
+        }
+      }
+    }
+    const float amax = fmaxf(fmaxf(fmaxf(p[0], p[1]), fmaxf(p[2], p[3])),
+                             fmaxf(fmaxf(p[4], p[5]), fmaxf(p[6], p[7])));
+    const float sc = __fmul_rn(
+        fmaxf(block_reduce<true>(amax, red + 16, warps), 1e-8f),
+        1.0f / 127.0f);
+    const float rc = __frcp_rn(sc);
+    int8_t* out = xq + row * d;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = tid + T * j;
+      if (c < vecs) {
+        bool near = false;
+        uint2 codes = codes_by_reciprocal(v[j], rc, near);
+        if (near) codes = codes_by_division(v[j], sc);
+        *reinterpret_cast<uint2*>(out + 8 * c) = codes;
+      }
+    }
+    if (tid == 0) sx[row] = sc;
+    if (++s == ROW_SLOTS) {
+      s = 0;
+      parity ^= 1u;
     }
   }
-  const float s = __fmul_rn(fmaxf(warp_max(amax), 1e-8f), 1.0f / 127.0f);
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < vecs) {
-      float h[8];
-      ln_affine(v[i], lnw + c * 8, lnb + c * 8, mean, rstd, h);
-      uint32_t codes[2] = {0u, 0u};
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        codes[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                             quant(h[k], s))) << (8 * (k & 3));
-      *reinterpret_cast<uint2*>(xq + row * d + c * 8) =
-          make_uint2(codes[0], codes[1]);
-    }
-  }
-  if (lane == 0) sx[row] = s;
 }
 
-template <int VPL>
+template <int V>
 int launch_ln_quant(const void* x, const void* lnw, const void* lnb, void* xq,
-                    void* sx, int M, int d, float eps, cudaStream_t stream) {
-  ln_quant_rows_kernel<VPL><<<(M + NW - 1) / NW, NT, 0, stream>>>(
+                    void* sx, int M, int d, int T, cudaStream_t stream,
+                    float eps) {
+  auto kernel = ln_quant_rows_kernel<V>;
+  const int bytes = ROW_RING_OFF + ROW_SLOTS * 2 * d;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T,
+                                                        bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = M < per_sm * sms ? M : per_sm * sms;
+  kernel<<<grid, T, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(lnw),
       static_cast<const float*>(lnb), static_cast<int8_t*>(xq),
       static_cast<float*>(sx), M, d, eps);
@@ -478,21 +640,28 @@ int launch_ln_quant(const void* x, const void* lnw, const void* lnb, void* xq,
 
 }  // namespace
 
-// x bf16 [M, d] -> xq int8 [M, d], sx f32 [M]; lnw, lnb f32 [d]. Needs
-// d % 8 == 0, d <= 6144, 16-byte aligned rows. The row's registers are the
-// fewest that hold it (ESM2: d 1280 -> 8 vectors a lane, 2560 -> 12):
-// more registers a thread would leave fewer warps to hide the loads.
+// x bf16 [M, d] -> xq int8 [M, d], sx f32 [M]; lnw, lnb f32 [d] (16-byte
+// aligned). Needs d % 8 == 0, d <= 6144, 16-byte aligned rows. A block is
+// the fewest warps whose threads hold the row at ROW_MAX_V vectors or fewer
+// each (ESM2: d 1280 -> 32 threads x 5 vectors, 2560 -> 64 x 5; d 6144 ->
+// 160 x 5).
 extern "C" int ln_quant_rows_bf16(const void* x, const void* lnw,
                                   const void* lnb, void* xq, void* sx, int M,
                                   int d, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0) return 0;
-  if (d % 8 || d > 256 * 24) return static_cast<int>(cudaErrorInvalidValue);
-  if (d <= 256 * 4) return launch_ln_quant<4>(x, lnw, lnb, xq, sx, M, d, eps, st);
-  if (d <= 256 * 8) return launch_ln_quant<8>(x, lnw, lnb, xq, sx, M, d, eps, st);
-  if (d <= 256 * 12) return launch_ln_quant<12>(x, lnw, lnb, xq, sx, M, d, eps, st);
-  if (d <= 256 * 16) return launch_ln_quant<16>(x, lnw, lnb, xq, sx, M, d, eps, st);
-  return launch_ln_quant<24>(x, lnw, lnb, xq, sx, M, d, eps, st);
+  if (d <= 0 || d % 8 || d > 6144)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vecs = d / 8;
+  const int T = (vecs + 32 * ROW_MAX_V - 1) / (32 * ROW_MAX_V) * 32;
+  switch ((vecs + T - 1) / T) {
+    case 1: return launch_ln_quant<1>(x, lnw, lnb, xq, sx, M, d, T, st, eps);
+    case 2: return launch_ln_quant<2>(x, lnw, lnb, xq, sx, M, d, T, st, eps);
+    case 3: return launch_ln_quant<3>(x, lnw, lnb, xq, sx, M, d, T, st, eps);
+    case 4: return launch_ln_quant<4>(x, lnw, lnb, xq, sx, M, d, T, st, eps);
+    default:
+      return launch_ln_quant<5>(x, lnw, lnb, xq, sx, M, d, T, st, eps);
+  }
 }
 
 // The one-pass form: the row pass, the up and the down kernel. x bf16

@@ -24,11 +24,16 @@ The staged move, `pool[dst[i]] = old pool[src[i]]` for any move list
   * `move_pages_ref`: the plain version (`index_select` copies every
     source before `index_copy_` writes a destination). It checks that
     destinations are distinct and rows in range, nothing else.
-  * `move_pages`: the wrapper. On a CUDA tensor it launches the same
-    kernel twice on one stream: a gather of the sources into a scratch
-    buffer, then a scatter of that buffer onto the destinations (the
-    Pallas kernel's part; the reference's staging is an XLA gather).
-    `launches_staged` counts staged moves (one a gather + scatter pair).
+  * `staging_plan`: the plan the kernel builds on the device, stated in
+    plain code: the rows that are a source and a destination (some move
+    overwrites them before another reads them) are copied aside first,
+    and each move reads its source's staged copy or, for every other
+    source, the pool, which no move writes there.
+  * `move_pages`: the wrapper. On a CUDA tensor it launches the kernel in
+    csrc/page_move.cu once: the plan, then the staged rows copied into a
+    scratch of `STAGE_BYTES` (in column slabs where they do not fit it),
+    then one pass of moves, each distinct source read once for all
+    its destinations. `launches_staged` counts staged moves.
 
 All update `pool_arr` in place and return it.
 """
@@ -42,10 +47,15 @@ from procyon_tpu_torch.ops import _build
 launches = 0
 launches_staged = 0
 
-_ROW_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
-_SIG = {"page_move_direct": _ROW_ARGS, "page_move_gather": _ROW_ARGS,
-        "page_move_scatter": _ROW_ARGS}
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIG = {"page_move_direct": [_P] * 3 + [_LL, _I, _P],
+        "page_move_staged": [_P] * 3 + [_LL, _I, _I, _P, _P, _LL, _P]}
+# the staged move's scratch: the staged rows where they fit, else column
+# slabs of them (the host does not know their number without a read of the
+# device); never less than 128 bytes a move or more than every move's row
+STAGE_BYTES = 16 << 20
+# the kernel's plan: a head of 4 int32, then [2 rows + 4 moves]
+_PLAN_HEAD = 4
 
 
 def _check_indices(pool_arr, src, dst):
@@ -143,24 +153,44 @@ def move_pages_direct(pool_arr, src, dst):
     return move_pages_direct_ref(pool_arr, src, dst)
 
 
+def staging_plan(src, dst, n_rows):
+    """The staged move's plan for src / dst [M] (distinct destinations) over
+    n_rows rows: (staged, slot). `staged` [K] holds the rows that are a
+    source and a destination, each once, in increasing order: they are
+    copied aside before any destination is written. `slot` [M] says where
+    move i reads: its source's index in `staged`, or -1 for the pool (a row
+    no move writes). The kernel builds the same sets on the device
+    (mark[dst[i]] = i; a source is staged where mark[src] >= 0), numbering
+    its slots in its own order."""
+    src, dst = src.long(), dst.long()
+    mark = torch.full((n_rows,), -1, dtype=torch.long, device=src.device)
+    mark[dst] = torch.arange(dst.numel(), device=src.device)
+    overwritten = mark[src] >= 0
+    staged = torch.unique(src[overwritten])
+    slot = torch.full_like(src, -1)
+    slot[overwritten] = torch.searchsorted(staged, src[overwritten])
+    return staged, slot
+
+
 def _launch_staged(pool_arr, src, dst):
     global launches_staged
     row_bytes = _row_bytes(pool_arr, src, dst)
     if row_bytes is None:
         return pool_arr
-    n_moves = src.numel()
-    staged = torch.empty((n_moves, *pool_arr.shape[1:]),
-                         dtype=pool_arr.dtype, device=pool_arr.device)
-    lib = _build.load("page_move", _SIG)
+    n_moves, n_rows = src.numel(), pool_arr.shape[0]
     dev = pool_arr.device
+    plan = torch.empty(_PLAN_HEAD + 2 * n_rows + 4 * n_moves,
+                       dtype=torch.int32, device=dev)
+    scratch = torch.empty(min(n_moves * row_bytes,
+                              max(STAGE_BYTES, 128 * n_moves)),
+                          dtype=torch.uint8, device=dev)
+    lib = _build.load("page_move", _SIG)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(lib.page_move_gather(
-            pool_arr.data_ptr(), src.data_ptr(), staged.data_ptr(),
-            row_bytes, n_moves, stream), "page_move_gather")
-        _build.check(lib.page_move_scatter(
-            staged.data_ptr(), pool_arr.data_ptr(), dst.data_ptr(),
-            row_bytes, n_moves, stream), "page_move_scatter")
+        _build.check(lib.page_move_staged(
+            pool_arr.data_ptr(), src.data_ptr(), dst.data_ptr(), row_bytes,
+            n_moves, n_rows, plan.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), torch.cuda.current_stream(dev).cuda_stream),
+            "page_move_staged")
     launches_staged += 1
     return pool_arr
 
@@ -169,8 +199,8 @@ def move_pages(pool_arr, src, dst):
     """In place `pool_arr[dst[i]] = old pool_arr[src[i]]` for any move list
     with distinct destinations (a row may be both a source and a
     destination). pool_arr [N, ...] of any dtype; src / dst [M] page rows
-    (int32 on a CUDA device). The CUDA kernels (gather into a scratch
-    buffer, then scatter) for CUDA tensors, the plain version for CPU
+    (int32 on a CUDA device). The CUDA kernel (the staged rows copied
+    aside, then every move) for CUDA tensors, the plain version for CPU
     tensors, nothing else. Returns pool_arr."""
     _check_indices(pool_arr, src, dst)
     _build.refuse_grad("page move", pool_arr)

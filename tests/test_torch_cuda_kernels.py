@@ -17,9 +17,12 @@ by the dq kernel); the
 row-block attention at one query tile, ESM2-3B's 40 heads, every head
 dim, a row whose leading key tiles are padding, twice for the same bits;
 the page move on bf16, int8 and f32 rows, direct and staged (swaps,
-cycles, chains: the only test of the staged move's order); the LN + row
-quantization and the two-pass MLP at ESM2-3B's widths and every group
-they take; the fused decode MLP at every row count from 1 to 16; the
+cycles, chains, a full permutation that overflows the staging scratch, no
+overlap, one move, 2,560 moves from repeated sources: the only test of
+the staged move's order; two launches the same bits); the LN + row
+quantization at one row, ragged rows, d 320 to 6144, twice for the same
+bits, and the two-pass MLP at ESM2-3B's widths and every group they
+take; the fused decode MLP at every row count from 1 to 16; the
 RMSNorm + W8A8 SwiGLU MLP at every group it takes (128 to 512 columns),
 ragged rows, d 4096, the Bind prefill's shape, three and four groups a
 block_n step, on K-major views and on contiguous weights (the same
@@ -259,14 +262,20 @@ def _mlp_args(dev, M, d, H, seed):
             randn(d, scale=0.1).to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("M,d", [(512, 256), (1024, 2560), (40, 5120)])
+@pytest.mark.parametrize("M,d", [(512, 256), (1024, 2560), (40, 5120),
+                                 (1, 2560), (333, 1280), (333, 320),
+                                 (64, 6144)])
 def test_ln_quant_rows_matches_plain(cuda, M, d):
     """Codes equal but at rounding ties (at most 1e-3 of them, one step),
-    scales within 1e-6 relative."""
+    scales within 1e-6 relative; one row, ragged rows over the persistent
+    grid, ESM2-8M's d 320 and the widest row it takes; two launches
+    bitwise equal."""
     x, lnw, lnb = _mlp_args(cuda, M, d, 256, M + d)[:3]
     before = fm.launches_ln_quant
     xq, sx = fm.ln_quant_rows(x, lnw, lnb)
     assert fm.launches_ln_quant == before + 1
+    again = fm.ln_quant_rows(x, lnw, lnb)
+    assert torch.equal(again[0], xq) and torch.equal(again[1], sx)
     rq, rs = fm.ln_quant_rows_ref(x, lnw, lnb)
     torch.cuda.synchronize()
     assert sx.shape == (M, 1) and xq.dtype == torch.int8
@@ -907,33 +916,59 @@ def test_page_move_matches_plain(cuda, dtype, tail):
     assert torch.equal(got, want)
 
 
+def _staged_plan(kind, N, g, dev):
+    """src, dst (int32) of one staged-move plan over N rows."""
+    p = torch.randperm(N, generator=g, device=dev)
+    if kind == "mixed":       # swap, 3-cycle, chain, 64 permuted, repeats
+        M = 160
+        dst = p[:M]
+        src = torch.cat([
+            p[[1, 0, 3, 4, 2, 200, 5]],
+            p[7:71][torch.randperm(64, generator=g, device=dev)],
+            p[M:][torch.randint(0, 20, (M - 71,), generator=g,
+                                device=dev)]])
+    elif kind == "permutation":   # every source a destination
+        dst = p[:160]
+        src = dst[torch.randperm(160, generator=g, device=dev)]
+    elif kind == "disjoint":      # no source is a destination
+        dst, src = p[:160], p[160:320]
+    elif kind == "one":
+        dst, src = p[:1], p[1:2]
+    else:                         # 2,560 destinations, repeated sources
+        dst = p[:2560]
+        src = p[2560:][torch.randint(0, 640, (2560,), generator=g,
+                                     device=dev)]
+    return src.to(torch.int32), dst.to(torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "permutation", "disjoint", "one",
+                                  "repeats"])
 @pytest.mark.parametrize("dtype,tail", [
     (torch.bfloat16, (64, 1024)),
     (torch.int8, (64, 1024)),
     (torch.float32, (64, 8)),
 ])
-def test_staged_page_move_is_safe_on_chains(cuda, dtype, tail):
+def test_staged_page_move_is_safe_on_chains(cuda, dtype, tail, kind):
     """Every destination gets the OLD source row: swaps, a 3-cycle, a
     chain, a permutation of 64 destinations among themselves and repeated
-    sources. A kernel that writes before all reads (the direct move on
-    these plans) fails this."""
-    N, M = 400, 160
-    g = torch.Generator(device=cuda).manual_seed(N + tail[1])
+    sources; a full permutation (its bf16 rows overflow the scratch, so
+    they move in column slabs); no overlap; one move; 2,560 destinations
+    from 640 sources. A kernel that writes before all reads (the direct
+    move on these plans) fails this. Two launches on copies of the pool
+    give the same bits."""
+    N = 3200 if kind == "repeats" else 400
+    g = torch.Generator(device=cuda).manual_seed(N + tail[1] + len(kind))
     pool = torch.randint(-100, 100, (N, *tail), generator=g,
                          device=cuda).to(dtype)
-    p = torch.randperm(N, generator=g, device=cuda)
-    dst = p[:M]
-    src = torch.cat([
-        p[[1, 0, 3, 4, 2, 200, 5]],                # swap, 3-cycle, chain
-        p[7:71][torch.randperm(64, generator=g, device=cuda)],
-        p[M:][torch.randint(0, 20, (M - 71,), generator=g, device=cuda)]])
-    dst, src = dst.to(torch.int32), src.to(torch.int32)
+    src, dst = _staged_plan(kind, N, g, cuda)
+    start = pool.clone()
     want = pm.move_pages_ref(pool.clone(), src, dst)
     before = pm.launches_staged
     got = pm.move_pages(pool, src, dst)
     torch.cuda.synchronize()
     assert pm.launches_staged == before + 1 and got is pool
     assert torch.equal(got, want)
+    assert torch.equal(pm.move_pages(start, src, dst), got)
 
 
 def test_page_move_refuses_what_it_cannot_copy(cuda):

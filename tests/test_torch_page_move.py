@@ -136,3 +136,63 @@ def test_staged_plain_version_checks_only_what_it_needs():
     assert tpm.move_pages(pool, t(), t()) is pool
     with pytest.raises(ValueError, match="device"):
         tpm.move_pages(pool.to("meta"), t(0).to("meta"), t(1).to("meta"))
+
+
+def _plan_cases(rng, n_rows):
+    """(name, src, dst): the mixed plan above with 64 destinations moved
+    among themselves, no overlap at all, and every source a destination."""
+    src, dst = _staged_moves(rng, n_rows)
+    p = rng.permutation(np.setdiff1d(np.arange(n_rows), np.union1d(src, dst)))
+    perm = p[:64][rng.permutation(64)]
+    mixed = (np.concatenate([src, perm]).astype(np.int32),
+             np.concatenate([dst, p[:64]]).astype(np.int32))
+    q = rng.permutation(n_rows)
+    disjoint = (rng.choice(q[:20], 30).astype(np.int32),
+                q[20:50].astype(np.int32))
+    every = (q[:40].astype(np.int32), q[:40][rng.permutation(40)].astype(
+        np.int32))
+    return [("mixed", *mixed), ("disjoint", *disjoint), ("every", *every)]
+
+
+def _apply_plan(pool, src, dst, plan, order):
+    """The staged move through plain code, one move at a time in `order`:
+    the staged rows copied aside first, then each move from its staged
+    copy or from the pool as it stands."""
+    staged, slot = plan
+    copies = pool[staged].clone()
+    for i in order:
+        pool[dst[i]] = copies[slot[i]] if slot[i] >= 0 else pool[src[i]]
+    return pool
+
+
+@pytest.mark.parametrize("case", ["mixed", "disjoint", "every"])
+def test_staging_plan_stages_what_is_overwritten(case):
+    """`staging_plan` stages exactly the sources that some move overwrites
+    (a swap, a 3-cycle, a chain, 64 permuted destinations and repeated
+    sources; none without overlap; all where every source is a
+    destination), and the plan applied move by move, in order, reversed
+    and shuffled, equals move_pages_ref and the reference's staged move in
+    interpret mode."""
+    rng = np.random.default_rng(11)
+    N = 160
+    name, src, dst = next(c for c in _plan_cases(rng, N) if c[0] == case)
+    staged, slot = tpm.staging_plan(torch.from_numpy(src),
+                                    torch.from_numpy(dst), N)
+    want_rows = np.intersect1d(src, dst)
+    np.testing.assert_array_equal(staged.numpy(), want_rows)
+    assert {"mixed": 71, "disjoint": 0, "every": 40}[name] == len(want_rows)
+    s = slot.numpy()
+    np.testing.assert_array_equal(s >= 0, np.isin(src, dst))
+    np.testing.assert_array_equal(staged.numpy()[s[s >= 0]], src[s >= 0])
+    vals = rng.integers(-100, 100, (N, 8, 4))
+    jpool = jnp.asarray(vals, jnp.float32)
+    want = np.asarray(jpm.move_pages(jpool, jnp.asarray(src),
+                                     jnp.asarray(dst), interpret=True))
+    ref = tpm.move_pages_ref(torch.from_numpy(vals).float(),
+                             torch.from_numpy(src), torch.from_numpy(dst))
+    np.testing.assert_array_equal(ref.numpy(), want)
+    M = len(src)
+    for order in (range(M), range(M - 1, -1, -1), rng.permutation(M)):
+        got = _apply_plan(torch.from_numpy(vals).float(), src, dst,
+                          (staged, slot), order)
+        np.testing.assert_array_equal(got.numpy(), want)

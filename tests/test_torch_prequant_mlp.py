@@ -189,3 +189,62 @@ def test_port_probe_runs_both_forms_on_the_cpu(capsys):
                                                "two_pass": 256}
     assert res["one_pass_tops"] is None and res["two_pass_weight_gb"] is None
     assert "not measured" in capsys.readouterr().out
+
+
+def _codes_by_reciprocal(h, s):
+    """The row pass's code rule in float32 (csrc/fused_ln_mlp_int8.cu,
+    codes_by_reciprocal): r = 1 / s rounded; m = fma(h, r, 1.5 * 2^23),
+    whose low byte is the code; f = fma(h, r, -(m - 1.5 * 2^23)); where
+    |f| is not within 0.5 - 2^-14 (a quotient near a rounding tie, or no
+    number) the code of the IEEE division. An fma rounds h * r + c once:
+    h * r is exact in float64 (two 24-bit significands), and where the sum
+    in float64 rounds again the quotient lies within 2^-29 of a tie and
+    takes the division. Returns (int8 codes, the mask of codes that took
+    the division)."""
+    magic = np.float32(12582912.0)
+    r = np.float32(1.0) / s
+    q = h.astype(np.float64) * r.astype(np.float64)
+    m = (q + magic).astype(np.float32)
+    f = (q - (m - magic)).astype(np.float32)
+    near = ~(np.abs(f) <= np.float32(0.5 - 2.0 ** -14))
+    fast = (m.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    exact = np.clip(np.rint(h / s), -127, 127).astype(np.int8)
+    return np.where(near, exact, fast), near
+
+
+def test_code_rule_by_reciprocal_is_the_division():
+    """Over 10^7 seeded (h, s) pairs, s = max(amax, 1e-8) / 127 and |h| <=
+    amax as a row gives them (amax over twelve decades, and below the
+    1e-8 floor; h = +-amax among them), plus quotients built to lie on a
+    half-integer and 1 to 4 ulps to either side: the rule's codes are
+    clip(rint(h / s)) of the IEEE quotient, every one. The fix-up is rare
+    on the random pairs and taken on every constructed tie."""
+    rng = np.random.default_rng(14)
+    n = 10 ** 7
+    amax = (10.0 ** rng.uniform(-10, 2, n)).astype(np.float32)
+    h = (amax * rng.uniform(-1, 1, n).astype(np.float32)).astype(np.float32)
+    h[: n // 100] = amax[: n // 100] * np.sign(h[: n // 100])
+    s = np.maximum(amax, np.float32(1e-8)) * np.float32(1.0 / 127.0)
+    codes, near = _codes_by_reciprocal(h, s)
+    want = np.clip(np.rint(h / s), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(codes, want)
+    assert near.mean() < 1e-3
+    top = want[: n // 100][amax[: n // 100] >= np.float32(1e-8)]
+    assert np.abs(top.astype(np.int32)).min() == 127
+    # quotients on a tie k + 1/2 and their neighbours, both signs
+    k = rng.integers(-127, 127, 200_000).astype(np.float32)
+    st = (10.0 ** rng.uniform(-8, 2, k.size) / 127).astype(np.float32)
+    tie = ((k + np.float32(0.5)) * st).astype(np.float32)
+    hs, ss = [tie], [st]
+    for ulps in range(1, 5):
+        for direction in (np.inf, -np.inf):
+            step = tie
+            for _ in range(ulps):
+                step = np.nextafter(step, np.float32(direction))
+            hs.append(step)
+            ss.append(st)
+    h2, s2 = np.concatenate(hs), np.concatenate(ss)
+    codes2, near2 = _codes_by_reciprocal(h2, s2)
+    np.testing.assert_array_equal(
+        codes2, np.clip(np.rint(h2 / s2), -127, 127).astype(np.int8))
+    assert near2[: k.size].mean() > 0.99
