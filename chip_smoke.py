@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
         [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged,times,
-                swiglu,decode,serving]
+                swiglu,decode,serving,eval]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -178,7 +178,24 @@ source, all started together), then:
      input beside the route (whose output goes on): per-layer ms and
      cosine, 30 launches;
  24. ProcyonQAEval + run_qa_eval on the 2-layer copy in W8A8, card against
-     CPU, and a save_model -> load_model round trip on the card.
+     CPU, and a save_model -> load_model round trip on the card;
+ 25. the evaluation slice, each part beside the phase it shares a model
+     with: after 4, ProcyonRetrievalEval at ProCyon-Full widths cut to 2
+     layers (vocabulary 8192 for this check only), card bf16 against CPU
+     f32, the cosine matrices of 4 queries x 512 proteins within
+     RETRIEVAL_SMALL_ATOL; after 5, on the /retrieve service,
+     ProcyonRetrievalEval + run_retrieval_eval with the full
+     RetrievalEvalConfig (top-k 10 / 20 / 100, class-balanced resampling,
+     bootstrap): 64 disgenet queries in batches of 16 against all 20,000
+     proteins, relations and train leaks from a seed, the eval's target
+     table against the service's, its first score rows against a direct
+     query embedding, every metric finite and in range, row 3 once a layer
+     a batch; queries/s, the target sweep's and the host metrics'
+     seconds; in 8, calc_caption_metrics over pass A's captions; in 16,
+     one build_midtrain_eval call on the QLoRA state (2 val batches a task,
+     4,096 targets); after 17, `run_eval_framework --synthetic --device
+     cuda` (ProCyon and the baselines, retrieval, QA and caption) in its
+     own process, its baselines' rows equal to a `--device cpu` run's.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -208,7 +225,8 @@ Stdout ends with a line that names the earlier versions of kernel rows 1,
 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13 and 14 with their times as PERF.md
 section 6 records them (not
 measured here), a JSON line of per-kernel results, the main paths' lines
-(the ESM2 and training lines with the card's nvidia-smi line), the card's
+(the ESM2, retrieval eval and training lines with the card's nvidia-smi
+line), the card's
 nvidia-smi line, and `{"ok": true, "device": {...}}`. Any failed check
 exits non-zero.
 There is no CPU path: without CUDA it exits with status 2.
@@ -221,7 +239,9 @@ int4 matmul's shapes; "paged": the paged decode attention's batches;
 "times": rows 5, 11, 12, 13, 10, 7 and 14 timed alone by the wrappers'
 calls, with the card's copy rate, for pairing with an earlier commit;
 "swiglu": row 7's checks and times; "decode": row 14's checks and its
-probe; "serving"), and prints no result line.
+probe; "serving"; "eval": the evaluation slice's phases of item 25, with
+the caption path of item 8 for its metrics and the mid-train eval on the
+service's bf16 decoder), and prints no result line.
 """
 
 import contextlib
@@ -422,6 +442,29 @@ W8A8_SMALL_PROB_ATOL = 0.1
 READOUT_LOGODDS_REL = 0.25
 W8A8_FAULT_LAYER = 15      # the layer whose activation scale is doubled
 QA_EVAL_ROWS = 16
+# the retrieval eval at ProCyon-Full width on the /retrieve service: 64
+# query texts of a disgenet retrieval task in batches of 16 against every
+# protein, 1-5 eval positives and 2 train relations (leaks, NaN-masked) a
+# query drawn from a seed, the full RetrievalEvalConfig
+RETRIEVAL_EVAL = dict(task="disgenet_all_retrieval", queries=64, batch=16,
+                      positives=(1, 6), train=2, direct_rows=4)
+# the card (bf16) against the CPU (f32) on ProcyonRetrievalEval's cosine
+# matrix at ProCyon-Full widths cut to 2 layers (vocabulary 8192 for this
+# check only). A score is the cosine of a query and a target embedding;
+# bf16 turns each by a small angle, and the score moves by at most the sum
+# of the two angles. The fusion check's query embedding reads a cosine of
+# 0.999942 to the CPU's at these widths (an H100 80GB HBM3 at 700 W), an
+# angle of 0.011 rad; a target (one projector layer) turns less. So twice the angle of a cosine of 0.9999 (0.0141 rad) bounds a
+# score with room; the columns in another target order must fail it
+RETRIEVAL_SMALL = dict(layers=2, vocab=8192, queries=4, proteins=512)
+RETRIEVAL_SMALL_ATOL = 2 * math.acos(0.9999)
+# the 64 eval scores of the first rows against one direct query embedding
+# of the same batch and the service's table, both f32 products on the card
+DIRECT_SCORE_ATOL = 1e-4
+# the mid-train eval (training/evaluation.build_midtrain_eval) in cell f:
+# val-split go / process QA and retrieval streams, batch 2
+MIDTRAIN = dict(n_batches=2, targets=4096, batch=2)
+EVAL_CLI_MODELS = ("procyon", "knn", "mlp", "random")
 
 
 def fail(msg):
@@ -2468,6 +2511,7 @@ def phase_caption(dev, service, profile=False):
           f"rows' {tail}-token tails over its {cached} shared pages, which "
           f"the session keeps)")
     print(f"  caption of protein 0: {captions[0][:100]!r}")
+    cap_metrics = caption_metrics(captions, store)
 
     # the same batch again through paged_beam_generate on that session: the
     # cascade, then the page-walk kernel (pass B). The session's cache now
@@ -2526,7 +2570,7 @@ def phase_caption(dev, service, profile=False):
         captions_per_sec_paged_kernel=n / (init_b + loop_b),
         score_rel_diff=rel, best_token_agreement=agree,
         peak_device_gib=peak, pool_gb=pool_bytes / 1e9,
-        prompt_tokens=lens.tolist())
+        prompt_tokens=lens.tolist(), caption_metrics=cap_metrics)
 
 
 def ahead_ms(fn, iters=20, warmup=3):
@@ -4103,6 +4147,9 @@ def phase_train(dev, service, profile=False):
                                 topt.tree_items(state["params"]))
                  if torch.equal(x, start[k])]
     check(not unchanged, f"trainable leaves that did not change: {unchanged}")
+    results["midtrain_eval"] = phase_midtrain_eval(
+        dev, cfg, ts.merge_params(state["params"], state["frozen"]),
+        service.store, service.tokenizer)
     if profile:
         profile_once("one QA train step", lambda: qa(state, batch),
                      results["qa"]["ms_per_step"])
@@ -4810,6 +4857,356 @@ def phase_qa_eval(dev, small):
     return metrics["card"]
 
 
+def eval_relations(n_proteins, seed):
+    """The retrieval eval's queries (text ids 0..63), eval positives and
+    train relations, drawn from a seed: 1-5 positives and RETRIEVAL_EVAL
+    ["train"] train relations (leaks in the eval) a query."""
+    import numpy as np
+    r = RETRIEVAL_EVAL
+    rng = np.random.default_rng(seed)
+    queries = list(range(r["queries"]))
+    ev, train = [], []
+    for t in queries:
+        n = int(rng.integers(*r["positives"]))
+        picks = rng.choice(n_proteins, n + r["train"], replace=False)
+        ev += [(int(a), t) for a in picks[:n]]
+        train += [(int(a), t) for a in picks[n:]]
+    return queries, ev, train
+
+
+class Timed:
+    """Wraps methods of an object: each call's seconds (ended by a
+    synchronize) and its last result, by name."""
+
+    def __init__(self, obj, *names):
+        self.secs, self.out = {}, {}
+        for name in names:
+            setattr(obj, name, self._wrap(name, getattr(obj, name)))
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.secs[name] = time.perf_counter() - t0
+            self.out[name] = out
+            return out
+        return call
+
+
+def check_retrieval_metrics(metrics, what):
+    """Every metric of calc_retrieval_metrics finite and in range (the
+    Fmax threshold is a cosine)."""
+    for k, v in metrics.items():
+        lo = -1.0 - 1e-6 if k == "fmax_threshold" else 0.0
+        check(math.isfinite(v) and lo <= v <= 1.0 + 1e-6,
+              f"{what}: {k} = {v}")
+
+
+def phase_retrieval_eval(dev, service):
+    """The evaluation slice's main path: ProcyonRetrievalEval on the
+    /retrieve service's parameters, config, tokenizer and store, through
+    run_retrieval_eval with the full RetrievalEvalConfig: 64 query texts of
+    a disgenet retrieval task against all 20,000 proteins, eval and train
+    relations from a seed (the train pairs NaN-masked as leaks). Checks the
+    eval's target table against service.all_protein_embeddings, its first
+    score rows against a direct retrieval_query_embedding of the same
+    batch against that table, every metric, and that row 3 ran once a
+    layer for each query batch. Returns (row 3's launches, results)."""
+    import numpy as np
+    import torch
+    from procyon_tpu_torch.data import instruct
+    from procyon_tpu_torch.evaluate import retrieval as ret
+    from procyon_tpu_torch.evaluate.procyon_models import ProcyonRetrievalEval
+    from procyon_tpu_torch.evaluate.utils import get_train_relations_for_eval
+    from procyon_tpu_torch.inference import paged_beam
+    from procyon_tpu_torch.models import unified
+    from procyon_tpu_torch.ops import flash_attention as fa
+    r = RETRIEVAL_EVAL
+    lcfg = service.cfg.llama
+    ids = list(service.protein_ids)
+    queries, ev, train = eval_relations(len(ids), SEED + 40)
+    leaks = get_train_relations_for_eval(train, queries, ids)
+    model = ProcyonRetrievalEval(
+        service.params, service.cfg, service.tokenizer, service.store,
+        instruct.TaskLibrary().get(r["task"]), batch_size=r["batch"],
+        device=dev)
+    timed = Timed(model, "query_embeddings", "target_embeddings",
+                  "get_predictions")
+    cfg = ret.RetrievalEvalConfig()
+    batches = -(-len(queries) // r["batch"])
+    fa.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = ret.run_retrieval_eval(
+        model, None, all_protein_ids=ids, eval_relations=ev,
+        query_order=queries, cfg=cfg, train_leak_pairs=leaks)
+    total = time.perf_counter() - t0
+    launches = fa.launches
+    check(launches == batches * lcfg.n_layers,
+          f"retrieval eval: row 3 launched {launches} times, expected "
+          f"{batches} batches x {lcfg.n_layers} layers")
+    check_retrieval_metrics(metrics, "retrieval eval")
+    secs = timed.secs
+    host_s = total - secs["get_predictions"]
+
+    table = timed.out["target_embeddings"]
+    ref = service.all_protein_embeddings
+    table_err = float(np.abs(table - ref).max()) \
+        if table.shape == ref.shape else float("inf")
+    check(table_err <= 2.0 ** -8 * float(np.abs(ref).max()),
+          f"retrieval eval: its target table {table.shape} is "
+          f"{table_err} from the service's {ref.shape}")
+    scores = timed.out["get_predictions"]
+    check(scores.shape == (len(queries), len(ids))
+          and np.isfinite(scores).all(), f"scores {scores.shape}")
+    n = r["direct_rows"]
+    # the eval's first batch, built here with its own collator and prompt
+    batch = paged_beam.to_device(model.collator(
+        [(0, t) for t in queries[:r["batch"]]], model.prompt), dev)
+    with torch.no_grad():
+        q = unified.retrieval_query_embedding(
+            service.params, service.cfg, batch)[:n].float()
+        t = torch.from_numpy(ref).to(dev)
+        direct = (q / q.norm(dim=1, keepdim=True).clamp_min(1e-8)) @ (
+            t / t.norm(dim=1, keepdim=True).clamp_min(1e-8)).T
+    direct_err = float(np.abs(direct.cpu().numpy() - scores[:n]).max())
+    check(direct_err <= DIRECT_SCORE_ATOL,
+          f"retrieval eval: its first {n} score rows are {direct_err} from "
+          f"a direct retrieval_query_embedding of the same batch")
+    qps = len(queries) / secs["query_embeddings"]
+    print(f"retrieval eval: ProcyonRetrievalEval + run_retrieval_eval at "
+          f"ProCyon-Full ({lcfg.n_layers} layers), {len(queries)} "
+          f"{r['task']} queries in {batches} batches of {r['batch']} against "
+          f"{len(ids)} targets ({len(ev)} positives, {len(leaks)} train "
+          f"pairs masked), top-k {cfg.top_ks}, {cfg.num_resamples} "
+          f"class-balanced resamples, {cfg.n_boot} bootstrap draws: query "
+          f"embeddings {secs['query_embeddings']:.3f} s ({qps:.2f} "
+          f"queries/s), target sweep {secs['target_embeddings']:.3f} s, the "
+          f"cosine matrix and its copy {secs['get_predictions'] - secs['query_embeddings'] - secs['target_embeddings']:.3f} s, "
+          f"metrics on the host {host_s:.3f} s; row 3 launched {launches} "
+          f"times ({batches} x {lcfg.n_layers}); target table against the "
+          f"service's {table_err:.3g} off, {n} score rows against a direct "
+          f"query embedding {direct_err:.3g} off (tol {DIRECT_SCORE_ATOL})")
+    print("  metrics: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    metrics.items()))
+    return launches, dict(
+        queries=len(queries), targets=len(ids), queries_per_sec=qps,
+        query_s=secs["query_embeddings"],
+        target_sweep_s=secs["target_embeddings"],
+        predictions_s=secs["get_predictions"], host_metrics_s=host_s,
+        table_max_abs_err=table_err, direct_max_abs_err=direct_err,
+        metrics=metrics)
+
+
+def phase_retrieval_eval_small(dev):
+    """ProcyonRetrievalEval on the card (bf16, the flash kernel) against
+    the CPU (f32, the plain path) on the same weights: ProCyon-Full widths
+    cut to 2 layers, the vocabulary cut to 8192 for this check only, 4
+    queries against 512 proteins; the cosine matrices within
+    RETRIEVAL_SMALL_ATOL."""
+    import numpy as np
+    import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.app.main import procyon_full_config
+    from procyon_tpu_torch.data import datasets, instruct
+    from procyon_tpu_torch.data.text_tokenizer import load_tokenizer
+    from procyon_tpu_torch.evaluate.procyon_models import ProcyonRetrievalEval
+    from procyon_tpu_torch.models import unified
+    from procyon_tpu_torch.ops import flash_attention as fa
+    s = RETRIEVAL_SMALL
+    full = procyon_full_config(s["layers"])
+    cfg = dataclasses.replace(full, llama=dataclasses.replace(
+        full.llama, vocab_size=s["vocab"]))
+    params = unified.init_params(SEED + 41, cfg, device=dev)
+    store = datasets.SyntheticStore(n_proteins=s["proteins"],
+                                    embed_dim=cfg.protein_embed_dim)
+    tok = load_tokenizer(vocab_size=s["vocab"])
+    task = instruct.TaskLibrary().get(RETRIEVAL_EVAL["task"])
+    queries, targets = list(range(s["queries"])), list(range(s["proteins"]))
+    fa.launches = 0
+    card = ProcyonRetrievalEval(
+        params, cfg, tok, store, task, batch_size=s["queries"],
+        device=dev).get_predictions(queries, targets)
+    check(fa.launches == s["layers"],
+          f"retrieval eval check: {fa.launches} flash launches on the card, "
+          f"expected {s['layers']}")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                llama=dataclasses.replace(
+                                    cfg.llama, dtype=torch.float32))
+    p32 = bridge.to_torch(bridge.to_numpy(params), device="cpu")
+    del params
+    t0 = time.perf_counter()
+    cpu = ProcyonRetrievalEval(
+        p32, cfg32, tok, store, task, batch_size=s["queries"],
+        device="cpu").get_predictions(queries, targets)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(card - cpu).max())
+    top = [len(set(np.argsort(-a)[:10]) & set(np.argsort(-b)[:10]))
+           for a, b in zip(card, cpu)]
+    print(f"retrieval eval check (ProCyon-Full widths, {s['layers']} "
+          f"layers, vocab cut to {s['vocab']} for this check only, "
+          f"{s['queries']} queries x {s['proteins']} proteins): card bf16 "
+          f"vs CPU f32 cosine matrices within {err:.4f} (max abs; tol "
+          f"{RETRIEVAL_SMALL_ATOL:.4f}, mean {np.abs(card - cpu).mean():.2e}"
+          f"), top-10 overlap {top} (CPU run {cpu_s:.1f} s)")
+    check(card.shape == cpu.shape == (s["queries"], s["proteins"])
+          and np.isfinite(card).all(), f"scores {card.shape}")
+    check(err <= RETRIEVAL_SMALL_ATOL,
+          f"retrieval eval: card and CPU scores {err} apart")
+    fault = float(np.abs(card[:, ::-1] - cpu).max())
+    print(f"  the card's columns in reversed target order: {fault:.4f} "
+          f"from the CPU's, beyond the tolerance")
+    check(fault > RETRIEVAL_SMALL_ATOL,
+          f"retrieval eval check: scores in another target order pass "
+          f"({fault})")
+    return err
+
+
+class FirstProteins:
+    """A store that holds only the first n proteins of `base` (for the
+    synthetic streams, which draw relations over `n_proteins`); everything
+    else is the wrapped store's."""
+
+    def __init__(self, base, n):
+        self.base, self.n_proteins = base, n
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+
+def phase_midtrain_eval(dev, cfg, params, store, tokenizer):
+    """training/evaluation.build_midtrain_eval as run_pretrain --synthetic
+    builds it: val-split go / process QA and retrieval streams over the
+    store's first MIDTRAIN["targets"] proteins (run_pretrain's
+    eval_max_target_proteins), which are the targets, n_batches 2; one
+    eval_fn(params). The QA val loss must be finite and the retrieval AUROC
+    / AUPRC in [0, 1]."""
+    import torch
+    from procyon_tpu_torch.data import collators, data_config
+    from procyon_tpu_torch.training.evaluation import build_midtrain_eval
+    m = MIDTRAIN
+    store = FirstProteins(store, m["targets"])
+    mix = data_config.MultiDatasetConfig(entries=[data_config.DatasetEntry(
+        text_type="go", relations=["process"], tasks=["qa", "retrieval"],
+        splits=["val"])])
+    streams, _, _ = data_config.build_task_streams(
+        mix, store=store, tokenizer=tokenizer,
+        collator_cfg=collators.CollatorConfig(
+            protein_embed_dim=cfg.encoder_out_dim),
+        batch_sizes={"qa": m["batch"], "retrieval": m["batch"]},
+        synthetic=True, seed=SEED + 42)
+    eval_fn = build_midtrain_eval(
+        cfg, val_streams=streams, store=store,
+        all_protein_ids=list(range(m["targets"])),
+        n_batches=m["n_batches"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eval_fn(params)
+    secs = time.perf_counter() - t0
+    check(math.isfinite(out["qa/loss"]), f"mid-train eval: {out}")
+    for k in ("retrieval/auroc", "retrieval/auprc"):
+        check(0.0 <= out[k] <= 1.0, f"mid-train eval: {k} = {out[k]}")
+    print(f"  mid-train eval (build_midtrain_eval, {m['n_batches']} val "
+          f"batches of {m['batch']} a task, {m['targets']} targets): "
+          f"{secs:.2f} s; qa/loss {out['qa/loss']:.4f}, retrieval/auroc "
+          f"{out['retrieval/auroc']:.4f}, retrieval/auprc "
+          f"{out['retrieval/auprc']:.4f}, loss {out['loss']:.4f}")
+    return dict(out, seconds=secs)
+
+
+def caption_metrics(captions, store):
+    """calc_caption_metrics over captions made on the card, each protein's
+    store text its reference."""
+    from procyon_tpu_torch.evaluate.caption import calc_caption_metrics
+    t0 = time.perf_counter()
+    m = calc_caption_metrics(captions, {a: [store.text(a)]
+                                        for a in captions})
+    secs = time.perf_counter() - t0
+    check(m["n"] == len(captions)
+          and all(math.isfinite(m[k]) and 0.0 <= m[k] <= 1.0
+                  for k in ("rouge_l", "bleu", "rouge_l_ci_low",
+                            "rouge_l_ci_high")),
+          f"caption metrics: {m}")
+    print(f"  caption metrics (calc_caption_metrics, the store's texts as "
+          f"references): ROUGE-L {m['rouge_l']:.4f} (CI "
+          f"{m['rouge_l_ci_low']:.4f}-{m['rouge_l_ci_high']:.4f}), BLEU "
+          f"{m['bleu']:.4f} over {m['n']} captions in {secs * 1e3:.1f} ms "
+          f"on the host")
+    return m
+
+
+def read_tsv(path):
+    with open(path) as f:
+        return [line.rstrip("\n").split("\t") for line in f]
+
+
+def phase_eval_cli(dev):
+    """`run_eval_framework --synthetic --device cuda` in its own process
+    (ProCyon and the baselines over retrieval, QA and caption), and the
+    baselines again with --device cpu: the baselines' rows equal (numpy on
+    the same blobs), ProCyon's finite."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for device, models, tasks in (
+                ("cuda", EVAL_CLI_MODELS, ("retrieval", "qa", "caption")),
+                ("cpu", EVAL_CLI_MODELS[1:], ("retrieval", "qa"))):
+            out = os.path.join(tmp, device)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "procyon_tpu_torch.scripts.run_eval_framework",
+                 "--synthetic", "--device", device, "--output_dir", out,
+                 "--models", *models, "--tasks", *tasks,
+                 "--caption_max_len", "32"],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0,
+                  f"run_eval_framework --device {device} exited "
+                  f"{proc.returncode}: {proc.stderr[-3000:]}")
+            runs[device] = (out, time.perf_counter() - t0)
+        procyon = 0
+        for task in ("retrieval", "qa", "caption"):
+            card = read_tsv(os.path.join(runs["cuda"][0],
+                                         f"{task}_metrics.tsv"))
+            check(card[0] == ["model", "dataset", "metric", "value"],
+                  f"{task}_metrics.tsv header {card[0]}")
+            rows = [r for r in card[1:] if r[0] == "procyon"]
+            check(rows and all(math.isfinite(float(r[3])) for r in rows),
+                  f"run_eval_framework: ProCyon's {task} rows {rows}")
+            procyon += len(rows)
+            if task != "caption":
+                cpu = read_tsv(os.path.join(runs["cpu"][0],
+                                            f"{task}_metrics.tsv"))
+                base = [r for r in card if r[0] != "procyon"]
+                check(base == cpu, f"run_eval_framework: the baselines' "
+                                   f"{task} rows differ between the card "
+                                   f"and the CPU runs")
+    print(f"run_eval_framework --synthetic: --device cuda ({', '.join(EVAL_CLI_MODELS)}; "
+          f"retrieval, qa, caption) exit 0 in {runs['cuda'][1]:.1f} s, "
+          f"{procyon} ProCyon rows finite; the baselines' rows equal to a "
+          f"--device cpu run's ({runs['cpu'][1]:.1f} s)")
+    return dict(card_s=runs["cuda"][1], cpu_s=runs["cpu"][1],
+                procyon_rows=procyon)
+
+
+def run_eval_group(dev, profile):
+    """--only=eval: the evaluation slice's phases alone."""
+    small = phase_retrieval_eval_small(dev)
+    cli = phase_eval_cli(dev)
+    service = synthetic_service(dev)
+    launches, ret = phase_retrieval_eval(dev, service)
+    mid = phase_midtrain_eval(dev, service.cfg, service.params,
+                              service.store, service.tokenizer)
+    _, caption = phase_caption(dev, service, profile)
+    return dict(retrieval_eval=ret, flash_launches=launches,
+                small_max_abs_err=small, cli=cli, midtrain_eval=mid,
+                caption_metrics=caption["caption_metrics"])
+
+
 def request_breakdown(service, source, desc, reps=5):
     """Host-clock split of service.retrieve's three steps, each ended by a
     synchronize: prompt and collator (with the copy to the card), the model,
@@ -4884,7 +5281,11 @@ def run_only(dev, names, profile):
     SWIGLU_SHAPES: checks, planted faults, times and each launch's device
     time), "decode" (row 14 at 8 and 16 rows and the probe chains),
     "serving" (phase_serving on the synthetic service, with --profile a
-    decode round traced). Prints their lines and no result line."""
+    decode round traced), "eval" (the evaluation slice: the 2-layer
+    retrieval eval check, run_eval_framework on the card and the CPU, the
+    retrieval eval and a mid-train eval on the synthetic service, the
+    caption path with its metrics). Prints their lines and no result
+    line."""
     def mlp():
         rows = [phase_mlp(dev, m) for m in MLP_ROWS]
         prequant = phase_prequant_mlp(dev)
@@ -4909,6 +5310,7 @@ def run_only(dev, names, profile):
         "decode": lambda: [phase_fused_decode(dev), phase_probes(dev)[1]],
         "serving": lambda: phase_serving(dev, synthetic_service(dev),
                                          profile)[1],
+        "eval": lambda: run_eval_group(dev, profile),
     }
     for name in names:
         check(name in groups, f"--only: no group {name!r} (of "
@@ -5003,6 +5405,8 @@ def main():
     launches["rowblock_fwd"] = phase_esm35m(dev)
     phase_fusion_small(dev)
     torch.cuda.empty_cache()
+    retrieval_eval_small = phase_retrieval_eval_small(dev)
+    torch.cuda.empty_cache()
     phase_caption_small(dev)
     torch.cuda.empty_cache()
     phase_serving_small(dev)
@@ -5011,6 +5415,8 @@ def main():
     torch.cuda.empty_cache()
     launches["flash_attention_fwd"], qps1, qps16, service = phase_retrieve(
         dev, profile)
+    eval_launches, retrieval_eval = phase_retrieval_eval(dev, service)
+    launches["flash_attention_fwd"] += eval_launches
     caption_launches, caption = phase_caption(dev, service, profile)
     launches.update(caption_launches)
     torch.cuda.empty_cache()
@@ -5027,6 +5433,7 @@ def main():
     torch.cuda.empty_cache()
     spec = phase_speculative(dev)
     phase_train_cli(dev)
+    eval_cli = phase_eval_cli(dev)
     torch.cuda.empty_cache()
     small = phase_w8a8_small(dev)
     launches["fused_rms_swiglu_int8"], w8a8 = phase_w8a8_prefill(dev,
@@ -5074,6 +5481,16 @@ def main():
         "model": "ProCyon-Full /retrieve (Llama-3-8B bf16, 20000 proteins)",
         "flash_launches_5_requests": launches["flash_attention_fwd"],
         "queries_per_sec_b1": qps1, "queries_per_sec_b16": qps16}}))
+    print(json.dumps({"main_path": {
+        "model": "ProCyon-Full retrieval eval (Llama-3-8B bf16, "
+                 f"{retrieval_eval['queries']} {RETRIEVAL_EVAL['task']} "
+                 f"queries x {retrieval_eval['targets']} targets, "
+                 "run_retrieval_eval)", "card": smi,
+        "flash_launches": eval_launches, **retrieval_eval,
+        "small_check_max_abs_err": retrieval_eval_small,
+        "midtrain_eval_qlora": train["midtrain_eval"],
+        "caption_metrics": caption["caption_metrics"],
+        "run_eval_framework": eval_cli}}))
     print(json.dumps({"main_path": {
         "model": "ProCyon-Full captioning (8 proteins x beam 10, 200 new "
                  "tokens, paged pool, shared prefix)",

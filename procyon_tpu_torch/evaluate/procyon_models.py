@@ -1,12 +1,19 @@
 """ProCyon model wrappers for the eval framework (counterpart of
-procyon_tpu/evaluate/procyon_models.py).
+procyon_tpu/evaluate/procyon_models.py):
+  * ProcyonRetrievalEval: query embeddings from the [PROT] hidden state,
+    target embeddings through the protein-only path (with an on-disk
+    cache), the cosine matrix
+  * ProcyonQAEval: the yes / no probability at [ANSWER], in the decoder's
+    `quant_mode` (a Bind model scores in W8A8)
+  * ProcyonCaptionEval: diverse-beam generation
 
-`ProcyonQAEval` (the yes / no probability at [ANSWER], in the decoder's
-`quant_mode`: a Bind model scores in W8A8) and `ProcyonCaptionEval`
-(diverse-beam generation) are ported; the retrieval wrapper waits for the
-evaluation slice (ROADMAP.md, queue 1).
+Each runs on the device its parameters are on, which must be of the type
+`device` names ("cuda" unless the caller says otherwise); none moves a
+model or falls back to the CPU.
 """
 
+import os
+import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -16,15 +23,82 @@ from procyon_tpu_torch.data import collators as C
 from procyon_tpu_torch.data import instruct
 from procyon_tpu_torch.evaluate.caption import AbstractCaptionModel
 from procyon_tpu_torch.evaluate.qa import AbstractQAModel, qa_yes_prob
+from procyon_tpu_torch.evaluate.retrieval import AbstractRetrievalModel
 from procyon_tpu_torch.inference import generation, paged_beam
 from procyon_tpu_torch.models import unified
+from procyon_tpu_torch.training.evaluation import (
+    _params_device, all_protein_target_embeddings)
 
 
-def _params_device(params, device):
-    where = params["llama"]["embed"].device
-    if where.type != torch.device(device).type:
-        raise ValueError(f"parameters on {where} but device={device}")
-    return where
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / x.norm(dim=1, keepdim=True).clamp_min(1e-8)
+
+
+class ProcyonRetrievalEval(AbstractRetrievalModel):
+    name = "procyon"
+
+    def __init__(self, params, cfg: unified.UnifiedConfig, tokenizer, store,
+                 task: Dict, *, batch_size: int = 16,
+                 target_cache_path: Optional[str] = None,
+                 collator_cfg: Optional[C.CollatorConfig] = None,
+                 device="cuda"):
+        self.device = _params_device(params, device)
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.store = store
+        self.task = task
+        self.batch_size = batch_size
+        self.target_cache_path = target_cache_path
+        self.ccfg = collator_cfg or C.CollatorConfig(
+            protein_embed_dim=cfg.encoder_out_dim)
+        self.prompt = instruct.get_prompt(task, num_examples=1)
+        self.collator = C.RetrievalCollator(self.ccfg, tokenizer, store, task)
+
+    @torch.no_grad()
+    def query_embeddings(self, query_order) -> torch.Tensor:
+        """[Q, retrieval_dim] f32 query embeddings on the device, in
+        batches of batch_size."""
+        out = []
+        for i in range(0, len(query_order), self.batch_size):
+            # the target protein of each sample is unused
+            batch = self.collator([(0, t) for t in
+                                   query_order[i:i + self.batch_size]],
+                                  self.prompt)
+            emb = unified.retrieval_query_embedding(
+                self.params, self.cfg,
+                paged_beam.to_device(batch, self.device))
+            out.append(emb.float())
+        return torch.cat(out, 0)
+
+    def target_embeddings(self, target_order) -> np.ndarray:
+        """Protein-side shared-projector embeddings [T, retrieval_dim], f32
+        on the host (frozen tables, or the live ESM2 at the collator's
+        max_protein_len), cached on disk as a pickle of {"order", "embeds"}
+        (kept only when its order is target_order)."""
+        if self.target_cache_path and os.path.exists(self.target_cache_path):
+            with open(self.target_cache_path, "rb") as f:
+                blob = pickle.load(f)
+            if list(blob["order"]) == list(target_order):
+                return blob["embeds"]
+        embeds = all_protein_target_embeddings(
+            self.params, self.cfg, self.store, target_order, batch=256,
+            max_protein_len=self.ccfg.max_protein_len, device=self.device)
+        if self.target_cache_path:
+            os.makedirs(os.path.dirname(self.target_cache_path) or ".",
+                        exist_ok=True)
+            with open(self.target_cache_path, "wb") as f:
+                pickle.dump({"order": list(target_order), "embeds": embeds},
+                            f)
+        return embeds
+
+    @torch.no_grad()
+    def get_predictions(self, query_order, target_order, dataset=None):
+        """The [Q, T] cosine matrix, in f32 on the device, as numpy."""
+        q = self.query_embeddings(query_order)
+        t = torch.from_numpy(self.target_embeddings(target_order)).to(
+            self.device)
+        return (_unit_rows(q) @ _unit_rows(t).T).cpu().numpy()
 
 
 class ProcyonQAEval(AbstractQAModel):

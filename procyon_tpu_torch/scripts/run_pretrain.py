@@ -15,12 +15,18 @@ Recipe run (needs the ProCyon-Instruct data):
   python -m procyon_tpu_torch.scripts.run_pretrain \\
       --from_yaml configs/llama3-full.yml
 
+--eval_steps N evaluates every N steps on the --eval_split streams
+(training/evaluation.build_midtrain_eval: QA / caption val losses, and
+retrieval AUROC / AUPRC against the first --eval_max_target_proteins
+proteins, --eval_batches batches a task); the trainer logs them to
+metrics.jsonl as eval/*.
+
 Not on one card, each raising NotImplementedError (ROADMAP.md, queue 1):
 a mesh axis > 1 and the dist_* flags (multi-GPU training, parallel/ over
-NCCL), and --eval_steps > 0 (mid-train eval, training/evaluation.py, which
-needs evaluate/metrics.py).
+NCCL).
 """
 
+import dataclasses
 import json
 import sys
 
@@ -38,17 +44,13 @@ def _check_one_card(targs):
     if (targs.dist_num_processes > 1 or targs.dist_coordinator
             or targs.dist_process_id >= 0):
         raise NotImplementedError(_MULTI_GPU.format("the dist_* flags"))
-    if targs.eval_steps > 0:
-        raise NotImplementedError(
-            "--eval_steps > 0: mid-train evaluation (training/evaluation.py)"
-            " needs evaluate/metrics.py, which is not ported to "
-            "procyon_tpu_torch yet (ROADMAP.md, queue 1, slice 6)")
 
 
 def setup(argv=None):
     """Parse the arguments and build everything the run needs. Returns a
     dict: targs, dargs, margs, ucfg, params, optimizer, loop, weights,
-    streams, stream_states, device."""
+    streams, stream_states, device, tokenizer_info and eval_fn (None
+    unless --eval_steps > 0)."""
     from procyon_tpu_torch import config as cfg_mod
     from procyon_tpu_torch.data import data_config
     from procyon_tpu_torch.data.datasets import ProCyonDataStore, \
@@ -56,6 +58,7 @@ def setup(argv=None):
     from procyon_tpu_torch.data.text_tokenizer import load_tokenizer
     from procyon_tpu_torch.models import unified
     from procyon_tpu_torch.training import checkpointing
+    from procyon_tpu_torch.training.evaluation import build_midtrain_eval
     from procyon_tpu_torch.training.optimizer import (
         build_frozen_mask_optimizer, build_optimizer)
 
@@ -105,11 +108,12 @@ def setup(argv=None):
     aaseq_embeds = {k: v for k, v in
                     (("peptide", dargs.peptide_embeddings_path),
                      ("domain", dargs.domain_embeddings_path)) if v}
-    streams, _, stream_states = data_config.build_task_streams(
+    batch_sizes = {"qa": dargs.qa_batch_size,
+                   "retrieval": dargs.retrieval_batch_size,
+                   "caption": dargs.caption_batch_size}
+    streams, mixers, stream_states = data_config.build_task_streams(
         mix, store=store, tokenizer=tokenizer, collator_cfg=ccfg,
-        batch_sizes={"qa": dargs.qa_batch_size,
-                     "retrieval": dargs.retrieval_batch_size,
-                     "caption": dargs.caption_batch_size},
+        batch_sizes=batch_sizes,
         data_dir=dargs.data_dir, synthetic=dargs.synthetic,
         seed=targs.seed, resume_states=resume_states,
         aaseq_embedding_files=aaseq_embeds)
@@ -123,6 +127,35 @@ def setup(argv=None):
             n_proteins=getattr(store, "n_proteins", 1024),
             max_protein_len=margs.max_protein_len, seed=targs.seed)
 
+    # eval_on_the_fly (trainIT.py:725-748 + _run_eval :1556-1654): VAL-split
+    # streams, all-protein retrieval AUROC/AUPRC, QA/caption val losses
+    eval_fn = None
+    if targs.eval_steps:
+        val_mix = data_config.MultiDatasetConfig(entries=[
+            dataclasses.replace(e, splits=[dargs.eval_split])
+            for e in mix.entries])
+        val_streams, _, _ = data_config.build_task_streams(
+            val_mix, store=store, tokenizer=tokenizer, collator_cfg=ccfg,
+            batch_sizes=batch_sizes,
+            data_dir=dargs.data_dir, synthetic=dargs.synthetic,
+            seed=targs.seed + 1, aaseq_embedding_files=aaseq_embeds)
+        val_streams = {t: s for t, s in val_streams.items() if t in streams}
+        if dargs.synthetic:
+            all_ids = list(range(getattr(store, "n_proteins", 128)))
+        else:
+            # the full protein set (ALL_PROTEINS_FILE semantics,
+            # model_utils.py:44-60), capped for eval cost
+            all_ids = sorted({
+                r.aaseq_idx
+                for t, m in mixers.items()
+                for ds in m.datasets.values()
+                for r in getattr(ds, "relations", [])})
+        all_ids = all_ids[:dargs.eval_max_target_proteins]
+        eval_fn = build_midtrain_eval(
+            ucfg, val_streams=val_streams, store=store,
+            all_protein_ids=all_ids, n_batches=dargs.eval_batches,
+            device=device)
+
     params = unified.init_params(targs.seed, ucfg, device=device)
     if margs.freeze_protein_encoder or margs.freeze_text_encoder:
         optimizer = build_frozen_mask_optimizer(
@@ -133,7 +166,7 @@ def setup(argv=None):
                 params=params, optimizer=optimizer, loop=loop,
                 weights=weights, streams=streams,
                 stream_states=stream_states, device=device,
-                tokenizer_info=tokenizer_info)
+                tokenizer_info=tokenizer_info, eval_fn=eval_fn)
 
 
 def main(argv=None):
@@ -166,6 +199,7 @@ def main(argv=None):
                           task_streams=run_streams, weights=run["weights"],
                           metrics_logger=metrics_logger,
                           stream_states=run_states, to_device=run_to_device,
+                          eval_fn=run["eval_fn"],
                           tokenizer_info=run["tokenizer_info"])
         if targs.resume:
             trainer.maybe_resume()

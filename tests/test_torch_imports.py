@@ -38,11 +38,17 @@ MODULES = [
     "procyon_tpu_torch.data.protein_tokenizer",
     "procyon_tpu_torch.data.registry",
     "procyon_tpu_torch.data.text_tokenizer",
+    "procyon_tpu_torch.evaluate.baselines",
+    "procyon_tpu_torch.evaluate.baselines.simple",
     "procyon_tpu_torch.evaluate.caption",
+    "procyon_tpu_torch.evaluate.core",
+    "procyon_tpu_torch.evaluate.data_loading",
     "procyon_tpu_torch.evaluate.metrics",
     "procyon_tpu_torch.evaluate.procyon_models",
     "procyon_tpu_torch.evaluate.qa",
     "procyon_tpu_torch.evaluate.quant_quality",
+    "procyon_tpu_torch.evaluate.retrieval",
+    "procyon_tpu_torch.evaluate.utils",
     "procyon_tpu_torch.inference.generation",
     "procyon_tpu_torch.inference.kv_pool",
     "procyon_tpu_torch.inference.paged_beam",
@@ -58,9 +64,12 @@ MODULES = [
     "procyon_tpu_torch.scripts.caption_bulk",
     "procyon_tpu_torch.scripts.probe_fused_decode",
     "procyon_tpu_torch.scripts.probe_fused_mlp_blocks",
+    "procyon_tpu_torch.scripts.qa_filter_captions",
+    "procyon_tpu_torch.scripts.run_eval_framework",
     "procyon_tpu_torch.scripts.run_pretrain",
     "procyon_tpu_torch.training.checkpointing",
     "procyon_tpu_torch.training.combined_step",
+    "procyon_tpu_torch.training.evaluation",
     "procyon_tpu_torch.training.logging_utils",
     "procyon_tpu_torch.training.optimizer",
     "procyon_tpu_torch.training.prefetch",
@@ -75,7 +84,7 @@ def test_port_imports_without_jax():
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'procyon_tpu') "
+        "bad = [m for m in ('jax', 'jaxlib', 'procyon_tpu', 'sklearn') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
