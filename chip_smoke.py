@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
         [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged,times,
-                swiglu,decode,serving,eval]
+                swiglu,decode,serving,eval,bert]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -195,7 +195,28 @@ source, all started together), then:
      one build_midtrain_eval call on the QLoRA state (2 val batches a task,
      4,096 targets); after 17, `run_eval_framework --synthetic --device
      cuda` (ProCyon and the baselines, retrieval, QA and caption) in its
-     own process, its baselines' rows equal to a `--device cpu` run's.
+     own process, its baselines' rows equal to a `--device cpu` run's;
+ 26. the BERT slice (slice 6b), after 25: row 3 at BERT's shape (B128
+     S512 H12 D64, bidirectional, right-padded to BERTScore's lengths)
+     against its plain version beside sdpa with the same key mask (a
+     further shape of the flash_attention_fwd entry); BERTScore at
+     SciBERT-base width (vocab 31090, 12 layers, layer 8; weights drawn as
+     an HF state dict and loaded through convert_hf_state; a synthetic
+     WordPiece vocabulary): its 2-layer copy on the card against the CPU
+     in f32, the references reversed shown to fail that check, then 512
+     candidates x 3 references (texts of 30-400 tokens) in chunks of 64
+     pairs, idf off and on, and a baseline from compute_baseline over
+     1,000 pairs applied: pairs/s, the encoder's share, row 3 once a layer
+     an encoder call; the five text baselines through run_evaluation over
+     a store of 2,000 proteins (64 retrieval queries, 64 QA pairs), each
+     with its towers at full width preloaded and deleted before the next
+     (PubMedBERT-base for pubmedbert and simcse; the BioTranslator CNN at
+     CNNConfig's defaults with a PubMedBERT text tower; ProtST's ESM2-650M
+     and PubMedBERT with tower_mlp heads to 512; ProtLLM's ESM2-650M,
+     projector and Llama-2-7B-width decoder): every metric finite,
+     queries/s or pairs/s, peak memory; then `run_eval_framework
+     --use_bertscore` and `compute_bertscore_baseline --synthetic` on the
+     card.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -216,8 +237,8 @@ delta it writes.
 --profile adds one torch.profiler trace of a W8A8 ESM2-650M batch, of a
 request, of five beam steps
 of each caption route, of one 8-step decode round of the serving path
-with bf16 and with int4 weights, of one QA train step and of one W8A8
-Bind batch.
+with bf16 and with int4 weights, of one QA train step, of one W8A8
+Bind batch and of one BERTScore encoder call.
 
 The build prints ptxas' registers and spills for each kernel function, and
 any note that it serialized a kernel's wgmma products.
@@ -241,7 +262,7 @@ calls, with the card's copy rate, for pairing with an earlier commit;
 "swiglu": row 7's checks and times; "decode": row 14's checks and its
 probe; "serving"; "eval": the evaluation slice's phases of item 25, with
 the caption path of item 8 for its metrics and the mid-train eval on the
-service's bf16 decoder), and prints no result line.
+service's bf16 decoder; "bert": item 26), and prints no result line.
 """
 
 import contextlib
@@ -465,6 +486,48 @@ DIRECT_SCORE_ATOL = 1e-4
 # val-split go / process QA and retrieval streams, batch 2
 MIDTRAIN = dict(n_batches=2, targets=4096, batch=2)
 EVAL_CLI_MODELS = ("procyon", "knn", "mlp", "random")
+# the BERT slice (slice 6b). BERTScore's en-sci scorer at the width of
+# allenai/scibert_scivocab_uncased's published config (vocab 31090, 768
+# wide, 12 layers of 12 heads, 512 positions) reading layer 8, bert_score's
+# pick for scibert; 512 candidate captions against 3 references each in
+# chunks of 64 pairs, texts of 30-400 WordPiece tokens from a seeded word
+# list (most chunks hold pad rows and key tiles of padding alone)
+SCIBERT = dict(vocab_size=31090, dim=768, n_layers=12, n_heads=12,
+               max_position=512)
+PUBMEDBERT = dict(vocab_size=30522, dim=768, n_layers=12, n_heads=12,
+                  max_position=512)
+BERTSCORE = dict(candidates=512, refs=3, batch=64, layer=8,
+                 tokens=(30, 400), baseline_pairs=1000, words=20000)
+# the 2-layer copy of that scorer on the card (bf16) against the CPU (f32)
+# on 64 pairs whose references share most of their candidate's words: P, R
+# and F1 within BERTSCORE_SMALL_ATOL, 20x the 5.1e-05 that sound runs read
+# (PERF.md, PR 16). Three planted faults must fail it: the references in
+# reverse order (the host's matching), every pad key attended (the
+# encoder's mask) and layer 1 read in place of layer 2 (the encoder's
+# depth)
+BERTSCORE_SMALL = dict(layers=2, pairs=64)
+BERTSCORE_SMALL_ATOL = 1e-3
+# row 3 at BERT's shape: B128 S512 H12 D64, bidirectional, right-padded to
+# lengths drawn as BERTScore's texts (30-400 tokens) and some full rows
+BERT_FLASH = dict(B=128, S=512, H=12, D=64)
+# the text baselines through run_evaluation at full width: a synthetic
+# store of 2,000 proteins (100-500 residues), 64 retrieval queries (1-5
+# positives each) and 64 QA pairs; ESM2-650M, PubMedBERT-base, the
+# BioTranslator CNN at CNNConfig's defaults, Llama-2-7B's width for
+# ProtLLM; towers in bf16
+BASELINE_STORE = dict(proteins=2000, queries=64, qa=64, min_len=100,
+                      max_len=500)
+BASELINE_MODELS = ("pubmedbert", "simcse", "biotranslator", "protst",
+                   "protllm")
+# each baseline's scores with BERT, ESM2 and Llama cut to 2 layers (the CNN
+# whole) on the card in bf16 against the CPU in f32: 8 query texts x 8
+# target proteins (cosines) or 8 QA pairs (yes-probabilities), each within
+# its BASELINE_SMALL_ATOL, about 10x what sound runs read (PERF.md, PR 16:
+# 4.2e-05, 5.1e-05, 3.1e-04, 5.4e-04, 4.4e-03); ProtLLM with the protein
+# spliced into the BOS row in place of <|protein|>'s must fail it
+BASELINE_SMALL = dict(layers=2, queries=8, targets=8, qa=8)
+BASELINE_SMALL_ATOL = dict(pubmedbert=5e-4, simcse=5e-4, biotranslator=5e-3,
+                           protst=5e-3, protllm=2e-2)
 
 
 def fail(msg):
@@ -5193,6 +5256,580 @@ def phase_eval_cli(dev):
                 procyon_rows=procyon)
 
 
+def bert_words(n, seed):
+    """n distinct lowercase pseudo-words of 3-10 letters, sorted, from a
+    seed: the synthetic WordPiece vocabulary holds each whole (one token a
+    word)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = set()
+    while len(words) < n:
+        words.add("".join(rng.choice(letters, int(rng.integers(3, 11)))))
+    return sorted(words)
+
+
+def bert_tokenizer(vocab_size, seed):
+    """The synthetic WordPiece vocabulary (specials, characters and their
+    continuations, then whole words up to vocab_size) and its word list."""
+    from procyon_tpu_torch.data.wordpiece import WordPieceTokenizer
+    words = bert_words(BERTSCORE["words"], seed)
+    tok = WordPieceTokenizer.synthetic(words=words, vocab_size=vocab_size)
+    return tok, [w for w in words if w in tok.vocab]
+
+
+def caption_pairs(words, n, refs_per, seed):
+    """n candidates of BERTSCORE["tokens"] WordPiece tokens ([CLS] and
+    [SEP] included), each with refs_per references that keep 60% of its
+    words and differ in length by up to 40%."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = BERTSCORE["tokens"]
+    words = np.array(words)
+
+    def length():
+        return int(rng.integers(lo - 2, hi - 1))
+
+    cands, refs = [], []
+    for _ in range(n):
+        c = list(rng.choice(words, length()))
+        cands.append(" ".join(c))
+        rs = []
+        for _ in range(refs_per):
+            r = [w if rng.random() < 0.6 else str(rng.choice(words))
+                 for w in c]
+            k = int(np.clip(len(c) * rng.uniform(0.6, 1.4), lo - 2, hi - 2))
+            r = (r + list(rng.choice(words, max(k - len(r), 0))))[:k]
+            rs.append(" ".join(r))
+        refs.append(rs)
+    return cands, refs
+
+
+def bert_hf_state(g, dev, *, vocab_size, dim, n_layers, max_position,
+                  **_):
+    """A BERT checkpoint's state dict in the HF layout (the `bert.` prefix,
+    [out, in] weights, a pooler) drawn from a seeded generator on the
+    card: weights and embeddings N(0, 0.02), LayerNorms 1 and 0, biases 0,
+    f32."""
+    import torch
+    d, f = dim, 4 * dim
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev) * 0.02
+
+    def ones(n):
+        return torch.ones(n, device=dev)
+
+    def zeros(n):
+        return torch.zeros(n, device=dev)
+
+    s = {"embeddings.word_embeddings.weight": w(vocab_size, d),
+         "embeddings.position_embeddings.weight": w(max_position, d),
+         "embeddings.token_type_embeddings.weight": w(2, d),
+         "embeddings.LayerNorm.weight": ones(d),
+         "embeddings.LayerNorm.bias": zeros(d),
+         "pooler.dense.weight": w(d, d), "pooler.dense.bias": zeros(d)}
+    for i in range(n_layers):
+        p = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            s[p + f"attention.self.{name}.weight"] = w(d, d)
+            s[p + f"attention.self.{name}.bias"] = zeros(d)
+        s[p + "attention.output.dense.weight"] = w(d, d)
+        s[p + "attention.output.dense.bias"] = zeros(d)
+        s[p + "intermediate.dense.weight"] = w(f, d)
+        s[p + "intermediate.dense.bias"] = zeros(f)
+        s[p + "output.dense.weight"] = w(d, f)
+        s[p + "output.dense.bias"] = zeros(d)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            s[p + ln + ".weight"] = ones(d)
+            s[p + ln + ".bias"] = zeros(d)
+    return {"bert." + k: v for k, v in s.items()}
+
+
+def bertscore_errors(a, b):
+    """The largest |difference| of P, R and F1 between two results."""
+    import numpy as np
+    return max(float(np.abs(getattr(a, k) - getattr(b, k)).max())
+               for k in ("precision", "recall", "f1"))
+
+
+def check_scores(res, what):
+    import numpy as np
+    for k in ("precision", "recall", "f1"):
+        x = getattr(res, k)
+        check(np.isfinite(x).all() and (np.abs(x) <= 1 + 1e-6).all(),
+              f"{what}: {k} not finite or outside [-1, 1]: "
+              f"{x.min()}..{x.max()}")
+
+
+def attend_padding(forward):
+    """bert.forward with every key live (seg ids of ones): a planted fault
+    of the encoder's padding mask."""
+    import torch
+
+    def run(params, cfg, tokens, **kw):
+        kw["seg_ids"] = torch.ones_like(tokens, dtype=torch.int32)
+        return forward(params, cfg, tokens, **kw)
+    return run
+
+
+def phase_bertscore_small(dev, state, tok, words):
+    """The 2-layer copy of the SciBERT-width scorer (the state's first two
+    layers, scoring layer 2) on the card in bf16 against the CPU in f32 on
+    BERTSCORE_SMALL["pairs"] pairs: P, R and F1 within
+    BERTSCORE_SMALL_ATOL; the references in reverse order, pad keys
+    attended and layer 1 read must each fail it."""
+    import torch
+    from procyon_tpu_torch.evaluate import bertscore as bs
+    from procyon_tpu_torch.models import bert
+    n = BERTSCORE_SMALL["layers"]
+    small = {k: v for k, v in state.items()
+             if not k.startswith("bert.encoder.layer.")
+             or int(k.split(".")[3]) < n}
+    cands, refs = caption_pairs(words, BERTSCORE_SMALL["pairs"], 1,
+                                SEED + 51)
+    refs = [r[0] for r in refs]
+    out, faults = {}, {}
+    for where, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+        params, cfg = bert.convert_hf_state(
+            {k: v.to(where) for k, v in small.items()}, dtype=dtype,
+            device=where)
+        scorer = bs.BERTScorer(params, cfg, tok, layer=n,
+                               batch_size=BERTSCORE["batch"])
+        out[str(where)] = scorer.score(cands, refs)
+        if where == dev:
+            faults["references reversed"] = scorer.score(cands, refs[::-1])
+            with patched(bert, "forward", attend_padding(bert.forward)):
+                faults["pad keys attended"] = scorer.score(cands, refs)
+            scorer.layer = n - 1
+            faults[f"layer {n - 1} read"] = scorer.score(cands, refs)
+    cpu = out["cpu"]
+    card = out[str(dev)]
+    check_scores(card, "BERTScore 2-layer card")
+    err = bertscore_errors(card, cpu)
+    check(err <= BERTSCORE_SMALL_ATOL,
+          f"BERTScore 2-layer: card {err} from the CPU "
+          f"(> {BERTSCORE_SMALL_ATOL})")
+    fault_errs = {k: bertscore_errors(f, cpu) for k, f in faults.items()}
+    for k, e in fault_errs.items():
+        check(e > BERTSCORE_SMALL_ATOL,
+              f"BERTScore 2-layer: the fault '{k}' passes the check ({e})")
+    print(f"BERTScore 2-layer check ({len(cands)} pairs, SciBERT width, "
+          f"layer {n}): card bf16 against CPU f32 max |dP|,|dR|,|dF1| "
+          f"{err:.3e} (tol {BERTSCORE_SMALL_ATOL}); planted faults, each "
+          f"failing it: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in fault_errs.items())
+          + f"; F1 {float(cpu.f1.mean()):.4f} mean on the CPU")
+    return dict(max_abs_err=err, fault_errs=fault_errs)
+
+
+def phase_bertscore(dev, profile=False):
+    """BERTScore at SciBERT-base width (the en-sci scorer): the checkpoint
+    built as an HF state dict from a seed and loaded through
+    convert_hf_state, layer 8, the synthetic WordPiece vocabulary; 512
+    candidates x 3 references in chunks of 64 pairs, idf off and on, then
+    a baseline from compute_baseline over 1,000 pairs applied; with
+    profile, one encoder call on the first chunk's texts traced. Returns
+    (row 3's launches, results); the launch count is this path's alone."""
+    import numpy as np
+    import torch
+    from procyon_tpu_torch.evaluate import bertscore as bs
+    from procyon_tpu_torch.models import bert
+    from procyon_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    state = bert_hf_state(g, dev, **SCIBERT)
+    tok, words = bert_tokenizer(SCIBERT["vocab_size"], SEED + 50)
+    small = phase_bertscore_small(dev, state, tok, words)
+    params, cfg = bert.convert_hf_state(state, dtype=torch.bfloat16,
+                                        device=dev)
+    del state
+    check(cfg == bert.BertConfig(**SCIBERT),
+          f"convert_hf_state read {cfg}")
+    scorer = bs.BERTScorer(params, cfg, tok, layer=BERTSCORE["layer"],
+                           batch_size=BERTSCORE["batch"])
+    cands, refs = caption_pairs(words, BERTSCORE["candidates"],
+                                BERTSCORE["refs"], SEED + 52)
+    lengths = [len(tok.encode(t, max_len=512)) for rs in refs for t in rs]
+    lengths += [len(tok.encode(t, max_len=512)) for t in cands]
+    scorer.score(cands[:64], refs[:64])          # warm-up
+    torch.cuda.synchronize()
+    fa.launches = 0
+    runs = {}
+    for idf in (False, True):
+        scorer.idf = idf
+        res = scorer.score(cands, refs)
+        check_scores(res, f"BERTScore idf={idf}")
+        runs[f"idf_{idf}".lower()] = dict(scorer.last_timing,
+                                          f1=float(res.f1.mean()))
+    scorer.idf = False
+    t0 = time.perf_counter()
+    baseline = bs.compute_baseline(scorer, [r for rs in refs for r in rs],
+                                   n_pairs=BERTSCORE["baseline_pairs"],
+                                   seed=SEED)
+    baseline_s = time.perf_counter() - t0
+    calls = sum(r["encoder_calls"] for r in runs.values()) \
+        + scorer.last_timing["encoder_calls"]
+    scorer.baseline = baseline
+    rescaled = scorer.score(cands, refs)
+    calls += scorer.last_timing["encoder_calls"]
+    for k in ("precision", "recall", "f1"):
+        check(np.isfinite(getattr(rescaled, k)).all(),
+              f"BERTScore rescaled {k} not finite")
+    launches = fa.launches
+    check(launches == calls * BERTSCORE["layer"],
+          f"BERTScore: row 3 launched {launches} times, expected "
+          f"{calls} encoder calls x {BERTSCORE['layer']} layers")
+    pairs = len(cands) * BERTSCORE["refs"]
+    for key, r in runs.items():
+        r["pairs_per_sec"] = r["pairs"] / r["seconds"]
+        r["encoder_share"] = r["encoder_seconds"] / r["seconds"]
+    if profile:
+        texts = list(dict.fromkeys(t for c, rs in zip(cands, refs)
+                                   for t in [c] + rs))[:86]
+        ids = torch.from_numpy(tok.batch_encode(texts).ids).to(dev)
+        call = functools.partial(bs.embed_layer, params, cfg, ids,
+                                 BERTSCORE["layer"])
+        profile_once(f"one BERTScore encoder call ({tuple(ids.shape)} "
+                     f"tokens, {BERTSCORE['layer']} layers)", call,
+                     cuda_ms(call, iters=3))
+    print(f"BERTScore at SciBERT-base width (vocab {cfg.vocab_size}, "
+          f"{cfg.n_layers} layers, layer {scorer.layer} read, bf16): "
+          f"{len(cands)} candidates x {BERTSCORE['refs']} references = "
+          f"{pairs} pairs in chunks of {BERTSCORE['batch']}, texts of "
+          f"{min(lengths)}-{max(lengths)} tokens (median "
+          f"{int(np.median(lengths))}): "
+          + "; ".join(f"{k} {r['pairs_per_sec']:.1f} pairs/s "
+                      f"({r['seconds']:.3f} s, encoder "
+                      f"{100 * r['encoder_share']:.1f}%, F1 {r['f1']:.4f})"
+                      for k, r in runs.items())
+          + f"; baseline over {BERTSCORE['baseline_pairs']} pairs "
+          f"{tuple(round(b, 4) for b in baseline)} in {baseline_s:.3f} s, "
+          f"rescaled F1 {float(rescaled.f1.mean()):.4f}; row 3 launched "
+          f"{launches} times ({calls} encoder calls x "
+          f"{BERTSCORE['layer']} layers)")
+    return launches, dict(pairs=pairs, runs=runs, baseline=baseline,
+                          baseline_s=baseline_s, small_check=small,
+                          rescaled_f1=float(rescaled.f1.mean()))
+
+
+def phase_bert_flash(dev):
+    """Row 3 at BERT's shape, bidirectional, right-padded to lengths drawn
+    as BERTScore's texts (30-400 tokens) and a quarter of the rows full:
+    flash_case's checks and times (the plain version, sdpa with the same
+    key mask beside it)."""
+    import numpy as np
+    import torch
+    B, S, H, D = (BERT_FLASH[k] for k in ("B", "S", "H", "D"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    rng = np.random.default_rng(SEED + 53)
+    lens = rng.integers(*BERTSCORE["tokens"], B)
+    lens[rng.random(B) < 0.25] = S
+    seg = (torch.arange(S, device=dev)[None]
+           < torch.from_numpy(lens).to(dev)[:, None]).to(torch.int32)
+    entry = flash_case("bert_fwd", q, k, v, seg, seg, causal=False)
+    entry["live_tokens"] = int(lens.sum())
+    return entry
+
+
+def baseline_datasets():
+    """The synthetic store and the retrieval and QA datasets of the text
+    baselines: BASELINE_STORE's proteins, 64 query texts with 1-5
+    positives each (train relations masked as leaks), 64 QA pairs, half of
+    them positives."""
+    import numpy as np
+    from procyon_tpu_torch.data import datasets as D
+    from procyon_tpu_torch.evaluate.utils import get_train_relations_for_eval
+    b = BASELINE_STORE
+    store = D.SyntheticStore(n_proteins=b["proteins"], n_texts=b["queries"],
+                             embed_dim=32, seed=SEED + 60,
+                             min_len=b["min_len"], max_len=b["max_len"])
+    ids = list(range(b["proteins"]))
+    queries, ev, train = eval_relations(b["proteins"], SEED + 61)
+    rng = np.random.default_rng(SEED + 62)
+    pos = [ev[i] for i in rng.choice(len(ev), b["qa"] // 2, replace=False)]
+    neg = [(int(rng.integers(b["proteins"])), int(rng.integers(
+        b["queries"]))) for _ in range(b["qa"] - len(pos))]
+    qa = [(a, t, 1) for a, t in pos] + [(a, t, 0) for a, t in neg]
+    return store, {
+        "baseline_retrieval": {
+            "task": "retrieval", "eval_relations": ev,
+            "query_order": queries, "all_protein_ids": ids, "store": store,
+            "train_leak_pairs": get_train_relations_for_eval(
+                train, queries, ids)},
+        "baseline_qa": {"task": "qa", "qa_samples": qa, "store": store}}
+
+
+def baseline_context(name, dev, g, store, layers=None):
+    """The model context for one text baseline, its towers at full width
+    built from the generator g on the card (bf16); layers cuts BERT, ESM2
+    and Llama to that depth (the CNN has none)."""
+    import torch
+    from procyon_tpu_torch.data.text_tokenizer import WordTokenizer
+    from procyon_tpu_torch.evaluate.baselines import text_models as tm
+    from procyon_tpu_torch.evaluate.baselines.protllm import ProtLLMConfig
+    from procyon_tpu_torch.models import bert, esm2, llama
+    bf16 = torch.bfloat16
+    cut = {} if layers is None else {"n_layers": layers}
+
+    def pubmedbert(pooler, proj=None, **kw):
+        cfg = bert.BertConfig(**dict(PUBMEDBERT, **cut))
+        tok, _ = bert_tokenizer(cfg.vocab_size, SEED + 63)
+        return tm.BertTextTower(bert.init_params(g, cfg, device=dev), cfg,
+                                tok, pooler=pooler, proj=proj, **kw)
+
+    def esm650m():
+        cfg = esm2.esm2_config("650m", dtype=bf16, **cut)
+        return esm2.init_params(g, cfg, device=dev), cfg
+
+    if name in ("pubmedbert", "simcse"):
+        return {name: {"tower": pubmedbert(
+            "mean" if name == "pubmedbert" else "cls", batch_size=64)},
+            "protein_text_fn": lambda a: store.text_variant(a, a)}
+    if name == "biotranslator":
+        ccfg = tm.CNNConfig()
+        return {name: {
+            "text_tower": pubmedbert("cls", tm.init_mlp_proj(
+                g, PUBMEDBERT["dim"], ccfg.hidden_dim, kind="mlp",
+                device=dev), batch_size=64),
+            "cnn_params": tm.init_cnn_params(g, ccfg, device=dev,
+                                             dtype=bf16),
+            "cnn_cfg": ccfg, "kw": {"batch_size": 32}}}
+    if name == "protst":
+        eparams, ecfg = esm650m()
+        return {name: {
+            "text_tower": pubmedbert(
+                "mean", tm.init_mlp_proj(g, PUBMEDBERT["dim"], 512,
+                                         kind="tower_mlp", device=dev),
+                batch_size=64, exclude_special_from_mean=True),
+            "esm_params": eparams, "esm_cfg": ecfg,
+            "graph_proj": tm.init_mlp_proj(g, ecfg.dim, 512,
+                                           kind="tower_mlp", device=dev),
+            "kw": {"batch_size": 32}}}
+    eparams, ecfg = esm650m()
+    lcfg = llama.llama2_7b(dtype=bf16, **cut)
+    return {name: {
+        "esm_params": eparams, "esm_cfg": ecfg,
+        "llama_params": llama.init_params(g, lcfg, device=dev),
+        "llama_cfg": lcfg,
+        "projector": torch.randn((ecfg.dim, lcfg.dim), generator=g,
+                                 device=dev) / ecfg.dim ** 0.5,
+        "tokenizer": WordTokenizer(vocab_size=lcfg.vocab_size),
+        "kw": {"cfg": ProtLLMConfig(max_protein_len=BASELINE_STORE[
+            "max_len"])}}}
+
+
+def cpu_f32(x):
+    """A copy of a model context on the CPU: floating tensors in f32,
+    configs' floating dtypes f32, text towers and dataclasses field by
+    field; integer tensors moved as they are, other objects kept."""
+    import copy
+    import dataclasses
+    import torch
+    from procyon_tpu_torch.evaluate.baselines import text_models as tm
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float() if x.is_floating_point() \
+            else x.cpu()
+    if isinstance(x, torch.dtype):
+        return torch.float32 if x.is_floating_point else x
+    if isinstance(x, dict):
+        return {k: cpu_f32(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(cpu_f32(v) for v in x)
+    if isinstance(x, tm.BertTextTower):
+        y = copy.copy(x)
+        vars(y).update({k: cpu_f32(v) for k, v in vars(x).items()})
+        return y
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: cpu_f32(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def baseline_scores(name, ctx, datasets):
+    """The baseline's scores through its zoo entry: a [queries, targets]
+    cosine matrix, or the QA pairs' yes-probabilities."""
+    from procyon_tpu_torch.evaluate import core
+    core._default_zoo()
+    task = "qa" if name == "protllm" else "retrieval"
+    ds = datasets[f"baseline_small_{task}"]
+    model = core.MODEL_ZOO[task][name](ctx, ds)
+    if task == "qa":
+        return model.get_predictions(ds["qa_samples"])[0]
+    return model.get_predictions(ds["query_order"], ds["all_protein_ids"],
+                                 dataset=ds)
+
+
+def phase_text_baselines_small(dev, store, datasets):
+    """Each baseline at BASELINE_SMALL's depth on the card (bf16) against
+    its CPU copy (f32) on the same weights and inputs: max |d score|
+    within its BASELINE_SMALL_ATOL; ProtLLM's protein spliced into the wrong
+    row (the BOS row, by a tokenizer whose <|protein|> id is the BOS id)
+    must fail it. Launches made here are not counted."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    b = BASELINE_SMALL
+    ret, qa = datasets["baseline_retrieval"], datasets["baseline_qa"]
+    small = {
+        "baseline_small_retrieval": dict(
+            ret, query_order=ret["query_order"][:b["queries"]],
+            all_protein_ids=ret["all_protein_ids"][:b["targets"]]),
+        "baseline_small_qa": dict(qa, qa_samples=qa["qa_samples"][:b["qa"]])}
+    g = torch.Generator(device=dev).manual_seed(SEED + 65)
+    errs, fault_err = {}, None
+    for name in BASELINE_MODELS:
+        ctx = baseline_context(name, dev, g, store, layers=b["layers"])
+        t0 = time.perf_counter()
+        card = baseline_scores(name, ctx, small)
+        cpu = baseline_scores(name, cpu_f32(ctx), small)
+        secs = time.perf_counter() - t0
+        check(np.isfinite(card).all() and card.shape == cpu.shape,
+              f"{name} {b['layers']}-layer: card scores {card.shape} "
+              f"not finite or not the CPU's {cpu.shape}")
+        tol = BASELINE_SMALL_ATOL[name]
+        errs[name] = float(np.abs(card - cpu).max())
+        check(errs[name] <= tol,
+              f"{name} {b['layers']}-layer: card {errs[name]} from the "
+              f"CPU (> {tol})")
+        if name == "protllm":
+            tok = copy.copy(ctx[name]["tokenizer"])
+            tok.spec = dataclasses.replace(tok.spec,
+                                           protein_id=tok.spec.bos_id)
+            bad = {name: dict(ctx[name], tokenizer=tok)}
+            fault_err = float(np.abs(baseline_scores(name, bad, small)
+                                     - cpu).max())
+            check(fault_err > tol,
+                  f"protllm {b['layers']}-layer: the protein spliced into "
+                  f"the BOS row passes the check ({fault_err})")
+        print(f"{name} {b['layers']}-layer check: card bf16 against CPU "
+              f"f32 max |d score| {errs[name]:.3e} over "
+              f"{card.size} scores (tol {tol}; "
+              f"{secs:.1f} s)"
+              + (f"; the protein spliced into the BOS row: "
+                 f"{fault_err:.3e}, fails it" if name == "protllm" else ""))
+        del ctx
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=errs, protllm_fault_err=fault_err)
+
+
+def phase_text_baselines(dev):
+    """The five baselines' 2-layer check against the CPU, then the five
+    through run_evaluation, each with its
+    towers at full width preloaded in the context and deleted before the
+    next: every metric finite; queries/s (retrieval) or pairs/s (QA), peak
+    device memory (and its part above what was allocated before the
+    model). Returns (row 3's launches, results)."""
+    import tempfile
+    import torch
+    from procyon_tpu_torch.evaluate import core
+    from procyon_tpu_torch.ops import flash_attention as fa
+    store, datasets = baseline_datasets()
+    results = {"small_check": phase_text_baselines_small(dev, store,
+                                                          datasets)}
+    g = torch.Generator(device=dev).manual_seed(SEED + 64)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in BASELINE_MODELS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev) / 2 ** 30
+            t0 = time.perf_counter()
+            ctx = baseline_context(name, dev, g, store)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            task = "qa" if name == "protllm" else "retrieval"
+            args = core.EvalArgs(tasks=(task,), models=(name,),
+                                 output_dir=os.path.join(tmp, name))
+            fa.launches = 0
+            t0 = time.perf_counter()
+            (r,) = core.run_evaluation(args, datasets, model_context=ctx)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches += fa.launches
+            check(fa.launches > 0, f"{name}: row 3 was not launched")
+            bad = {k: v for k, v in r["metrics"].items()
+                   if not math.isfinite(v)}
+            check(not bad, f"{name}: metrics not finite: {bad}")
+            n = BASELINE_STORE["queries" if task == "retrieval" else "qa"]
+            unit = "queries" if task == "retrieval" else "pairs"
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            results[name] = {f"{unit}_per_sec": n / secs, "seconds": secs,
+                             "build_s": build_s, "peak_gib": peak,
+                             "own_peak_gib": peak - held,
+                             "row3_launches": fa.launches,
+                             "metrics": r["metrics"]}
+            head = ("auroc", "auprc") if task == "retrieval" \
+                else ("accuracy", "f1_macro")
+            print(f"{name} ({task}, {n} {unit} over "
+                  f"{BASELINE_STORE['proteins']} proteins): "
+                  f"{n / secs:.2f} {unit}/s ({secs:.2f} s; towers built in "
+                  f"{build_s:.1f} s), peak {peak:.1f} GiB ({peak - held:.1f} "
+                  f"above the {held:.1f} held before it), row 3 launched "
+                  f"{fa.launches} times; "
+                  + ", ".join(f"{k} {r['metrics'][k]:.4f}" for k in head))
+            del ctx
+    torch.cuda.empty_cache()
+    return launches, results
+
+
+def phase_bert_clis(dev):
+    """`run_eval_framework --synthetic --use_bertscore --device cuda` (the
+    ProCyon captions with BERTScore from the synthetic scorer on the card)
+    and `compute_bertscore_baseline --synthetic --device cuda`, in this
+    process through their main: the BERTScore rows and the constants
+    finite."""
+    import tempfile
+    from procyon_tpu_torch.scripts import compute_bertscore_baseline
+    from procyon_tpu_torch.scripts import run_eval_framework
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = run_eval_framework.main([
+            "--synthetic", "--device", "cuda", "--tasks", "caption",
+            "--models", "procyon", "--caption_max_len", "16",
+            "--use_bertscore", "--output_dir", tmp])
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"run_eval_framework --use_bertscore returned {rc}")
+        rows = {r[2]: float(r[3]) for r in read_tsv(
+            os.path.join(tmp, "caption_metrics.tsv"))[1:]}
+        keys = ("bertscore_f1", "bertscore_precision", "bertscore_recall")
+        check(all(math.isfinite(rows.get(k, float("nan"))) for k in keys),
+              f"run_eval_framework --use_bertscore: {rows}")
+        t0 = time.perf_counter()
+        rec = compute_bertscore_baseline.main([
+            "--synthetic", "--device", "cuda", "--out",
+            os.path.join(tmp, "baseline.json")])
+        base_s = time.perf_counter() - t0
+    check(all(math.isfinite(rec[k]) for k in ("precision", "recall", "f1")),
+          f"compute_bertscore_baseline: {rec}")
+    print(f"run_eval_framework --synthetic --use_bertscore --device cuda: "
+          f"exit 0 in {cli_s:.1f} s, "
+          + ", ".join(f"{k} {rows[k]:.4f}" for k in keys)
+          + f"; compute_bertscore_baseline --synthetic: "
+          f"({rec['precision']:.4f}, {rec['recall']:.4f}, {rec['f1']:.4f}) "
+          f"over {rec['n_pairs']} pairs in {base_s:.1f} s")
+    return dict(run_eval_framework={k: rows[k] for k in keys},
+                run_eval_framework_s=cli_s, baseline=rec, baseline_s=base_s)
+
+
+def run_bert_group(dev, profile=False):
+    """The BERT slice: row 3 at BERT's shape (not counted), then its main
+    path with row 3's count set to 0 before it and read after it
+    (BERTScore at SciBERT width, the five text baselines; their checks
+    against the CPU come before the count is set), then the two
+    CLIs. Returns (the main path's row 3 launches, row 3's entry at BERT's
+    shape, results)."""
+    entry = phase_bert_flash(dev)
+    launches, score = phase_bertscore(dev, profile)
+    more, baselines = phase_text_baselines(dev)
+    clis = phase_bert_clis(dev)
+    return launches + more, entry, dict(bertscore=score,
+                                        text_baselines=baselines, clis=clis)
+
+
 def run_eval_group(dev, profile):
     """--only=eval: the evaluation slice's phases alone."""
     small = phase_retrieval_eval_small(dev)
@@ -5284,8 +5921,11 @@ def run_only(dev, names, profile):
     decode round traced), "eval" (the evaluation slice: the 2-layer
     retrieval eval check, run_eval_framework on the card and the CPU, the
     retrieval eval and a mid-train eval on the synthetic service, the
-    caption path with its metrics). Prints their lines and no result
-    line."""
+    caption path with its metrics), "bert" (the BERT slice: row 3 at
+    BERT's shape, BERTScore at SciBERT width with its 2-layer check, the
+    five text baselines' 2-layer checks and their runs at full width, the
+    two BERTScore CLIs). Prints
+    their lines and no result line."""
     def mlp():
         rows = [phase_mlp(dev, m) for m in MLP_ROWS]
         prequant = phase_prequant_mlp(dev)
@@ -5311,6 +5951,7 @@ def run_only(dev, names, profile):
         "serving": lambda: phase_serving(dev, synthetic_service(dev),
                                          profile)[1],
         "eval": lambda: run_eval_group(dev, profile),
+        "bert": lambda: run_bert_group(dev, profile),
     }
     for name in names:
         check(name in groups, f"--only: no group {name!r} (of "
@@ -5413,8 +6054,8 @@ def main():
     torch.cuda.empty_cache()
     phase_train_small(dev)
     torch.cuda.empty_cache()
-    launches["flash_attention_fwd"], qps1, qps16, service = phase_retrieve(
-        dev, profile)
+    retrieve_launches, qps1, qps16, service = phase_retrieve(dev, profile)
+    launches["flash_attention_fwd"] = retrieve_launches
     eval_launches, retrieval_eval = phase_retrieval_eval(dev, service)
     launches["flash_attention_fwd"] += eval_launches
     caption_launches, caption = phase_caption(dev, service, profile)
@@ -5434,6 +6075,12 @@ def main():
     spec = phase_speculative(dev)
     phase_train_cli(dev)
     eval_cli = phase_eval_cli(dev)
+    torch.cuda.empty_cache()
+    bert_launches, bert_entry, bert_results = run_bert_group(dev, profile)
+    launches["flash_attention_fwd"] += bert_launches
+    flash[0]["bert_shape"] = {k: bert_entry[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "live_tokens")}
     torch.cuda.empty_cache()
     small = phase_w8a8_small(dev)
     launches["fused_rms_swiglu_int8"], w8a8 = phase_w8a8_prefill(dev,
@@ -5479,7 +6126,7 @@ def main():
         "proteins_per_sec_w8a8": rates["w8a8"]}}))
     print(json.dumps({"main_path": {
         "model": "ProCyon-Full /retrieve (Llama-3-8B bf16, 20000 proteins)",
-        "flash_launches_5_requests": launches["flash_attention_fwd"],
+        "flash_launches_5_requests": retrieve_launches,
         "queries_per_sec_b1": qps1, "queries_per_sec_b16": qps16}}))
     print(json.dumps({"main_path": {
         "model": "ProCyon-Full retrieval eval (Llama-3-8B bf16, "
@@ -5491,6 +6138,12 @@ def main():
         "midtrain_eval_qlora": train["midtrain_eval"],
         "caption_metrics": caption["caption_metrics"],
         "run_eval_framework": eval_cli}}))
+    print(json.dumps({"main_path": {
+        "model": "BERTScore at SciBERT-base width (512 candidates x 3 "
+                 "references, layer 8) and the text baselines at full width "
+                 "(PubMedBERT-base, ESM2-650M, the BioTranslator CNN, "
+                 "Llama-2-7B; 2,000 proteins)", "card": smi,
+        "flash_launches": bert_launches, **bert_results}}))
     print(json.dumps({"main_path": {
         "model": "ProCyon-Full captioning (8 proteins x beam 10, 200 new "
                  "tokens, paged pool, shared prefix)",

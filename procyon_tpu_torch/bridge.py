@@ -17,7 +17,11 @@ Leaves may be numpy arrays or anything `np.asarray` accepts (a JAX array
 converts without this module importing jax). bfloat16 leaves (ml_dtypes
 bfloat16 in numpy) cross bit-exactly through an int16 view. A JAX train
 state (params, optax Adam moments, step) maps to the port's with
-`train_state_to_torch`; `to_numpy` brings the port's trees back.
+`train_state_to_torch`; `to_numpy` brings the port's trees back. The
+evaluation baselines' trees cross the same way: the BERT tree
+(models/bert.py), the DeepGOPlus CNN tower (a list of conv dicts) and a
+projection head's weights and biases (None for a bias-free layer) with
+`to_torch`.
 `tree_leaves`, `map_tensors` and `merge_params` walk the port's trees for
 the layers above (models, training, scripts).
 """
@@ -44,7 +48,9 @@ def _leaf_to_tensor(x, device) -> torch.Tensor:
 
 def to_torch(tree: Any, *, device=None) -> Any:
     """Convert a parameter pytree (nested dicts / lists of arrays) to torch,
-    dtypes kept."""
+    dtypes kept; None stays None (a bias-free layer's bias)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_torch(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

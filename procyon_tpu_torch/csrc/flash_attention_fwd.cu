@@ -18,7 +18,8 @@
 //   p_ij = exp2(s_ij - m_i), l_i = sum_j p_ij           (f32)
 //   out_i = (sum_j bf16(p_ij) v_j) / l_i                (f32 sums)
 //   lse_i = m_i * ln2 + ln(l_i)                         (natural log)
-//   a dead row (m_i <= -5e29 or l_i == 0) gives out_i = 0, lse_i = -1e30.
+//   a dead row (m_i <= -5e29 or l_i == 0) gives out_i = 0, lse_i = -1e30,
+//   exactly, whatever the padded keys' K and V rows hold (NaN included).
 //
 // What bounds it on the H100: the operations at the training shape (B2
 // S2048 Hq32 Hkv8 D128 causal: 68.8 GFLOP over the allowed pairs, 0.0695
@@ -703,13 +704,16 @@ __global__ void __launch_bounds__(NC, Cfg<D>::MIN_BLOCKS)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = lr - 64 * w + 8 * r, s = q0 + lr + 8 * r;
+      // a dead row is written as 0 by a select, not by scaling its sums:
+      // P = 0 times a padded key's V that is NaN or inf (K / V rows of
+      // padding hold whatever the caller left there) would be NaN
       const bool dead = (cs.m[r] <= MASK * 0.5f) || (cs.l[r] == 0.f);
       const float inv = dead ? 0.f : 1.f / cs.l[r];
 #pragma unroll
       for (int c = 0; c < C::DP / 8; ++c)
         *reinterpret_cast<uint32_t*>(stage + TQ::offset(row, c) + 4 * t) =
-            wg::pack_bf16(cs.o[4 * c + 2 * r] * inv,
-                          cs.o[4 * c + 2 * r + 1] * inv);
+            wg::pack_bf16(dead ? 0.f : cs.o[4 * c + 2 * r] * inv,
+                          dead ? 0.f : cs.o[4 * c + 2 * r + 1] * inv);
       if (a.lse != nullptr && t == 0 && s < a.Sq)
         a.lse[((long long)b * a.Hq + h) * a.Sq + s] =
             dead ? MASK : cs.m[r] * LN2 + logf(cs.l[r]);

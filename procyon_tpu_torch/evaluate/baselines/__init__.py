@@ -1,7 +1,9 @@
-"""Comparison baseline models over precomputed embeddings (counterpart of
+"""Comparison baseline models (counterpart of
 procyon_tpu/evaluate/baselines): kNN, the per-text MLP, the score matrix
-(BLAST) and random, all numpy, no language model. The text-encoder and
-ProtLLM baselines wait for Slice 6b (ROADMAP.md, queue 1).
+(BLAST) and random over precomputed embeddings (numpy, simple.py); the
+third-party text-encoder baselines BioTranslator, ProtST and the
+PubMedBERT / SimCSE towers (text_models.py); and the ProtLLM QA baseline
+(protllm.py).
 """
 
 from procyon_tpu_torch.evaluate.baselines.simple import (
@@ -9,6 +11,14 @@ from procyon_tpu_torch.evaluate.baselines.simple import (
     RandomRetrievalModel, ScoreMatrixRetrievalModel,
 )
 
+from procyon_tpu_torch.evaluate.baselines.protllm import ProtLLMQAEval
+from procyon_tpu_torch.evaluate.baselines.text_models import (
+    BertTextTower, BioTranslatorRetrievalEval, CNNConfig,
+    ProtSTRetrievalEval, TextEncoderRetrievalEval,
+)
+
 __all__ = ["KNNRetrievalModel", "KNNQAModel", "MLPRetrievalModel",
            "RandomRetrievalModel", "RandomQAModel",
-           "ScoreMatrixRetrievalModel"]
+           "ScoreMatrixRetrievalModel", "BertTextTower", "CNNConfig",
+           "BioTranslatorRetrievalEval", "ProtSTRetrievalEval",
+           "TextEncoderRetrievalEval", "ProtLLMQAEval"]

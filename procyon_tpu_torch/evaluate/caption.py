@@ -3,8 +3,9 @@
 
 Per-protein generated captions are scored against ALL reference
 descriptions for that protein (multi-reference merge). BERTScore, the
-reference's optional third metric, needs models/bert.py and
-evaluate/bertscore.py, which are not ported: asking for it raises.
+reference's third metric (en-sci), comes from evaluate/bertscore.py: a
+scorer the caller built (a local SciBERT checkpoint through make_scorer),
+or with use_bertscore alone the synthetic-weight scorer on the card.
 """
 
 from typing import Dict, List, Sequence
@@ -12,12 +13,6 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from procyon_tpu_torch.evaluate.metrics import bleu, bootstrap_ci, rouge_l
-
-BERTSCORE_NOT_PORTED = (
-    "BERTScore needs models/bert.py and evaluate/bertscore.py, which are not "
-    "ported to procyon_tpu_torch yet (ROADMAP.md, queue 1: \"Slice 6b: "
-    "BERT, BERTScore and the text baselines\")")
-
 
 class AbstractCaptionModel:
     name = "abstract"
@@ -41,8 +36,6 @@ def calc_caption_metrics(predictions: Dict[int, str],
                          bertscorer=None,
                          bootstrap: bool = True,
                          n_boot: int = 200) -> Dict[str, float]:
-    if use_bertscore or bertscorer is not None:
-        raise NotImplementedError(BERTSCORE_NOT_PORTED)
     rouges, bleus = [], []
     for ent, hyp in predictions.items():
         refs = references.get(ent)
@@ -59,6 +52,23 @@ def calc_caption_metrics(predictions: Dict[int, str],
         _, lo, hi = bootstrap_ci(np.asarray(rouges), n_boot=n_boot)
         out["rouge_l_ci_low"] = lo
         out["rouge_l_ci_high"] = hi
+    if use_bertscore or bertscorer is not None:
+        if bertscorer is None:
+            from procyon_tpu_torch.evaluate.bertscore import make_scorer
+
+            bertscorer = make_scorer()
+        hyps, refs_list = [], []
+        for ent, hyp in predictions.items():
+            if ent in references:
+                hyps.append(hyp)
+                refs_list.append(references[ent])
+        if hyps:
+            res = bertscorer.score(hyps, refs_list)
+            out["bertscore_f1"] = float(res.f1.mean())
+            out["bertscore_precision"] = float(res.precision.mean())
+            out["bertscore_recall"] = float(res.recall.mean())
+        else:
+            out["bertscore_f1"] = float("nan")
     return out
 
 
@@ -67,8 +77,7 @@ def run_caption_eval(model: AbstractCaptionModel, dataset, *,
                      use_bertscore: bool = False,
                      bertscorer=None,
                      dataset_name="dataset") -> Dict[str, float]:
-    # refuse before the model generates, not after
-    if use_bertscore or bertscorer is not None:
-        raise NotImplementedError(BERTSCORE_NOT_PORTED)
     predictions = model.get_predictions(dataset)
-    return calc_caption_metrics(predictions, references)
+    return calc_caption_metrics(predictions, references,
+                                use_bertscore=use_bertscore,
+                                bertscorer=bertscorer)

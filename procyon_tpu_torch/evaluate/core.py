@@ -5,10 +5,12 @@ over (task x model x dataset), dispatches to the per-task runner, and writes
 metrics incrementally (:202-240); the model zoo (:68-110) maps model-type
 names to constructors per task family.
 
-The zoo holds ProCyon itself and the simple baselines (random, knn, mlp,
-blast). The text-encoder and ProtLLM baselines (biotranslator, protst,
-pubmedbert, simcse, protllm) are registered to constructors that raise:
-they need models/bert.py, which is not ported.
+The zoo holds ProCyon itself, the simple baselines (random, knn, mlp,
+blast) and the third-party ones (biotranslator, protst, pubmedbert,
+simcse for retrieval, protllm for QA). A third-party entry takes the
+towers preloaded in the context under its name, or else builds seeded
+synthetic ones on the context's "device" (the ProCyon entry's, else
+"cuda"): no released checkpoint is at hand.
 """
 
 import dataclasses
@@ -18,11 +20,6 @@ from procyon_tpu_torch.evaluate import caption as cap
 from procyon_tpu_torch.evaluate import qa as qa_mod
 from procyon_tpu_torch.evaluate import retrieval as ret
 from procyon_tpu_torch.evaluate.utils import PredictionCache, write_metrics
-
-SLICE_6B = ("the {} baseline needs models/bert.py, which is not ported to "
-            "procyon_tpu_torch yet (ROADMAP.md, queue 1: \"Slice 6b: BERT, "
-            "BERTScore and the text baselines\")")
-
 
 @dataclasses.dataclass
 class EvalArgs:
@@ -63,12 +60,6 @@ def _procyon_ctx(ctx, ds):
             "dataset entry or model context")
     store = ds.get("store") or p.get("store")
     return p, task_json, store
-
-
-def _not_ported(name):
-    def ctor(ctx, ds):
-        raise NotImplementedError(SLICE_6B.format(name))
-    return ctor
 
 
 def _default_zoo():
@@ -141,9 +132,83 @@ def _default_zoo():
     register_model("qa", "procyon", _qa)
     register_model("caption", "procyon", _cap)
 
-    for name in ("biotranslator", "protst", "pubmedbert", "simcse"):
-        register_model("retrieval", name, _not_ported(name))
-    register_model("qa", "protllm", _not_ported("protllm"))
+    # third-party baseline families (reference zoo entries BioTranslator /
+    # ProtST / ProtLLM, framework/core.py:68-110; the SimCSE / PubMedBERT
+    # text encoders of procyon/model/{simcse,pubmedbert}.py as the
+    # text_encoder baselines). ctx may carry preloaded towers under the
+    # model name; otherwise seeded synthetic weights run the whole path.
+    from procyon_tpu_torch.evaluate.baselines.protllm import ProtLLMQAEval
+    from procyon_tpu_torch.evaluate.baselines.text_models import (
+        BioTranslatorRetrievalEval, ProtSTRetrievalEval,
+        TextEncoderRetrievalEval)
+
+    def _store(ctx, ds):
+        s = ds.get("store") or ctx.get("store")
+        if s is None and "procyon" in ctx:
+            s = ctx["procyon"].get("store")
+        if s is None:
+            raise KeyError("baseline model needs a text/sequence store on "
+                           "the dataset entry or model context")
+        return s
+
+    def _device(ctx):
+        return ctx.get("device") or ctx.get("procyon", {}).get("device") \
+            or "cuda"
+
+    def _biotranslator(ctx, ds):
+        pre = ctx.get("biotranslator")
+        if pre is not None:
+            return BioTranslatorRetrievalEval(
+                pre["text_tower"], pre["cnn_params"], pre["cnn_cfg"],
+                _store(ctx, ds), **pre.get("kw", {}))
+        return BioTranslatorRetrievalEval.synthetic(_store(ctx, ds),
+                                                    device=_device(ctx))
+
+    def _protst(ctx, ds):
+        pre = ctx.get("protst")
+        if pre is not None:
+            return ProtSTRetrievalEval(
+                pre["text_tower"], pre["esm_params"], pre["esm_cfg"],
+                pre["graph_proj"], _store(ctx, ds), **pre.get("kw", {}))
+        return ProtSTRetrievalEval.synthetic(_store(ctx, ds),
+                                             device=_device(ctx))
+
+    def _text_encoder(name):
+        def ctor(ctx, ds):
+            store = _store(ctx, ds)
+            # target proteins are represented by their functional
+            # descriptions when the context provides them; the sequence
+            # string is the (weak) fallback
+            text_fn = ctx.get("protein_text_fn") or \
+                (lambda a: " ".join(store.protein_sequence(a)))
+            pre = ctx.get(name)
+            if pre is not None:
+                model = TextEncoderRetrievalEval(pre["tower"], store,
+                                                 text_fn)
+            else:
+                model = TextEncoderRetrievalEval.synthetic(
+                    store, text_fn, device=_device(ctx))
+            # the prediction cache is keyed by the model's name: under the
+            # class's one name ("text_encoder", as in the reference)
+            # simcse would read back pubmedbert's cached scores
+            model.name = name
+            return model
+        return ctor
+
+    def _protllm(ctx, ds):
+        pre = ctx.get("protllm")
+        if pre is not None:
+            return ProtLLMQAEval(
+                pre["esm_params"], pre["esm_cfg"], pre["llama_params"],
+                pre["llama_cfg"], pre["projector"], pre["tokenizer"],
+                _store(ctx, ds), **pre.get("kw", {}))
+        return ProtLLMQAEval.synthetic(_store(ctx, ds), device=_device(ctx))
+
+    register_model("retrieval", "biotranslator", _biotranslator)
+    register_model("retrieval", "protst", _protst)
+    register_model("retrieval", "pubmedbert", _text_encoder("pubmedbert"))
+    register_model("retrieval", "simcse", _text_encoder("simcse"))
+    register_model("qa", "protllm", _protllm)
 
 
 def run_evaluation(args: EvalArgs, datasets: Dict[str, Dict], *,

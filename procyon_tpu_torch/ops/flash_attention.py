@@ -9,8 +9,8 @@ masked query rows produce zeros.
   * `mha_reference`: the O(S^2)-memory reference (natural exp, f32), any
     device; `flash_attention(backend="ref")` takes it for CPU tensors.
   * `flash_fwd_ref`: the plain PyTorch version of the kernel: base-2 score
-    space, P cast to V's dtype before P.V, f32 accumulation, lse -1e30 on
-    dead rows.
+    space, P cast to V's dtype before P.V, f32 accumulation, dead rows 0
+    and their lse -1e30 whatever the padded K / V rows hold.
   * `flash_fwd`: the one wrapper. On a CUDA tensor it launches the
     hand-written kernel in csrc/flash_attention_fwd.cu (bf16 only) or
     raises; on a CPU tensor it runs `flash_fwd_ref`. `launches` counts
@@ -143,9 +143,11 @@ def flash_fwd_ref(q, k, v, seg_q, seg_kv, q_positions, kv_positions, *,
     l = p.sum(-1, keepdim=True)
     dead = (m <= DEFAULT_MASK_VALUE * 0.5) | (l == 0.0)
     l_safe = torch.where(dead, 1.0, l)
-    inv = torch.where(dead, 0.0, 1.0 / l_safe)
     out = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
-                       vf.float()) * inv
+                       vf.float()) * (1.0 / l_safe)
+    # a dead row is 0 by a select, as in the kernel: P = 0 times a padded
+    # key's V that is NaN or inf would be NaN
+    out = torch.where(dead, 0.0, out)
     lse = torch.where(dead, DEFAULT_MASK_VALUE, m * LN2 + torch.log(l_safe))
     return out.permute(0, 2, 1, 3).to(q.dtype), lse[..., 0]
 

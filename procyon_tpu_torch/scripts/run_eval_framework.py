@@ -18,9 +18,11 @@ Real data (DATA_DIR layout and a model directory):
       --data_dir $DATA_DIR --model_dir <dir> \\
       --datasets '[{"text_type": "disgenet", "tasks": ["retrieval","qa"]}]'
 
-BERTScore (--use_bertscore and the --bertscore_* flags) and the
-text-encoder / ProtLLM baselines raise NotImplementedError: they wait for
-Slice 6b (ROADMAP.md, queue 1).
+Caption BERTScore: --use_bertscore (the synthetic-weight scorer, or a
+local SciBERT checkpoint with --bertscore_model_dir; --bertscore_layer,
+--bertscore_baseline_file from compute_bertscore_baseline), on --device.
+The third-party baselines (--models biotranslator protst pubmedbert simcse
+protllm) run with seeded synthetic towers on --device in a synthetic run.
 """
 
 import argparse
@@ -53,11 +55,17 @@ def parse_args(argv=None):
     p.add_argument("--train_split", type=str, default="train")
     p.add_argument("--split_method", type=str, default="random_split")
     p.add_argument("--batch_size", type=int, default=16)
-    # caption BERTScore: not ported (Slice 6b)
+    # caption BERTScore (evaluate/bertscore.py)
     p.add_argument("--use_bertscore", action="store_true")
-    p.add_argument("--bertscore_model_dir", type=str, default=None)
+    p.add_argument("--bertscore_model_dir", type=str, default=None,
+                   help="local HF BERT / SciBERT checkpoint directory "
+                        "(weights and vocab.txt); omitted: the "
+                        "synthetic-weight scorer")
     p.add_argument("--bertscore_layer", type=int, default=None)
-    p.add_argument("--bertscore_baseline_file", type=str, default=None)
+    p.add_argument("--bertscore_baseline_file", type=str, default=None,
+                   help="rescaling constants (compute_bertscore_baseline): "
+                        "bertscore_* reported as (s - b) / (1 - b), the "
+                        "reference's rescale_with_baseline=True")
     # retrieval-eval knobs (reference EvalArgs surface, framework/args.py)
     p.add_argument("--retrieval_top_k", type=int, nargs="+", default=None,
                    help="top-k list for precision/recall@k")
@@ -73,7 +81,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42,
                    help="subsampling seed")
     p.add_argument("--device", type=str, default="cuda",
-                   help="where the ProCyon model runs (cuda unless told "
+                   help="where the models run (cuda unless told "
                         "otherwise)")
     args = p.parse_args(argv)
     if args.from_yaml:
@@ -208,19 +216,23 @@ def real_datasets(args):
     return datasets, ctx
 
 
+BASELINES_NEEDING_STORE = {"biotranslator", "protst", "pubmedbert",
+                           "simcse", "protllm"}
+
+
 def main(argv=None):
     args = parse_args(argv)
     from procyon_tpu_torch.evaluate import core
-    from procyon_tpu_torch.evaluate.caption import BERTSCORE_NOT_PORTED
-
-    if (args.use_bertscore or args.bertscore_model_dir
-            or args.bertscore_layer is not None
-            or args.bertscore_baseline_file):
-        raise NotImplementedError(BERTSCORE_NOT_PORTED)
 
     if args.synthetic:
         datasets, ctx = synthetic_datasets("procyon" in args.models,
                                            args.device)
+        if BASELINES_NEEDING_STORE & set(args.models) \
+                and "store" not in ctx:
+            from procyon_tpu_torch.data import datasets as D
+
+            ctx["store"] = ctx.get("procyon", {}).get("store") or \
+                D.SyntheticStore(n_proteins=90, n_texts=1024, embed_dim=32)
     else:
         datasets, ctx = real_datasets(args)
 
@@ -236,6 +248,17 @@ def main(argv=None):
             max_new_tokens=args.caption_max_len, method="beam",
             beam_size=10, beam_group_size=2, diversity_penalty=0.8,
             eos_token_id=tok.spec.eos_id, pad_token_id=tok.spec.pad_id)
+    ctx["device"] = args.device
+
+    if args.use_bertscore and "caption" in args.tasks:
+        from procyon_tpu_torch.evaluate.bertscore import make_scorer
+
+        kw = {} if args.bertscore_layer is None else \
+            {"layer": args.bertscore_layer}
+        ctx["bertscorer"] = make_scorer(
+            args.bertscore_model_dir,
+            baseline_file=args.bertscore_baseline_file, device=args.device,
+            **kw)
 
     ret_cfg = core.ret.RetrievalEvalConfig()
     overrides = {}

@@ -86,7 +86,11 @@ def build_midtrain_eval(cfg: unified.UnifiedConfig, *,
       qa / caption: mean val loss / accuracy over n_batches
       retrieval: for each val batch, [PROT] query embeddings scored against
         the FULL protein target set (cosine); per-query AUROC/AUPRC with the
-        batch's positive as the single label (trainIT.py:1626-1654)
+        batch's positive as the single label (trainIT.py:1626-1654), and
+        retrieval/n_scored, the queries whose positive is among the
+        targets: only those are scored, and with none AUROC / AUPRC and
+        "loss" are NaN (the trainer then leaves its patience count alone;
+        the reference reports no count)
     """
     if to_device is None:
         def to_device(b):
@@ -121,6 +125,7 @@ def build_midtrain_eval(cfg: unified.UnifiedConfig, *,
                 np.linalg.norm(targets, axis=1, keepdims=True), 1e-8)
             id_to_col = {a: i for i, a in enumerate(all_protein_ids)}
             aurocs, auprcs = [], []
+            n_scored = 0
             for _ in range(n_batches):
                 raw = val_streams["retrieval"]()
                 pos_ids = raw["reference_indices"]["aaseq"]
@@ -135,11 +140,14 @@ def build_midtrain_eval(cfg: unified.UnifiedConfig, *,
                     col = id_to_col.get(int(a))
                     if col is not None:
                         labels[r, col] = 1.0
+                # per_query_auroc_auprc skips a row with one class only
+                n_scored += int((labels.max(1) > labels.min(1)).sum())
                 auroc, auprc = per_query_auroc_auprc(labels, scores)
                 aurocs.append(auroc)
                 auprcs.append(auprc)
             metrics["retrieval/auroc"] = float(np.nanmean(aurocs))
             metrics["retrieval/auprc"] = float(np.nanmean(auprcs))
+            metrics["retrieval/n_scored"] = float(n_scored)
 
         # the trainer's early-stopping scalar: val losses summed
         # (retrieval contributes negated AUPRC so "lower is better" holds)

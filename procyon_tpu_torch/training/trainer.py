@@ -8,6 +8,11 @@ step" runs each unskipped task's step once (a separate optimizer update
 per task, like the reference's per-loss engine.backward calls); with
 `lora_phase_training`, qa / retrieval / mlm run on experts 0 / 1 / 2, then
 one joint update over every task on expert 3.
+
+A departure from the reference (ROADMAP.md, section 3): an eval whose
+watched metric is NaN (no val query scored) leaves the patience count as
+it was and is logged with the count of queries scored, where the
+reference counts it as a bad eval.
 """
 
 import dataclasses
@@ -193,6 +198,15 @@ class Trainer:
             return False
         key = self.loop.early_stopping_metric.replace("eval/", "")
         val = float(eval_metrics.get(key, np.inf))
+        if np.isnan(val):
+            # nothing was scored (e.g. no val positive among the capped
+            # targets): no evidence either way, so patience is not spent
+            scored = eval_metrics.get("retrieval/n_scored")
+            self.logger.info(
+                f"eval {key} is NaN at step {self.global_step} "
+                f"({scored} retrieval queries scored); patience count "
+                f"stays {self._bad_evals}")
+            return False
         if val < self._best:
             self._best = val
             self._bad_evals = 0

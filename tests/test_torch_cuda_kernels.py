@@ -32,7 +32,11 @@ slots and 8 with whole chunks of the page walk dead, against the plain
 version and its chunked cut, twice for the same bits; the int4 matmul at
 the five Llama-3-8B weight shapes (n cut where it can be), rows 1 to 256,
 groups of 64 and 128, at full size at 16 rows twice for the same bits, one
-device kernel a call, and one batcher run with int4 weights.
+device kernel a call, and one batcher run with int4 weights; at BERT's
+shape (H 12, D 64, bidirectional, right-padded rows, a row of padding
+alone) the flash forward against its plain version, its dead rows 0 bit
+for bit with NaN / inf in every padded row, padded keys that change no
+live row, and a BERT-base forward on the card against the CPU in f32.
 
 Marked `cuda`: needs a CUDA device, and without one every test skips (the
 fixture decides, at run time). This file imports torch only (the machine
@@ -41,6 +45,7 @@ with the card has no JAX), so run it there without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -545,6 +550,8 @@ def test_flash_forward_key_limit(cuda):
     (4, 1100, 1100, 8, 2, 128, True),   # 288 query tiles: the grid wraps
     (1, 2, 2000, 8, 2, 128, True),      # two new rows over a long cache
     (1, 1, 1500, 4, 1, 64, True),
+    (4, 512, 512, 12, 12, 64, False),   # BERT-base: right padding, a dead
+    (8, 384, 384, 12, 12, 64, False),   # row, a packed row; bidirectional
 ])
 def test_flash_forward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
     q, k, v, seg_q, seg_kv = _flash_inputs(cuda, B, Sq, Skv, Hq, Hkv, D,
@@ -574,6 +581,107 @@ def test_flash_forward_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal):
     assert torch.equal(lse > -1e29, live)
     assert (lse[~live] == -1e30).all()
     assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+
+
+def _bert_rows(dev, B, S, H, D, fill, seed):
+    """q, k, v [B, S, H, D] bf16 with BERT's right padding: rows of S, of
+    a length that ends inside a key tile, of 0 (a row of padding alone) and
+    of 37 tokens (its later key tiles all padding), then random lengths;
+    `fill` written into the padded rows of q, k and v."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    lens = [S, S - 75, 0, 37] + torch.randint(
+        1, S + 1, (B - 4,), generator=g, device=dev).tolist()
+    seg = (torch.arange(S, device=dev)[None]
+           < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+    pad = seg == 0
+    for t in (q, k, v):
+        t[pad] = fill
+    return q, k, v, seg
+
+
+@pytest.mark.parametrize("fill", [float("nan"), float("inf"),
+                                  float("-inf")])
+@pytest.mark.parametrize("B,S", [(6, 512), (5, 200)])
+def test_flash_forward_dead_rows_are_zero_whatever_padding_holds(
+        cuda, B, S, fill):
+    """BERT's shape (H 12, D 64, bidirectional, right-padded): a query row
+    that sees no key comes out 0 bit for bit and its lse -1e30, with NaN or
+    inf in every padded row of q, k and v (the kernel writes a dead row by
+    a select, not by scaling its sums, and a row of padding alone walks key
+    tile 0 all the same)."""
+    q, k, v, seg = _bert_rows(cuda, B, S, 12, 64, fill, S)
+    ints = fa.mask_inputs(q, k, seg, seg, None, None)
+    before = fa.launches
+    out, lse = fa.flash_fwd(q, k, v, *ints, causal=False, sm_scale=0.125,
+                            bounded=True, want_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    dead = seg == 0
+    assert (out[dead].view(torch.int16) == 0).all()
+    assert (lse.permute(0, 2, 1)[dead] == -1e30).all()
+
+
+@pytest.mark.parametrize("B,S", [(6, 512), (5, 200), (16, 128)])
+def test_flash_forward_padding_changes_no_live_row(cuda, B, S):
+    """The same BERT rows with 0 and with -3e4 in the padded rows: the live
+    rows come out the same bits (padded keys' scores are masked, their
+    probabilities exactly 0, and key tiles of padding alone are not
+    walked), and match the plain version."""
+    q, k, v, seg = _bert_rows(cuda, B, S, 12, 64, 0.0, S + 1)
+    q2, k2, v2, _ = _bert_rows(cuda, B, S, 12, 64, -3e4, S + 1)
+    out = fa.flash_attention(q, k, v, seg, seg, causal=False)
+    out2 = fa.flash_attention(q2, k2, v2, seg, seg, causal=False)
+    ints = fa.mask_inputs(q, k, seg, seg, None, None)
+    ref, _ = fa.flash_fwd_ref(q, k, v, *ints, causal=False, sm_scale=0.125)
+    torch.cuda.synchronize()
+    live = seg > 0
+    assert torch.equal(out[live], out2[live])
+    assert torch.isfinite(out.float()).all() and _close(out, ref)
+
+
+def test_bert_base_forward_on_the_card_matches_the_cpu(cuda):
+    """BERT-base (12 layers, 768 wide, 12 heads of 64) in bf16 on the card,
+    one flash forward launch a layer, against the same weights in f32 on
+    the CPU (the plain route) on right-padded rows and a row of padding
+    alone: every valid token's hidden state at a cosine of at least 0.995
+    and the pooled outputs at 0.999; a dead row's attention is 0 on both
+    sides, so its hidden states agree as well."""
+    from procyon_tpu_torch.models import bert
+
+    cfg = bert.bert_config("base", vocab_size=4096, max_position=256)
+    params = bert.init_params(7, cfg, device="cpu")
+    g = torch.Generator().manual_seed(8)
+    ids = torch.randint(5, 4096, (6, 256), generator=g)
+    for r, n in enumerate((256, 200, 129, 1, 64, 0)):
+        ids[r, n:] = cfg.pad_id
+    ids[:5, 0] = 2
+    ref = bert.forward(_f32(params), dataclasses.replace(
+        cfg, dtype=torch.float32), ids)
+    before = fa.launches
+    out = bert.forward(_to(params, cuda), cfg, ids.to(cuda))
+    torch.cuda.synchronize()
+    assert fa.launches == before + cfg.n_layers
+    h = out["hidden"].float().cpu()
+    assert torch.isfinite(h).all()
+    cos = torch.nn.functional.cosine_similarity(h, ref["hidden"], dim=-1)
+    assert cos.min().item() >= 0.995, cos.min().item()
+    pc = torch.nn.functional.cosine_similarity(out["pooled"].cpu(),
+                                               ref["pooled"], dim=-1)
+    assert pc.min().item() >= 0.999, pc.min().item()
+
+
+def _f32(tree):
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 def _grad_close(out, ref):

@@ -11,8 +11,8 @@ procyon_tpu's on the CPU.
   within 1e-4;
 - the caption metrics equal the JAX package's, and the ProCyon caption
   path runs through run_evaluation;
-- the zoo names of Slice 6b (BERT, BERTScore and the text baselines) and
-  BERTScore raise NotImplementedError naming the item;
+- (the third-party baselines and BERTScore are held to the JAX package in
+  test_torch_text_baselines.py and test_torch_bertscore.py);
 - `run_eval_framework --synthetic --device cpu` writes the JAX script's
   baseline rows to retrieval_metrics.tsv;
 - qa_filter_captions.score_captions on the JAX init_params carried across
@@ -177,27 +177,6 @@ def test_procyon_caption_runs_through_run_evaluation(tmp_path):
     assert (result["task"], result["model"]) == ("caption", "procyon")
     assert m["n"] == 4 and 0.0 <= m["rouge_l"] <= 1.0 \
         and 0.0 <= m["bleu"] <= 1.0
-
-
-@pytest.mark.parametrize("task,name", [
-    ("retrieval", "biotranslator"), ("retrieval", "protst"),
-    ("retrieval", "pubmedbert"), ("retrieval", "simcse"), ("qa", "protllm")])
-def test_slice_6b_models_raise_naming_the_item(tmp_path, task, name):
-    datasets, ctx = tcli.synthetic_datasets(False)
-    args = tcore.EvalArgs(tasks=(task,), models=(name,),
-                          output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Slice 6b"):
-        tcore.run_evaluation(args, datasets, model_context=ctx)
-
-
-def test_bertscore_raises_naming_the_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Slice 6b"):
-        tcap.calc_caption_metrics({1: "a"}, {1: ["a"]}, use_bertscore=True)
-    with pytest.raises(NotImplementedError, match="Slice 6b"):
-        tcap.run_caption_eval(None, [], references={}, bertscorer=object())
-    with pytest.raises(NotImplementedError, match="Slice 6b"):
-        tcli.main(["--synthetic", "--device", "cpu", "--use_bertscore",
-                   "--output_dir", str(tmp_path)])
 
 
 def test_cli_writes_the_reference_baseline_rows(tmp_path):

@@ -1,5 +1,6 @@
 """procyon_tpu_torch must import without JAX: the machine with the card has
-none, and importing procyon_tpu imports jax."""
+none, and importing procyon_tpu imports jax. Nor may it need
+scikit-learn, transformers or safetensors, which that machine lacks too."""
 
 import subprocess
 import sys
@@ -23,6 +24,7 @@ MODULES = [
     "procyon_tpu_torch.models._init",
     "procyon_tpu_torch.models.checkpoint_io",
     "procyon_tpu_torch.models.contrastive",
+    "procyon_tpu_torch.models.bert",
     "procyon_tpu_torch.models.esm2",
     "procyon_tpu_torch.models.llama",
     "procyon_tpu_torch.models.lora",
@@ -38,11 +40,16 @@ MODULES = [
     "procyon_tpu_torch.data.protein_tokenizer",
     "procyon_tpu_torch.data.registry",
     "procyon_tpu_torch.data.text_tokenizer",
+    "procyon_tpu_torch.data.wordpiece",
     "procyon_tpu_torch.evaluate.baselines",
+    "procyon_tpu_torch.evaluate.baselines.protllm",
     "procyon_tpu_torch.evaluate.baselines.simple",
+    "procyon_tpu_torch.evaluate.baselines.text_models",
+    "procyon_tpu_torch.evaluate.bertscore",
     "procyon_tpu_torch.evaluate.caption",
     "procyon_tpu_torch.evaluate.core",
     "procyon_tpu_torch.evaluate.data_loading",
+    "procyon_tpu_torch.evaluate.llm_judge",
     "procyon_tpu_torch.evaluate.metrics",
     "procyon_tpu_torch.evaluate.procyon_models",
     "procyon_tpu_torch.evaluate.qa",
@@ -62,6 +69,8 @@ MODULES = [
     "procyon_tpu_torch.scripts.bench_prefill",
     "procyon_tpu_torch.scripts.bench_retrieval",
     "procyon_tpu_torch.scripts.caption_bulk",
+    "procyon_tpu_torch.scripts.compute_bertscore_baseline",
+    "procyon_tpu_torch.scripts.llm_judge_pipeline",
     "procyon_tpu_torch.scripts.probe_fused_decode",
     "procyon_tpu_torch.scripts.probe_fused_mlp_blocks",
     "procyon_tpu_torch.scripts.qa_filter_captions",
@@ -84,7 +93,8 @@ def test_port_imports_without_jax():
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'procyon_tpu', 'sklearn') "
+        "bad = [m for m in ('jax', 'jaxlib', 'procyon_tpu', 'sklearn', "
+        "'transformers', 'safetensors') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

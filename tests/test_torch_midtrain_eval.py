@@ -9,7 +9,11 @@ agree to 1e-4, and the ranks with them), and the early-stopping "loss".
 all_protein_target_embeddings within 1e-4 with frozen tables and with a
 tiny live ESM2. When no val positive is among the targets (the capped
 target set), retrieval AUROC / AUPRC and the early-stopping "loss" are NaN
-in both packages, and both trainers count such an eval as a bad one.
+in both packages, and the port reports that it scored no query
+(retrieval/n_scored, a key the reference lacks). The reference's trainer
+counts such an eval as a bad one; the port's leaves the patience count as
+it was and logs it (a departure, ROADMAP.md section 3). Under
+run_pretrain's --use_lora recipe the trainer evaluates the whole tree.
 `run_pretrain --eval_steps 1 --max_steps 2 --device cpu` writes the eval
 metrics to metrics.jsonl at every step.
 """
@@ -24,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import procyon_tpu.models.unified as juni
 from procyon_tpu.data import collators as jC
@@ -87,7 +92,8 @@ def both_evals():
 
 def test_midtrain_eval_reports_the_reference_keys(both_evals):
     got, want = both_evals
-    assert got.keys() == want.keys()
+    assert got.keys() == want.keys() | {"retrieval/n_scored"}
+    assert got["retrieval/n_scored"] == 2 * N_BATCHES   # every val query
     assert {"qa/loss", "caption/loss", "retrieval/auroc", "retrieval/auprc",
             "loss"} <= got.keys()
 
@@ -122,6 +128,7 @@ def test_midtrain_eval_is_nan_when_no_val_positive_is_a_target():
         got, want = _run_both(batches, ids)
     for key in ("retrieval/auroc", "retrieval/auprc", "loss"):
         assert np.isnan(got[key]) and np.isnan(float(want[key])), key
+    assert got["retrieval/n_scored"] == 0
     assert np.isfinite(got["qa/loss"])
     assert got["qa/loss"] == pytest.approx(float(want["qa/loss"]), abs=1e-4)
 
@@ -129,18 +136,71 @@ def test_midtrain_eval_is_nan_when_no_val_positive_is_a_target():
 @pytest.mark.parametrize("trainer", [jtrainer.Trainer, ttrainer.Trainer],
                          ids=["reference", "port"])
 def test_trainer_counts_a_nan_eval_as_bad(trainer, tmp_path):
-    """NaN < best is False: a NaN eval "loss" counts as no improvement in
-    both packages, so patience runs out on NaN evals alone."""
+    """The reference: NaN < best is False, so a NaN eval "loss" counts as
+    no improvement and patience runs out on NaN evals alone. The port: a
+    NaN eval leaves the count as it was (and is logged with the queries
+    scored); a finite one after it counts as before."""
+    port = trainer is ttrainer.Trainer
+    logged = []
     state = types.SimpleNamespace(
         loop=types.SimpleNamespace(early_stopping_patience=2,
                                    early_stopping_metric="eval/loss",
                                    output_dir=str(tmp_path)),
+        logger=types.SimpleNamespace(info=logged.append),
         _best=np.inf, _bad_evals=0, global_step=1)
     assert not trainer._early_stop(state, {"loss": 5.0})
     assert state._best == 5.0 and state._bad_evals == 0
-    assert not trainer._early_stop(state, {"loss": float("nan")})
-    assert trainer._early_stop(state, {"loss": float("nan")})
-    assert state._best == 5.0 and state._bad_evals == 2
+    nan = {"loss": float("nan"), "retrieval/n_scored": 0.0}
+    assert not trainer._early_stop(state, nan)
+    assert trainer._early_stop(state, nan) is not port
+    assert state._best == 5.0 and state._bad_evals == (0 if port else 2)
+    if port:
+        assert len(logged) == 2 and "0.0 retrieval queries scored" \
+            in logged[0]
+        assert not trainer._early_stop(state, {"loss": 6.0})
+        assert trainer._early_stop(state, {"loss": 7.0})
+        assert state._bad_evals == 2
+
+
+def test_trainer_evaluates_the_whole_tree_under_use_lora(tmp_path):
+    """run_pretrain's LoRA recipe (`--use_lora`: the whole tree in the
+    state, the decoder's base weights frozen by the optimizer's mask): the
+    trainer hands eval_fn every leaf of the model, the LoRA banks as the
+    step left them and the frozen base as it was."""
+    from procyon_tpu_torch import bridge as tbridge
+    from procyon_tpu_torch.scripts import run_pretrain
+    from procyon_tpu_torch.training import train_step as tts
+
+    run = run_pretrain.setup([
+        "--synthetic", "true", "--device", "cpu", "--log_steps", "1",
+        "--warmup_steps", "1", "--qa_batch_size", "2",
+        "--retrieval_batch_size", "2", "--caption_batch_size", "2",
+        "--use_lora", "true", "--max_steps", "1", "--save_steps", "0",
+        "--eval_steps", "1", "--output_dir", str(tmp_path)])
+    base = run["params"]["llama"]["layers"]["attn"]["wq"].clone()
+    seen = []
+
+    def eval_fn(tree):
+        seen.append(tree)
+        return {"loss": 1.0}
+
+    trainer = ttrainer.Trainer(
+        cfg=run["ucfg"], params=run["params"], optimizer=run["optimizer"],
+        loop=run["loop"], task_streams=run["streams"],
+        weights=run["weights"], eval_fn=eval_fn,
+        to_device=lambda b: tts.batch_to_device(b, "cpu"))
+    trainer.train()
+    (tree,) = seen
+
+    def paths(t, pre=""):
+        if tbridge.is_leaf(t):
+            return {pre}
+        return set().union(*(paths(v, f"{pre}/{k}") for k, v in t.items()))
+
+    assert paths(tree) == paths(run["params"])
+    assert torch.equal(tree["llama"]["layers"]["attn"]["wq"], base)
+    lora = tree["llama"]["layers"]["lora_wq"]["B"]
+    assert lora.abs().max() > 0          # B starts at 0; the step moved it
 
 
 @pytest.mark.parametrize("live_esm", [False, True])
