@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
         [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged,times,
-                swiglu,decode,serving,eval,bert]
+                swiglu,decode,serving,eval,bert,esm_train]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -216,7 +216,28 @@ source, all started together), then:
      projector and Llama-2-7B-width decoder): every metric finite,
      queries/s or pairs/s, peak memory; then `run_eval_framework
      --use_bertscore` and `compute_bertscore_baseline --synthetic` on the
-     card.
+     card;
+ 27. the live-encoder slice (slice 1 remainder), after 16 on the same
+     service: a FASTA of 20,000 synthetic proteins (50-1024 residues, a
+     quarter longer) read by ProCyonDataStore through the native FASTA
+     index, built with g++ from the checkout (index seconds, sequences
+     read a second; the library must build); rows 3, 8 and 9 at ESM2-3B's
+     training attention (B8 S1026 H40 D64, bidirectional, right-padded to
+     the MLM batch's lengths) and with a 16-key prefix (Skv 1042), each
+     against its plain version beside sdpa with the key mask; one MLM
+     loss and the gradients of the banks, a prefix and an adapter at
+     ESM2-3B width cut to 2 layers, card bf16 against CPU f32, with the
+     expert index off by one and the prefix keys rotated by position
+     shown to fail that check; then LoRA phase training with ESM2-3B in
+     bf16 (MoLoRA r8 x 4 on its six projections) beside 16's int8 QLoRA
+     decoder through Trainer(lora_phase_training=True) and run_pretrain's
+     freeze mask: qa on expert 0 (B2 x S2048, 8 proteins encoded live),
+     retrieval on 1, mlm on 2 (8 proteins x 1024 residues from the
+     store), the joint step on 3; 2 warm and 4 timed global steps, ms a
+     phase, the MLM step's tokens/s and MFU, peak memory, launches of
+     rows 3, 8 and 9 a phase (two forwards a layer under remat); then the
+     trained encoder merged, quantized and fused, one W8A8 batch of B16 x
+     S1024 (rows 1 and 4) against the merged bf16 encoder.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -238,7 +259,8 @@ delta it writes.
 request, of five beam steps
 of each caption route, of one 8-step decode round of the serving path
 with bf16 and with int4 weights, of one QA train step, of one W8A8
-Bind batch and of one BERTScore encoder call.
+Bind batch, of one BERTScore encoder call and of one MLM train step of
+ESM2-3B.
 
 The build prints ptxas' registers and spills for each kernel function, and
 any note that it serialized a kernel's wgmma products.
@@ -262,7 +284,8 @@ calls, with the card's copy rate, for pairing with an earlier commit;
 "swiglu": row 7's checks and times; "decode": row 14's checks and its
 probe; "serving"; "eval": the evaluation slice's phases of item 25, with
 the caption path of item 8 for its metrics and the mid-train eval on the
-service's bf16 decoder; "bert": item 26), and prints no result line.
+service's bf16 decoder; "bert": item 26; "esm_train": item 27 on the
+synthetic service), and prints no result line.
 """
 
 import contextlib
@@ -528,6 +551,32 @@ BASELINE_MODELS = ("pubmedbert", "simcse", "biotranslator", "protst",
 BASELINE_SMALL = dict(layers=2, queries=8, targets=8, qa=8)
 BASELINE_SMALL_ATOL = dict(pubmedbert=5e-4, simcse=5e-4, biotranslator=5e-3,
                            protst=5e-3, protllm=2e-2)
+# the live-encoder slice (slice 1 remainder) at ProCyon-Full width: ESM2-3B
+# (configs/llama3-full.yml's protein encoder: d 2560, 36 layers, H40 D64)
+# fine-tuned with MoLoRA r8 (aaseq_lora_r, aaseq_lora_alpha 8) on all six
+# projections, 4 experts under lora_phase_training, beside phase_train's
+# int8 QLoRA decoder; MLM batches of 8 proteins x 1024 residues (1,026
+# tokens) drawn from a synthetic FASTA of 20,000 proteins (cell b's target
+# set) whose lengths run 50-1024 residues with a quarter longer (truncated)
+ESM_TRAIN = dict(lora_rank=8, lora_alpha=8.0, experts=4, targets="default",
+                 mlm_batch=8, max_len=1024, warm=2, timed=4, lr=1e-3,
+                 warmup=2)
+ESM_DATA = dict(proteins=20000, lengths=(50, 1024), long=0.25, reads=2000)
+# rows 3, 8 and 9 at ESM2-3B's training attention and with a prefix
+ESM_FLASH = dict(B=8, S=1026, H=40, D=64, P=16)
+# the trained encoder served: merged, int8, fused QKV, W8A8 (rows 1 and 4)
+ESM_SERVE = dict(B=16, S=1024)
+# one MLM loss and the gradients of the banks, prefix and adapter at
+# ESM2-3B width cut to 2 layers, card bf16 against CPU f32; the loss's
+# relative error and 1 - the least gradient cosine each within about 10x
+# what sound runs read (at most 5.2e-04 and 9.1e-05 over the three
+# variants on an H100 80GB HBM3 at 700 W); the expert index off by one (1 -
+# cosine 1.0) and the prefix keys rotated by position (0.24) must fail it
+ESM_SMALL = dict(layers=2, residues=(250, 190, 96), expert=2, b_scale=0.02,
+                 variants={"lora": {}, "prefix": {"prefix_len": 16},
+                           "adapter": {"adapter_rank": 64}})
+ESM_SMALL_LOSS_RTOL = 5e-3
+ESM_SMALL_COS = 1e-3
 
 
 def fail(msg):
@@ -672,11 +721,11 @@ def phase_build():
           f"in parallel ({_build.BUILD_DIR})")
 
 
-def phase_attention(dev, B, H=ATTN_SHAPE["H"]):
+def phase_attention(dev, B, H=ATTN_SHAPE["H"], S=ATTN_SHAPE["S"]):
     import torch
     from procyon_tpu_torch.ops import attention_rowblock as rb
     from procyon_tpu_torch.ops.rotary import flat_rotary_tables
-    S, D = ATTN_SHAPE["S"], ATTN_SHAPE["D"]
+    D = ATTN_SHAPE["D"]
     HD = H * D
     g = torch.Generator(device=dev).manual_seed(SEED)
     qkv = torch.randn((B, S, 3 * HD), generator=g, device=dev).to(
@@ -776,11 +825,10 @@ def mlp_stage_codes(kind, args):
     return codes
 
 
-def phase_mlp(dev, M):
+def phase_mlp(dev, M, d=MLP_SHAPE["d"], H=MLP_SHAPE["H"]):
     import torch
     from procyon_tpu_torch.ops import fused_mlp as fm
     from procyon_tpu_torch.ops import quant
-    d, H = MLP_SHAPE["d"], MLP_SHAPE["H"]
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
 
     def randn(*shape, scale=1.0):
@@ -3698,33 +3746,36 @@ def sdpa_bwd_ms(q, k, v, do, mask):
     return cuda_ms(fwd_bwd) - cuda_ms(fwd)
 
 
-def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None):
-    """One shape of the backward kernels (causal): dq, dk and dv against
-    flash_bwd_ref on the same bf16 inputs, rows and keys nothing allows
-    exactly 0; times for the pair (CUDA events; the dq kernel computes
-    delta, so there is no pass between the two), for each kernel (the
-    profiler's device time), the plain version and the library call; the
-    bounds from this run's masks. Returns the two kernels' entries of the
-    JSON line."""
+def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None,
+                   causal=True, seg_kv=None):
+    """One shape of the backward kernels (causal unless said): dq, dk and
+    dv against flash_bwd_ref on the same bf16 inputs, rows and keys nothing
+    allows exactly 0; times for the pair (CUDA events; the dq kernel
+    computes delta, so there is no pass between the two), for each kernel
+    (the profiler's device time), the plain version and the library call;
+    the bounds from this run's masks. seg_kv: the keys' segment ids when
+    they differ from the queries' (a prefix). Returns the two kernels'
+    entries of the JSON line."""
     import torch
     from procyon_tpu_torch.ops import flash_attention as fa
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     sm = D ** -0.5
-    ints = fa.mask_inputs(q, k, seg, seg, q_pos, kv_pos)
-    bounded = q_pos is None
-    out, lse = fa.flash_fwd(q, k, v, *ints, causal=True, sm_scale=sm,
+    ints = fa.mask_inputs(q, k, seg, seg if seg_kv is None else seg_kv,
+                          q_pos, kv_pos)
+    bounded = q_pos is None and q.shape[1] == k.shape[1]
+    out, lse = fa.flash_fwd(q, k, v, *ints, causal=causal, sm_scale=sm,
                             bounded=bounded, want_lse=True)
     g = torch.Generator(device=q.device).manual_seed(SEED + 31)
     do = torch.randn(out.shape, generator=g, device=q.device).to(
         torch.bfloat16)
 
     def kernel():
-        return fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=True,
+        return fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=causal,
                             sm_scale=sm, bounded=bounded)
 
     def plain():
-        return fa.flash_bwd_ref(q, k, v, *ints, out, lse, do, causal=True,
+        return fa.flash_bwd_ref(q, k, v, *ints, out, lse, do, causal=causal,
                                 sm_scale=sm)
 
     before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
@@ -3770,7 +3821,7 @@ def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None):
           f"{name}: a padded or dead row's gradient is not 0")
     pair_ms, plain_ms = paired_ms(kernel, plain)
     split = device_ms_by_kernel(kernel, ("flash_bwd_dq", "flash_bwd_dkv"))
-    pairs, ok = allowed_pairs(ints[0], ints[1], True, ints[2], ints[3])
+    pairs, ok = allowed_pairs(ints[0], ints[1], causal, ints[2], ints[3])
     library_ms = sdpa_bwd_ms(q, k, v, do, None if seg is None else ok)
     # inputs each kernel reads: the live q, do, k, v rows, lse and delta
     # (f32 [B, Hq, S]) and the four int arrays; the dq kernel writes delta
@@ -3784,8 +3835,10 @@ def flash_bwd_case(name, q, k, v, seg, *, q_pos=None, kv_pos=None):
     b_dkv = bound(n_in + nbytes(dk, dv), 4 * flop, PEAK_BF16)
     b_all = bound(n_in - nbytes(lse) + nbytes(out, dq, dk, dv), 5 * flop,
                   PEAK_BF16)
-    shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D}"
-    print(f"{name} {shape} causal{' bounded' if bounded else ''}: "
+    shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D}" + (
+        f" Skv{k.shape[1]}" if k.shape[1] != S else "")
+    print(f"{name} {shape} {'causal' if causal else 'bidirectional'}"
+          f"{' bounded' if bounded else ''}: "
           f"max_abs_err dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
           f"{errs['dv']:.3e}; largest error / allowance ({GRAD_ROW_TOL} "
           f"row max|plain| + {GRAD_FLOOR} max|plain| + {RTOL}|plain|) dq "
@@ -4118,6 +4171,9 @@ def profile_once(what, fn, untraced_ms):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms in "
               f"{e.count:5d} launches  {e.key[:90]}")
+    return dict(traced_wall_ms=wall, busy_ms=busy,
+                kernels=sum(e.count for e in kernels),
+                idle_share=1 - busy / untraced_ms)
 
 
 def phase_train(dev, service, profile=False):
@@ -5844,6 +5900,538 @@ def run_eval_group(dev, profile):
                 caption_metrics=caption["caption_metrics"])
 
 
+# ---------------------------------------------------------------------------
+# The live-encoder slice (slice 1 remainder): ESM2-3B fine-tuned with
+# MoLoRA banks under LoRA phase training, the MLM task, serving the merged
+# encoder, rows 3, 8 and 9 at ESM2's shapes, the native data path
+# ---------------------------------------------------------------------------
+
+
+def esm_sequences(n, seed):
+    """n synthetic proteins: lengths drawn from ESM_DATA's range, about
+    ESM_DATA["long"] of them longer than the encoder's 1024 residues (the
+    MLM stream truncates them), residues uniform over the 20 amino acids."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = ESM_DATA["lengths"]
+    lengths = rng.integers(lo, hi + 1, n)
+    long = rng.random(n) < ESM_DATA["long"]
+    lengths[long] = rng.integers(hi + 1, 2 * hi + 1, int(long.sum()))
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    flat = aa[rng.integers(0, 20, int(lengths.sum()))].tobytes().decode()
+    ends = np.cumsum(lengths)
+    return [flat[e - n_:e] for e, n_ in zip(ends, lengths)]
+
+
+def phase_esm_data(tmp):
+    """The native data path: a FASTA of ESM_DATA["proteins"] synthetic
+    proteins in a DATA_DIR layout under `tmp`, ProCyonDataStore reading it
+    through native.FastaIndex (the index's build seconds, sequences read a
+    second over random ids, each against the sequence written). Fails if
+    the native library did not build. Returns (the store, the numbers)."""
+    import numpy as np
+    from procyon_tpu_torch import native
+    from procyon_tpu_torch.data import datasets
+    t0 = time.perf_counter()
+    check(native.available(), "the native library did not build (g++)")
+    build_s = time.perf_counter() - t0
+    seqs = esm_sequences(ESM_DATA["proteins"], SEED + 61)
+    d = os.path.join(tmp, "integrated_data", "v1", "protein")
+    os.makedirs(d)
+    path = os.path.join(d, "protein_sequences.fa")
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(f">synthetic_{i} protein {i}\n")
+            f.write("\n".join(s[j:j + 60] for j in range(0, len(s), 60)))
+            f.write("\n")
+    store = datasets.ProCyonDataStore(tmp)
+    t0 = time.perf_counter()
+    store._load_sequences()
+    index_s = time.perf_counter() - t0
+    check(isinstance(store._seqs, native.FastaIndex)
+          and store._seqs._native and len(store._seqs) == len(seqs),
+          "ProCyonDataStore did not index the FASTA natively")
+    ids = np.random.default_rng(SEED + 62).integers(0, len(seqs),
+                                                    ESM_DATA["reads"])
+    t0 = time.perf_counter()
+    got = [store.protein_sequence(int(i)) for i in ids]
+    read_s = time.perf_counter() - t0
+    check(all(g == seqs[i] for g, i in zip(got, ids)),
+          "a sequence read through the index differs from the one written")
+    out = dict(proteins=len(seqs), fasta_mb=os.path.getsize(path) / 1e6,
+               native_build_s=build_s, index_build_s=index_s,
+               sequences_read_per_s=len(ids) / read_s,
+               residues=int(sum(len(s) for s in seqs)))
+    print(f"native data path: {len(seqs)} proteins "
+          f"({out['fasta_mb']:.1f} MB of FASTA, lengths "
+          f"{ESM_DATA['lengths']} with {ESM_DATA['long']:.0%} longer); "
+          f"library {build_s:.2f} s (g++ at first use), index "
+          f"{index_s:.3f} s, {out['sequences_read_per_s']:.0f} sequences "
+          f"read a second (host clock, {len(ids)} random ids), each the "
+          "sequence written")
+    return store, out
+
+
+def esm_config(**kw):
+    """ESM2-3B (ProCyon-Full's encoder) with the slice's MoLoRA banks, in
+    bf16, remat on."""
+    import torch
+    from procyon_tpu_torch.models import esm2, lora
+    base = dict(dtype=torch.bfloat16, lora=lora.LoRAConfig(
+        rank=ESM_TRAIN["lora_rank"], alpha=ESM_TRAIN["lora_alpha"],
+        num_experts=ESM_TRAIN["experts"], dtype=torch.bfloat16),
+        lora_targets=ESM_TRAIN["targets"])
+    base.update(kw)
+    return esm2.esm2_config("3b", **base)
+
+
+def esm_tokens(seqs, max_len, width=None):
+    """ESM token rows [len(seqs), width] of proteins truncated to max_len
+    residues (native.batch_encode), right-padded to `width`."""
+    import numpy as np
+    from procyon_tpu_torch import native
+    from procyon_tpu_torch.data.protein_tokenizer import PAD_IDX
+    pb = native.batch_encode(seqs, max_len=max_len, long_strategy="truncate")
+    if width is None or pb.tokens.shape[1] == width:
+        return pb.tokens
+    out = np.full((len(seqs), width), PAD_IDX, np.int32)
+    out[:, :pb.tokens.shape[1]] = pb.tokens
+    return out
+
+
+def esm_train_flops_per_token(ecfg, seq):
+    """train_flops_per_token's count for the encoder under LoRA: matmul
+    weights P (the layers, the LM head's dense and its tied decoder);
+    forward 2P, dL/dx 2P, remat's recompute 2P (dL/dW only for the banks,
+    left out as the decoder's count leaves out its LoRA); attention 2 * 2 *
+    S * d a token and layer, bidirectional (not halved), in the forward,
+    the backward and the recompute."""
+    d, L = ecfg.dim, ecfg.n_layers
+    P = L * (4 * d * d + 2 * d * ecfg.ffn_dim) + d * d + d * ecfg.vocab_size
+    return 6 * P + 3 * 4 * seq * d * L
+
+
+def phase_esm_train(dev, service, store, profile=False):
+    """A. LoRA phase training with a live ESM2-3B encoder at ProCyon-Full
+    width: the /retrieve service's decoder quantized to int8 with LoRA
+    r16 x 4 (phase_train's), ESM2-3B in bf16 with MoLoRA banks on its six
+    projections, the projectors and the temperature trained; run_pretrain's
+    freeze mask (freeze_fn) and Trainer(lora_phase_training=True). A
+    global step: qa on expert 0 (B2 x S2048, its 8 proteins encoded
+    live), retrieval on 1 (the same batch, phase_train's), mlm on 2 (8
+    proteins x 1024 residues from the FASTA store, masked natively), then
+    the joint step on 3 over all three. 2 warm and 4 timed global steps;
+    ms a phase and a global step, the MLM step's tokens/s and MFU, peak
+    memory, launches of rows 3, 8 and 9 a phase. Returns (launches, the
+    trained encoder's tree and config, results)."""
+    import tempfile
+
+    import torch
+    from procyon_tpu_torch import config as tconfig
+    from procyon_tpu_torch.data import data_config
+    from procyon_tpu_torch.models import esm2
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.training import optimizer as topt
+    from procyon_tpu_torch.training import train_step as ts
+    from procyon_tpu_torch.training.trainer import Trainer, TrainLoopConfig
+    t = ESM_TRAIN
+    ecfg = esm_config()
+    cfg = dataclasses.replace(qlora_config(service.cfg), esm=ecfg)
+    check(cfg.encoder_out_dim == service.cfg.protein_embed_dim,
+          "the service's projectors do not take ESM2-3B's width")
+    g = torch.Generator(device=dev).manual_seed(SEED + 63)
+    t0 = time.perf_counter()
+    params = dict(qlora_params(service.params, cfg, g),
+                  esm=esm2.init_params(SEED + 63, ecfg, device=dev))
+    torch.cuda.synchronize()
+    n_enc = sum(x.numel() for path, x in topt.tree_items(params["esm"])
+                if not any(k.startswith("lora_") for k in path))
+    margs = tconfig.ModelArgs(use_aaseq_embeddings=False, use_lora=True,
+                              use_prot_lora=True)
+    opt = topt.build_frozen_mask_optimizer(
+        topt.OptimizerConfig(lr=t["lr"], warmup_steps=t["warmup"],
+                             total_steps=1000), tconfig.freeze_fn(margs))
+    lcfg = cfg.llama
+    qa = ts.batch_to_device(train_batch(TRAIN["B"], TRAIN["S"],
+                                        lcfg.vocab_size,
+                                        cfg.protein_embed_dim, SEED + 35),
+                            dev)
+    del qa["protein_embeds"]
+    U = TRAIN["soft_tokens"]
+    qa["protein_tokens"] = torch.from_numpy(esm_tokens(
+        [store.protein_sequence(i) for i in range(U)], t["max_len"])).to(dev)
+    stream = data_config.build_mlm_stream(
+        store, batch_size=t["mlm_batch"], n_proteins=ESM_DATA["proteins"],
+        max_protein_len=t["max_len"], seed=SEED + 64)
+    n_steps = t["warm"] + t["timed"]
+    mlm = [ts.batch_to_device(stream(), dev) for _ in range(2 * n_steps)]
+    with tempfile.TemporaryDirectory() as out_dir:
+        trainer = Trainer(cfg=cfg, params=params, optimizer=opt,
+                          loop=TrainLoopConfig(max_steps=n_steps,
+                                               output_dir=out_dir,
+                                               lora_phase_training=True),
+                          task_streams={"qa": None, "retrieval": None,
+                                        "mlm": None})
+        trainer.metrics.close()
+    del params
+    n_train = sum(x.numel() for _, x in opt.trainable_items(
+        trainer.state["params"]))
+    print(f"live-encoder training: Llama-3-8B int8 + LoRA "
+          f"r{TRAIN['lora_rank']}x{TRAIN['lora_experts']}, ESM2-3B bf16 "
+          f"({ecfg.n_layers} layers, d {ecfg.dim}, H{ecfg.n_heads} "
+          f"D{ecfg.head_dim}, {n_enc / 1e9:.2f} B parameters) + MoLoRA "
+          f"r{t['lora_rank']}x{t['experts']} on {ecfg.lora_targets}; "
+          f"{n_train / 1e6:.1f} M trainable parameters; built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card "
+          "with the service's bf16 weights")
+    widths = sorted({int(b["protein_tokens"].shape[1]) for b in mlm})
+    masked = sum(int((b["mlm_labels"] != -100).sum()) for b in mlm)
+    print(f"  MLM batches: {t['mlm_batch']} proteins, widths {widths}, "
+          f"{masked / len(mlm):.0f} masked residues a batch")
+    expect = {
+        "qa": 2 * (lcfg.n_layers + ecfg.n_layers),
+        "retrieval": 2 * (lcfg.n_layers + ecfg.n_layers),
+        "mlm": 2 * ecfg.n_layers,
+        "joint": 2 * (2 * lcfg.n_layers + 3 * ecfg.n_layers)}
+    counts = ("launches", "launches_bwd_dq", "launches_bwd_dkv")
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {k: [] for k in ("qa", "retrieval", "mlm", "joint", "global")}
+    per, first, last = {}, {}, {}
+    for step in range(n_steps):
+        batches = {"qa": qa, "retrieval": qa, "mlm": mlm[2 * step]}
+        joint_batches = {"qa": qa, "retrieval": qa, "mlm": mlm[2 * step + 1]}
+        torch.cuda.synchronize()
+        g0 = time.perf_counter()
+        for phase in ("qa", "retrieval", "mlm", "joint"):
+            before = [getattr(fa, c) for c in counts]
+            p0 = time.perf_counter()
+            if phase == "joint":
+                trainer.state, m = trainer.joint_step(trainer.state,
+                                                      joint_batches)
+            else:
+                trainer.state, m = trainer.steps[phase](trainer.state,
+                                                        batches[phase])
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - p0) * 1e3
+            per[phase] = [getattr(fa, c) - b for c, b in zip(counts, before)]
+            check(math.isfinite(loss), f"{phase} loss {loss}")
+            first.setdefault(phase, loss)
+            last[phase] = loss
+            if step >= t["warm"]:
+                times[phase].append(ms)
+        if step >= t["warm"]:
+            times["global"].append((time.perf_counter() - g0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for phase, n in expect.items():
+        check(per[phase] == [n, n // 2, n // 2],
+              f"{phase} phase: launches of rows 3, 8, 9 {per[phase]}, "
+              f"expected {[n, n // 2, n // 2]} (remat: two forwards a "
+              "layer)")
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_bwd_dq": fa.launches_bwd_dq,
+                "flash_attention_bwd_dkv": fa.launches_bwd_dkv}
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    S = sum(int(b["protein_tokens"].shape[1]) for b in mlm) / len(mlm)
+    tokens = t["mlm_batch"] * S
+    residues = sum(int((b["protein_tokens"] > 3).sum()) for b in mlm) \
+        / len(mlm)
+    fpt = esm_train_flops_per_token(ecfg, S)
+    mfu = fpt * tokens / (mean["mlm"] / 1e3) / PEAK_BF16
+    results = dict(
+        ms_per_phase={k: mean[k] for k in ("qa", "retrieval", "mlm",
+                                           "joint")},
+        ms_per_global_step=mean["global"],
+        mlm_tokens_per_sec=tokens / (mean["mlm"] / 1e3),
+        mlm_residues_per_sec=residues / (mean["mlm"] / 1e3), mlm_mfu=mfu,
+        mlm_flop_per_token=fpt, peak_gib=peak,
+        launches_per_phase={k: dict(zip(("fwd", "dq", "dkv"), v))
+                            for k, v in per.items()},
+        first_loss=first, last_loss=last)
+    print(f"  a global step (host clock, mean of {t['timed']}): "
+          + ", ".join(f"{k} {mean[k]:.1f}" for k in ("qa", "retrieval",
+                                                      "mlm", "joint"))
+          + f" ms; {mean['global']:.1f} ms in all")
+    print(f"  MLM step: {tokens:.0f} tokens ({residues:.0f} residues) in "
+          f"{mean['mlm']:.1f} ms: {results['mlm_tokens_per_sec']:.0f} "
+          f"tokens/s, MFU {mfu:.1%} ({fpt * tokens:.3e} FLOP at "
+          f"{PEAK_BF16:.3g}); peak memory {peak:.1f} GiB (the service's "
+          f"bf16 weights included); launches a phase (fwd, dq, dkv) {per}")
+    print(f"  losses first {first}, last {last}")
+    if profile:
+        results["mlm_profile"] = profile_once(
+            "one MLM train step (ESM2-3B, 8 x 1026)",
+            lambda: trainer.steps["mlm"](trainer.state, mlm[0]),
+            mean["mlm"])
+    esm_params = trainer.state["params"]["esm"]
+    del trainer
+    return launches, (esm_params, ecfg), results
+
+
+def phase_esm_serve(dev, esm_params, ecfg, store):
+    """B. Serving the trained encoder: merge_lora_params, quantize_params,
+    fuse_qkv_params, then one W8A8 embedding batch of B16 x S1024 (rows 1
+    and 4 once a layer) against the merged bf16 encoder on the same
+    batch: the per-protein cosine of the mean-pooled embeddings at least
+    SANITY_COS; proteins/s of the W8A8 batch; then rows 1 and 4 alone at
+    the batch's shapes (phase_attention, phase_mlp). Returns (launches of
+    rows 1 and 4 in the batch, results, the two rows' entries)."""
+    import torch
+    from procyon_tpu_torch.models import esm2, pooling
+    from procyon_tpu_torch.ops import attention_rowblock, fused_mlp
+    B, S = ESM_SERVE["B"], ESM_SERVE["S"]
+    t0 = time.perf_counter()
+    merged = esm2.merge_lora_params(esm_params, ecfg)
+    cfg = dataclasses.replace(ecfg, lora=None, attn_backend="rowblock")
+    cfg8 = dataclasses.replace(cfg, quant_mode="w8a8")
+    p8 = esm2.fuse_qkv_params(esm2.quantize_params(merged, cfg8))
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    toks = torch.from_numpy(esm_tokens(
+        [store.protein_sequence(i) for i in range(100, 100 + B)], S - 2,
+        width=S)).to(dev)
+    check(tuple(toks.shape) == (B, S), f"serving batch {tuple(toks.shape)}")
+    mask = (toks != esm2.PAD_IDX).to(torch.int32)
+
+    def embed(p, c):
+        with torch.no_grad():
+            h = esm2.forward(p, c, toks)["hidden"]
+            return pooling.pool_tokens(h, mask, "mean")
+    attention_rowblock.launches = fused_mlp.launches = 0
+    e8 = embed(p8, cfg8)
+    torch.cuda.synchronize()
+    launches = {"rowblock_attention": attention_rowblock.launches,
+                "fused_ln_mlp_int8": fused_mlp.launches}
+    check(all(n == ecfg.n_layers for n in launches.values()),
+          f"the W8A8 batch launched {launches}, expected {ecfg.n_layers} "
+          "of rows 1 and 4")
+    ebf = embed(merged, cfg)
+    cos = cosines(e8, ebf)
+    cos_min = cos.min().item()
+    check(torch.isfinite(e8.float()).all().item() and cos_min >= SANITY_COS,
+          f"merged W8A8 against merged bf16: cos_min {cos_min}")
+    ms8 = cuda_ms(lambda: embed(p8, cfg8), iters=3, warmup=1)
+    msbf = cuda_ms(lambda: embed(merged, cfg), iters=3, warmup=1)
+    out = dict(merge_quantize_fuse_s=merge_s, cos_min=cos_min,
+               w8a8_ms=ms8, bf16_ms=msbf, proteins_per_sec_w8a8=B / ms8 * 1e3,
+               proteins_per_sec_bf16=B / msbf * 1e3, launches=launches)
+    print(f"serving the trained encoder: merge + quantize + fuse "
+          f"{merge_s:.1f} s; B{B} x S{S} W8A8 {ms8:.1f} ms "
+          f"({out['proteins_per_sec_w8a8']:.1f} proteins/s), merged bf16 "
+          f"{msbf:.1f} ms ({out['proteins_per_sec_bf16']:.1f}); per-protein "
+          f"cosine W8A8 against bf16 min {cos_min:.6f} (>= {SANITY_COS}); "
+          f"launches {launches}")
+    del p8, merged
+    torch.cuda.empty_cache()
+    # rows 1 and 4 alone at the batch's shapes (seeded inputs; not counted)
+    rows = dict(rowblock_attention=phase_attention(dev, B, H=ecfg.n_heads,
+                                                   S=S),
+                fused_ln_mlp_int8=phase_mlp(dev, B * S, d=ecfg.dim,
+                                            H=ecfg.ffn_dim))
+    return launches, out, rows
+
+
+def phase_esm_flash(dev, lengths):
+    """C. Rows 3, 8 and 9 at ESM2-3B's training attention: B8 S1026 H40
+    D64, bidirectional, right-padded to the MLM batch's `lengths` (+ cls /
+    eos), and with a prefix of ESM_FLASH["P"] keys (segment 1; Skv = S + P,
+    not bounded). flash_case / flash_bwd_case: each against its plain
+    version, twice for the same bits, sdpa with the boolean key mask beside
+    it, bounds from the allowed pairs. Returns the entries by shape."""
+    import torch
+    B, S, H, D, P = (ESM_FLASH[k] for k in ("B", "S", "H", "D", "P"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 65)
+    seg = (torch.arange(S, device=dev)[None] < torch.tensor(
+        [n + 2 for n in lengths], device=dev)[:, None]).to(torch.int32)
+    out = {}
+    for name, p in (("esm2_training_shape", 0), ("esm2_prefix_shape", P)):
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, S + p, H, D), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        seg_kv = torch.cat([torch.ones((B, p), dtype=torch.int32,
+                                       device=dev), seg], 1)
+        fwd = flash_case(f"esm fwd ({name})", q, k, v, seg, seg_kv,
+                         causal=False)
+        bwd = flash_bwd_case(f"esm bwd ({name})", q, k, v, seg,
+                             causal=False, seg_kv=seg_kv)
+        out[name] = (fwd, bwd)
+    return out
+
+
+def esm_small_batch(store, n_res):
+    """The 2-layer check's MLM batch: proteins of n_res residues (the
+    first right-padded), masked by the native masking."""
+    from procyon_tpu_torch import native
+    seqs = [store.protein_sequence(i)[:n] for i, n in enumerate(n_res)]
+    pb = native.batch_encode(seqs, max_len=max(n_res),
+                             long_strategy="truncate")
+    masked, labels = native.mask_for_mlm(pb.tokens, SEED + 66)
+    return {"protein_tokens": masked, "mlm_labels": labels}
+
+
+def esm_small_params(dev, variant):
+    """The 2-layer check's encoder on the card: ESM2-3B width cut to
+    ESM_SMALL["layers"] layers, seeded, with LoRA B and the adapter's up
+    projection drawn N(0, b_scale^2) and the prefix rows N(0, 1), so that
+    every trained leaf has a gradient and the prefix weighs in the
+    attention. Returns (params, config)."""
+    import torch
+    from procyon_tpu_torch.models import esm2
+    from procyon_tpu_torch.training import optimizer as topt
+    kw = dict(n_layers=ESM_SMALL["layers"], **ESM_SMALL["variants"][variant])
+    ecfg = esm_config(**kw)
+    g = torch.Generator(device=dev).manual_seed(SEED + 67)
+    params = esm2.init_params(g, ecfg, device=dev)
+    for path, leaf in topt.tree_items(params["layers"]):
+        if path[0].startswith("lora_") and path[1] == "B" \
+                or path[:2] == ("adapter", "wu"):
+            leaf.copy_(ESM_SMALL["b_scale"] * torch.randn(
+                leaf.shape, generator=g, device=dev))
+        elif path[0] == "prefix":
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev))
+    return params, ecfg
+
+
+def esm_small_loss(where, params, ecfg, batch, expert, rot=None):
+    """One MLM loss and its gradients over the encoder's banks, prefix and
+    adapter (train_step.value_and_grad, as the MLM step takes them): on
+    the card in bf16 (where "card") or on the CPU in f32 from the same
+    weights. rot replaces esm2.prefix_key_rotation (a planted fault).
+    Returns (loss, {path: gradient in f32 on the CPU})."""
+    import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.models import esm2, unified
+    from procyon_tpu_torch.training import optimizer as topt
+    from procyon_tpu_torch.training import train_step as ts
+    if where == "cpu":
+        params = bridge.map_tensors(lambda t: t.float().cpu(), params)
+        ecfg = dataclasses.replace(ecfg, dtype=torch.float32, lora=dataclasses
+                                   .replace(ecfg.lora, dtype=torch.float32))
+    dev = next(iter(bridge.tree_leaves(params))).device
+    cfg = unified.UnifiedConfig(llama=None, esm=ecfg, dtype=ecfg.dtype)
+    opt = topt.build_optimizer(topt.OptimizerConfig(lr=1e-3))
+    state = ts.init_train_state({"esm": params}, opt, trainable_predicate=(
+        lambda p: any(s in p for s in ("lora_", "prefix", "adapter"))))
+    b = ts.batch_to_device(batch, dev)
+    orig = esm2.prefix_key_rotation
+    if rot is not None:
+        esm2.prefix_key_rotation = rot
+    try:
+        loss, _, items, grads = ts.value_and_grad(
+            opt, state, True,
+            lambda p: ts.mlm_loss_fn(p, cfg, b, 1.0, lora_expert=expert))
+    finally:
+        esm2.prefix_key_rotation = orig
+    return float(loss), {"/".join(p): gr.float().cpu()
+                         for (p, _), gr in zip(items, grads)}
+
+
+def esm_small_errors(card, cpu):
+    """(|loss error| / |loss|, 1 - the least gradient cosine, the leaf)."""
+    import torch
+    (lc, gc), (lr_, gr) = card, cpu
+    worst, leaf = 0.0, None
+    for k, b in gr.items():
+        a = gc[k]
+        if not b.any() and not a.any():
+            continue
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+        if 1 - cos > worst or leaf is None:
+            worst, leaf = max(worst, 1 - cos), k
+    return abs(lc - lr_) / abs(lr_), worst, leaf
+
+
+def phase_esm_small(dev, store):
+    """D. The MLM loss and the gradients of the banks, the prefix and the
+    adapter at ESM2-3B width cut to 2 layers: the card in bf16 against the
+    CPU in f32 from the same weights, for LoRA alone, with a prefix and
+    with the adapter, each within ESM_SMALL_LOSS_RTOL (loss) and
+    ESM_SMALL_COS (1 - the least cosine). Two planted faults must fail the
+    check: the expert index off by one, and the prefix keys given the
+    positional rotation in place of the identity."""
+    from procyon_tpu_torch.ops.rotary import flat_rotary_tables
+    batch = esm_small_batch(store, ESM_SMALL["residues"])
+    expert = ESM_SMALL["expert"]
+    readings, t0 = {}, time.perf_counter()
+
+    def positional(ecfg):
+        def rot_k(rot, P):
+            # the prefix keys rotated as positions 0..P-1, the rest as they
+            # are
+            import torch
+            cos, sin, _ = flat_rotary_tables(ecfg.head_dim, ecfg.n_heads, P)
+            return (torch.cat([cos.to(rot[0]), rot[0]]),
+                    torch.cat([sin.to(rot[1]), rot[1]]))
+        return rot_k
+
+    for variant in ESM_SMALL["variants"]:
+        params, ecfg = esm_small_params(dev, variant)
+        cpu = esm_small_loss("cpu", params, ecfg, batch, expert)
+        card = esm_small_loss("card", params, ecfg, batch, expert)
+        rel, cos, leaf = esm_small_errors(card, cpu)
+        readings[variant] = dict(loss_rel=rel, one_minus_cos=cos, leaf=leaf,
+                                 loss=card[0])
+        print(f"  {variant}: loss card {card[0]:.5f}, CPU {cpu[0]:.5f} "
+              f"(rel {rel:.2e} <= {ESM_SMALL_LOSS_RTOL}); 1 - least gradient "
+              f"cosine {cos:.2e} ({leaf}; <= {ESM_SMALL_COS})")
+        check(rel <= ESM_SMALL_LOSS_RTOL and cos <= ESM_SMALL_COS,
+              f"the 2-layer ESM2-3B check ({variant}): {readings[variant]}")
+        faults = [("expert off by one", dict(expert=expert + 1))]
+        if variant == "prefix":
+            faults.append(("prefix keys rotated by position",
+                           dict(expert=expert, rot=positional(ecfg))))
+        for what, kw in faults:
+            bad = esm_small_loss("card", params, ecfg, batch, **kw)
+            brel, bcos, bleaf = esm_small_errors(bad, cpu)
+            readings[f"{variant}: {what}"] = dict(
+                loss_rel=brel, one_minus_cos=bcos, leaf=bleaf)
+            check(brel > ESM_SMALL_LOSS_RTOL or bcos > ESM_SMALL_COS,
+                  f"the 2-layer check passes a fault: {what} ({variant})")
+            print(f"  {variant}, a fault, {what}: loss rel {brel:.2e}, "
+                  f"1 - least cosine {bcos:.2e} ({bleaf}): caught")
+    print(f"ESM2-3B width at {ESM_SMALL['layers']} layers, one MLM loss and "
+          f"its gradients, card bf16 against CPU f32 (proteins of "
+          f"{ESM_SMALL['residues']} residues, expert {expert}): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return readings
+
+
+def run_esm_train_group(dev, service, profile=False):
+    """The live-encoder slice: E (the native data path, whose store the
+    rest reads), C (rows 3, 8, 9 at ESM2's shapes; not counted), D (the
+    2-layer card-against-CPU check and its planted faults), then A with
+    the counts of rows 3, 8 and 9 set to 0 before it and read after it,
+    and B with rows 1 and 4's. Returns (launches, the kernel entries at
+    ESM2's shapes, results)."""
+    import tempfile
+
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        store, data = phase_esm_data(tmp)
+        lengths = [len(store.protein_sequence(i)) for i in
+                   range(ESM_FLASH["B"])]
+        lengths = [min(n, ESM_FLASH["S"] - 2) for n in lengths]
+        lengths[0] = ESM_FLASH["S"] - 2
+        entries = phase_esm_flash(dev, lengths)
+        torch.cuda.empty_cache()
+        small = phase_esm_small(dev, store)
+        torch.cuda.empty_cache()
+        launches, (esm_params, ecfg), train = phase_esm_train(
+            dev, service, store, profile)
+        torch.cuda.empty_cache()
+        serve_launches, serve, rows = phase_esm_serve(dev, esm_params, ecfg,
+                                                      store)
+        del esm_params
+        torch.cuda.empty_cache()
+    launches.update(serve_launches)
+    entries.update(rows)
+    return launches, entries, dict(training=train, serving=serve,
+                                   small_check=small, data=data)
+
+
 def request_breakdown(service, source, desc, reps=5):
     """Host-clock split of service.retrieve's three steps, each ended by a
     synchronize: prompt and collator (with the copy to the card), the model,
@@ -5924,7 +6512,10 @@ def run_only(dev, names, profile):
     caption path with its metrics), "bert" (the BERT slice: row 3 at
     BERT's shape, BERTScore at SciBERT width with its 2-layer check, the
     five text baselines' 2-layer checks and their runs at full width, the
-    two BERTScore CLIs). Prints
+    two BERTScore CLIs), "esm_train" (the live-encoder slice: the native
+    data path, rows 3, 8 and 9 at ESM2-3B's shapes, the 2-layer check,
+    LoRA phase training and the merged encoder served, on the synthetic
+    service). Prints
     their lines and no result line."""
     def mlp():
         rows = [phase_mlp(dev, m) for m in MLP_ROWS]
@@ -5952,6 +6543,8 @@ def run_only(dev, names, profile):
                                          profile)[1],
         "eval": lambda: run_eval_group(dev, profile),
         "bert": lambda: run_bert_group(dev, profile),
+        "esm_train": lambda: run_esm_train_group(
+            dev, synthetic_service(dev), profile)[2],
     }
     for name in names:
         check(name in groups, f"--only: no group {name!r} (of "
@@ -6010,7 +6603,9 @@ def main():
     kernels.append(phase_page_move(dev))
     kernels.append(phase_paged(dev))
     kernels.append(phase_int4(dev))
-    kernels.extend(phase_flash_bwd(dev))
+    bwd_entries = phase_flash_bwd(dev)
+    bwd_rows = {e["name"]: e for e in bwd_entries}
+    kernels.extend(bwd_entries)
     torch.cuda.empty_cache()
     staged = phase_staged_move(dev)
     kernels.extend(phase_prequant_mlp(dev))
@@ -6070,6 +6665,23 @@ def main():
         "flash_attention_bwd_dq"]
     launches["flash_attention_bwd_dkv"] = train_launches[
         "flash_attention_bwd_dkv"]
+    torch.cuda.empty_cache()
+    esm_launches, esm_entries, esm_results = run_esm_train_group(
+        dev, service, profile)
+    for key, n in esm_launches.items():
+        launches[key] += n
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    for name in ("esm2_training_shape", "esm2_prefix_shape"):
+        fwd, bwd = esm_entries[name]
+        flash[0][name] = {k: fwd[k] for k in keep}
+        for entry in bwd:
+            bwd_rows[entry["name"]][name] = {k: entry[k] for k in keep
+                                             + ("pair_ms",)}
+    for k in kernels:
+        if k["name"] in ("rowblock_attention", "fused_ln_mlp_int8"):
+            k["esm2_3b_serving"] = {f: esm_entries[k["name"]][f]
+                                    for f in keep}
     del service
     torch.cuda.empty_cache()
     spec = phase_speculative(dev)
@@ -6165,6 +6777,14 @@ def main():
         "flash_bwd_dq_launches": launches["flash_attention_bwd_dq"],
         "flash_bwd_dkv_launches": launches["flash_attention_bwd_dkv"],
         **train}}))
+    print(json.dumps({"main_path": {
+        "model": "live-encoder LoRA phase training (ESM2-3B bf16 + MoLoRA "
+                 "r8x4 on all six projections, Llama-3-8B int8 + LoRA "
+                 "r16x4; MLM 8 x 1024 residues, QA / retrieval B2 x S2048 "
+                 "with 8 proteins encoded live), the merged encoder served "
+                 "in W8A8 at B16 x S1024, the 2-layer check, the native "
+                 "data path", "card": smi,
+        "launches": esm_launches, **esm_results}}))
     print(json.dumps({"main_path": {
         "model": "probe_fused_decode (Llama-3-8B MLP, int8 weights, 32 "
                  "distinct layers), probe_fused_mlp_blocks (ESM2-3B MLP, "

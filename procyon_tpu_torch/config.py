@@ -203,6 +203,7 @@ def build_model_config(margs: ModelArgs, dargs: Optional[DataArgs] = None):
                                 attn_backend=margs.attention_backend,
                                 prefix_len=margs.esm_prefix_len,
                                 lora=prot_lora,
+                                lora_targets=margs.prot_lora_parameters,
                                 adapter_rank=margs.aaseq_adapter_rank)
     return unified.UnifiedConfig(
         llama=lcfg, esm=ecfg,

@@ -306,10 +306,10 @@ class BaseCollator:
         cfg = self.cfg
         idxs = unique.order or [0]
         if cfg.use_protein_tokens:
-            from procyon_tpu_torch.data import protein_tokenizer
+            from procyon_tpu_torch import native
 
             seqs = [self.store.protein_sequence(i) for i in idxs]
-            pb = protein_tokenizer.batch_encode(
+            pb = native.batch_encode(
                 seqs, max_len=cfg.max_protein_len,
                 long_strategy=cfg.long_protein_strategy,
                 pad_rows_to=cfg.max_protein_rows)

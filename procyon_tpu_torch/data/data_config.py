@@ -154,13 +154,35 @@ def _dataset_for_entry(entry: DatasetEntry, relation: str, store, data_dir,
 
 
 def build_mlm_stream(store, *, batch_size: int, n_proteins: int,
-                     max_protein_len: int = 1024, seed: int = 0):
-    """ESM2 masked-LM task stream: the MLM loss needs the fusion model's
-    MLM head, which is not ported, so its stream is not built either."""
-    raise NotImplementedError(
-        "the ESM2 masked-LM task (build_mlm_stream, the MLM head) is not "
-        "ported to procyon_tpu_torch yet (ROADMAP.md, queue 1, item 2 "
-        "remainder)")
+                     max_protein_len: int = 1024, seed: int = 0,
+                     state_holder: Optional[Dict[str, dict]] = None,
+                     resume_state: Optional[dict] = None):
+    """ESM2 masked-LM task stream (ProteinMLMCollator equivalent): sample
+    proteins, tokenize them (long ones truncated to max_protein_len), mask
+    them (native.mask_for_mlm). Batch n (from 1) draws its proteins from a
+    generator seeded by (seed, "mlm", n) and masks with seed + n; the count
+    of batches drawn goes into state_holder["mlm"] after each batch, and a
+    stream built with that state as resume_state continues where it
+    stopped. (The reference draws the proteins from one generator that the
+    resume state does not hold.)"""
+    from procyon_tpu_torch import native
+
+    counter = [int((resume_state or {}).get("batches", 0))]
+    tag = zlib.crc32(b"mlm")
+
+    def stream():
+        counter[0] += 1
+        rng = np.random.default_rng((seed, tag, counter[0]))
+        idxs = rng.integers(0, n_proteins, batch_size)
+        seqs = [store.protein_sequence(int(i)) for i in idxs]
+        pb = native.batch_encode(seqs, max_len=max_protein_len,
+                                 long_strategy="truncate")
+        masked, labels = native.mask_for_mlm(pb.tokens, seed + counter[0])
+        if state_holder is not None:
+            state_holder["mlm"] = {"batches": counter[0]}
+        return {"protein_tokens": masked, "mlm_labels": labels}
+
+    return stream
 
 
 def _mark(batch, ridx):

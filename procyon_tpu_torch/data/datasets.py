@@ -107,16 +107,17 @@ class ProCyonDataStore:
         self._embeds = None
         self._embed_map = None
 
-    # -- sequences (integrated_data/v1/{type}/{type}_sequences.fa). The
-    # reference reads them through its native FASTA offset index, which
-    # is not ported yet (ROADMAP.md, queue 1, remainder).
+    # -- sequences (integrated_data/v1/{type}/{type}_sequences.fa) via the
+    # native FASTA offset index (no full-file load for 57k-protein stores)
     def _load_sequences(self):
         if self._seqs is not None:
             return
-        raise NotImplementedError(
-            "the FASTA offset index is not ported to procyon_tpu_torch yet "
-            "(ROADMAP.md, queue 1, remainder); frozen-embedding mode "
-            "does not read sequences")
+        from procyon_tpu_torch.native import FastaIndex
+
+        fa = os.path.join(self.data_dir, "integrated_data", "v1",
+                          self.aaseq_type,
+                          f"{self.aaseq_type}_sequences.fa")
+        self._seqs = FastaIndex(fa)
 
     def protein_sequence(self, idx: int) -> str:
         self._load_sequences()

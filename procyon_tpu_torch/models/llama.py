@@ -183,7 +183,7 @@ def _layer(layers, i: int):
     return layers[i]
 
 
-def _needs_grad(x, tree) -> bool:
+def needs_grad(x, tree) -> bool:
     """Grad mode is on and x or a tensor of the tree requires grad."""
     if not torch.is_grad_enabled():
         return False
@@ -349,7 +349,7 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
     if kv_cache is None:
         for i in range(cfg.n_layers):
             lp = _layer(layers, i)
-            if cfg.remat and _needs_grad(x, lp):
+            if cfg.remat and needs_grad(x, lp):
                 x = torch.utils.checkpoint.checkpoint(
                     _block, x, lp, seg_ids, positions, rot, cfg,
                     lora_expert=lora_expert, use_reentrant=False)

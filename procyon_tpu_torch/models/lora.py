@@ -5,7 +5,9 @@ N parallel (A, B) low-rank pairs behind a leading [E, ...] axis; the active
 expert is an index (`bank[idx]`), chosen per task phase, or per batch row
 with a one-hot in `apply_routed`; `top1_router_losses` are the router's
 auxiliary losses. With a host int `expert_idx`, `apply` reads one slice of
-each bank, so a gradient reaches A[e] and B[e] and no other expert.
+each bank, so a gradient reaches A[e] and B[e] and no other expert. An
+index past the bank reads its last expert and trains nothing, as JAX's
+clipping gather does.
 """
 
 import dataclasses
@@ -39,10 +41,30 @@ def init_params(seed: Seed, cfg: LoRAConfig, in_dim: int, out_dim: int, *,
     return {"A": a.to(cfg.dtype), "B": b}
 
 
+def expert_slice(bank: torch.Tensor, expert_idx) -> torch.Tensor:
+    """bank[expert_idx] with JAX's gather semantics for an index past the
+    bank: the read is clamped to [0, E - 1], and the gradient of such a
+    read is dropped (JAX's gather clips the index, and its transpose drops
+    the out-of-bounds update). The two towers may hold banks of different
+    sizes, and the trainer's phase index (up to 3) then reads a smaller
+    tower's last expert without training it. A host int stays on the
+    host; a tensor index is clamped on its device."""
+    n = bank.shape[0]
+    if isinstance(expert_idx, torch.Tensor):
+        w = bank[expert_idx.clamp(0, n - 1)]
+        inside = (expert_idx >= 0) & (expert_idx < n)
+        return torch.where(inside, w, w.detach())
+    e = int(expert_idx)
+    if 0 <= e < n:
+        return bank[e]
+    return bank[min(max(e, 0), n - 1)].detach()
+
+
 def apply(params, cfg: LoRAConfig, x, base_out, expert_idx=0):
-    """base_out + scaling * (x @ A[e]) @ B[e]."""
-    a = params["A"][expert_idx]
-    b = params["B"][expert_idx]
+    """base_out + scaling * (x @ A[e]) @ B[e] (expert_slice's reading of
+    an index past the bank)."""
+    a = expert_slice(params["A"], expert_idx)
+    b = expert_slice(params["B"], expert_idx)
     return base_out + cfg.scaling * ((x @ a) @ b)
 
 

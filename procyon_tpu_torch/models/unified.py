@@ -17,9 +17,9 @@ Forward modes:
                describes a deployment of that side alone, with no decoder)
 
 Batches are dicts of tensors on the parameters' device. `forward` is
-differentiable (the training losses, train steps in training/). Not ported
-yet (ROADMAP.md, queue 1): the ESM2 masked-LM head of the fusion model
-(`protein_mlm_logits` raises) and the cross-device contrastive batch
+differentiable (the training losses, train steps in training/), and so is
+`protein_mlm_logits`, the encoder's masked-LM head (the MLM task). Not
+ported yet (ROADMAP.md, queue 1): the cross-device contrastive batch
 (multi-GPU training).
 """
 
@@ -74,7 +74,7 @@ class UnifiedConfig:
 def tiny_config(**kw) -> UnifiedConfig:
     base = dict(
         llama=llama.tiny_config(attn_backend="ref", remat=False),
-        esm=esm2.tiny_config(attn_backend="ref"),
+        esm=esm2.tiny_config(attn_backend="ref", remat=False),
         protein_embed_dim=64, token_projector_layers=2,
         token_projector_hidden=32, retrieval_dim=16, dtype=torch.float32,
     )
@@ -150,12 +150,15 @@ def encode_proteins(params, cfg: UnifiedConfig,
                     protein_tokens: torch.Tensor, *,
                     group_ids: Optional[torch.Tensor] = None,
                     num_groups: Optional[int] = None,
-                    row_valid: Optional[torch.Tensor] = None):
+                    row_valid: Optional[torch.Tensor] = None,
+                    lora_expert=0):
     """ESM-encode residue tokens [R, Lp] -> pooled embeddings [R or G, De];
-    group_ids/num_groups merge chunk rows of long proteins."""
+    group_ids/num_groups merge chunk rows of long proteins. lora_expert
+    selects the encoder's (Mo)LoRA expert when cfg.esm.lora is set."""
     if cfg.esm is None:
         raise ValueError("encode_proteins requires a live ESM encoder")
-    out = esm2.forward(params["esm"], cfg.esm, protein_tokens)
+    out = esm2.forward(params["esm"], cfg.esm, protein_tokens,
+                       lora_expert=lora_expert)
     token_mask = (protein_tokens != esm2.PAD_IDX).to(torch.int32)
     pooled = pooling.pool_tokens(out["hidden"], token_mask,
                                  cfg.protein_pooling)
@@ -227,9 +230,9 @@ def build_soft_bank(params, cfg: UnifiedConfig, protein_embeds,
     return banks[0] if len(banks) == 1 else torch.cat(banks, dim=0)
 
 
-def _with_protein_embeds(params, cfg, batch):
+def _with_protein_embeds(params, cfg, batch, lora_expert=0):
     """The batch with "protein_embeds", encoding "protein_tokens" with the
-    live encoder when they are not precomputed."""
+    live encoder (on `lora_expert`) when they are not precomputed."""
     if batch.get("protein_embeds") is not None:
         return batch
     toks = batch["protein_tokens"]
@@ -237,7 +240,7 @@ def _with_protein_embeds(params, cfg, batch):
     embeds = encode_proteins(
         params, cfg, toks, group_ids=batch.get("protein_group_ids"),
         num_groups=toks.shape[0] if grouped else None,
-        row_valid=batch.get("protein_row_valid"))
+        row_valid=batch.get("protein_row_valid"), lora_expert=lora_expert)
     return {**batch, "protein_embeds": embeds}
 
 
@@ -277,7 +280,7 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
     needs it. max_position is llama.forward's host-side bound of
     `positions`.
     """
-    batch = _with_protein_embeds(params, cfg, batch)
+    batch = _with_protein_embeds(params, cfg, batch, lora_expert)
     input_embeds = assemble_input_embeds(params, cfg, batch)
     out = llama.forward(params["llama"], cfg.llama,
                         input_embeds=input_embeds,
@@ -332,10 +335,12 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
 
 def protein_mlm_logits(params, cfg: UnifiedConfig, protein_tokens, *,
                        lora_expert=0):
-    """The ESM2 masked-LM head of the fusion model: not ported."""
-    raise NotImplementedError(
-        "the ESM2 masked-LM head (protein_mlm_logits) is not ported to "
-        "procyon_tpu_torch yet (ROADMAP.md, queue 1, item 2 remainder)")
+    """The encoder's masked-LM logits [R, Lp, vocab] in f32: the tied
+    embedding head (dense, GELU, LayerNorm, the embedding's transpose, a
+    bias) on the residue tokens, through the encoder's `lora_expert`."""
+    return esm2.forward(params["esm"], cfg.esm, protein_tokens,
+                        return_logits=True,
+                        lora_expert=lora_expert)["logits"]
 
 
 def retrieval_query_embedding(params, cfg: UnifiedConfig, batch):

@@ -66,7 +66,7 @@ def apply_rope_flat(x: torch.Tensor, cos: torch.Tensor,
     perm = rope_perm(x.shape[-1] // head_dim, head_dim).to(x.device)
     c = cos.to(x.dtype)
     s = sin_signed.to(x.dtype)
-    return x * c + x[..., perm] * s
+    return x * c + _LanePermutation.apply(x, perm) * s
 
 
 class _LanePermutation(torch.autograd.Function):
@@ -74,7 +74,8 @@ class _LanePermutation(torch.autograd.Function):
     same perm: rotating each head's lanes by D/2 twice is the identity, so
     perm is its own inverse. Indexing's own backward is an accumulating
     scatter: a sort and about 2 ms a call at the Llama-3-8B training shape
-    on the H100, a fifth of a train step's device time."""
+    on the H100, a fifth of a train step's device time; 4.2 ms a call on
+    ESM2-3B's q and k at B8 x S1026 (306 of an MLM step's 1,666 ms)."""
 
     @staticmethod
     def forward(ctx, x, perm):

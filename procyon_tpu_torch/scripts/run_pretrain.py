@@ -21,6 +21,19 @@ retrieval AUROC / AUPRC against the first --eval_max_target_proteins
 proteins, --eval_batches batches a task); the trainer logs them to
 metrics.jsonl as eval/*.
 
+The live-encoder recipes (the reference's freeze_protein_encoder "lora" /
+"qlora"): --use_aaseq_embeddings false with --protein_encoder esm2-<size>
+trains through the ESM2 encoder, with --use_prot_lora true (banks of
+--aaseq_lora_r, --prot_lora_num_experts experts on
+--prot_lora_parameters), --esm_prefix_len P or --aaseq_adapter_rank r, and
+--mlm_skip_frequency N > 0 adds the masked-LM task (--mlm_batch_size
+proteins of at most --max_protein_len residues), e.g.
+  python -m procyon_tpu_torch.scripts.run_pretrain --synthetic true \\
+      --use_aaseq_embeddings false --protein_encoder esm2-8m \\
+      --use_prot_lora true --prot_lora_num_experts 4 --use_lora true \\
+      --lora_num_experts 4 --lora_phase_training true \\
+      --mlm_skip_frequency 1 --max_steps 4 --output_dir /tmp/run2
+
 Not on one card, each raising NotImplementedError (ROADMAP.md, queue 1):
 a mesh axis > 1 and the dist_* flags (multi-GPU training, parallel/ over
 NCCL).
@@ -125,7 +138,9 @@ def setup(argv=None):
         streams["mlm"] = data_config.build_mlm_stream(
             store, batch_size=dargs.mlm_batch_size,
             n_proteins=getattr(store, "n_proteins", 1024),
-            max_protein_len=margs.max_protein_len, seed=targs.seed)
+            max_protein_len=margs.max_protein_len, seed=targs.seed,
+            state_holder=stream_states,
+            resume_state=(resume_states or {}).get("mlm"))
 
     # eval_on_the_fly (trainIT.py:725-748 + _run_eval :1556-1654): VAL-split
     # streams, all-protein retrieval AUROC/AUPRC, QA/caption val losses

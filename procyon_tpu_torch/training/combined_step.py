@@ -41,7 +41,13 @@ def make_combined_step(cfg: unified.UnifiedConfig, optimizer,
                     total = total + l
                     metrics.update({f"{task}/{k}": v for k, v in m.items()})
             if "mlm" in batches and cfg.esm is not None:
-                ts.mlm_loss_fn(params, cfg, batches["mlm"], weights.mlm)
+                # on the joint phase's expert, as the reference's joint step
+                # sets one group for both towers (the JAX package's passes
+                # no expert here: ROADMAP.md, section 3)
+                l, m = ts.mlm_loss_fn(params, cfg, batches["mlm"],
+                                      weights.mlm, lora_expert=expert("mlm"))
+                total = total + l
+                metrics.update({f"mlm/{k}": v for k, v in m.items()})
             return total, metrics
 
         loss, metrics, items, grads = ts.value_and_grad(optimizer, state,

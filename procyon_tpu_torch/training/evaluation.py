@@ -83,7 +83,7 @@ def build_midtrain_eval(cfg: unified.UnifiedConfig, *,
     default; a prefetch.DeviceCopier's batches are made ready first).
 
     Per task:
-      qa / caption: mean val loss / accuracy over n_batches
+      qa / caption / mlm: mean val loss / accuracy over n_batches
       retrieval: for each val batch, [PROT] query embeddings scored against
         the FULL protein target set (cosine); per-query AUROC/AUPRC with the
         batch's positive as the single label (trainIT.py:1626-1654), and

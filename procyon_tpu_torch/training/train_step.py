@@ -1,6 +1,6 @@
 """Per-task train steps (counterpart of procyon_tpu/training/train_step.py).
 
-One step function per task family (qa / retrieval / caption; mlm raises),
+One step function per task family (qa / retrieval / caption / mlm),
 each computing its weighted loss and updating the trainable parameters.
 The host trainer interleaves them per global step with skip frequencies
 (trainer.py).
@@ -130,10 +130,20 @@ def retrieval_loss_fn(params, cfg, batch, weight, lora_expert=0):
 
 
 def mlm_loss_fn(params, cfg, batch, weight, lora_expert=0):
-    """ESM2 masked-LM loss: needs the fusion model's MLM head, which is not
-    ported (unified.protein_mlm_logits raises)."""
-    unified.protein_mlm_logits(params, cfg, batch["protein_tokens"],
-                               lora_expert=lora_expert)
+    """The encoder's masked-LM loss and accuracy over the masked residues
+    (labels other than -100), mean over them."""
+    logits = unified.protein_mlm_logits(params, cfg, batch["protein_tokens"],
+                                        lora_expert=lora_expert)
+    labels = batch["mlm_labels"].long()      # -100 = not masked
+    mask = labels != -100
+    safe = torch.where(mask, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(mask, nll, 0.0)
+    denom = mask.sum().clamp_min(1)
+    loss = nll.sum() / denom
+    acc = ((logits.argmax(-1) == labels) & mask).sum() / denom
+    return loss * weight, {"mlm_loss": loss, "mlm_acc": acc}
 
 
 _LOSS_FNS = {
@@ -149,7 +159,9 @@ TASK_LORA_EXPERT = {"qa": 0, "retrieval": 1, "caption": 2, "mlm": 2}
 
 
 def lora_num_experts(cfg: unified.UnifiedConfig) -> int:
-    """Bank size for expert cycling over both towers."""
+    """Bank size for expert cycling over both towers; a tower with a
+    smaller bank reads its last expert for a larger index (lora.apply
+    clamps it)."""
     n = cfg.llama.lora.num_experts if cfg.llama.lora is not None else 1
     if cfg.esm is not None and cfg.esm.lora is not None:
         n = max(n, cfg.esm.lora.num_experts)
@@ -178,7 +190,10 @@ def value_and_grad(optimizer, state, frozen_base, loss_of):
             full = merge_params(params, state.get("frozen")) \
                 if frozen_base else params
             loss, metrics = loss_of(full)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a loss that reaches no trained leaf (an MLM phase whose
+            # expert lies past the encoder's bank) has zero gradients
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True) \
+                if loss.requires_grad else [None] * len(leaves)
         finally:
             for t in leaves:
                 t.requires_grad_(False)

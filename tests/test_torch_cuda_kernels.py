@@ -36,7 +36,12 @@ device kernel a call, and one batcher run with int4 weights; at BERT's
 shape (H 12, D 64, bidirectional, right-padded rows, a row of padding
 alone) the flash forward against its plain version, its dead rows 0 bit
 for bit with NaN / inf in every padded row, padded keys that change no
-live row, and a BERT-base forward on the card against the CPU in f32.
+live row, and a BERT-base forward on the card against the CPU in f32; at
+ESM2-3B's training attention (H 40, D 64, S 1026, bidirectional,
+right-padded, and with a 16-key prefix) the flash forward and backward
+against their plain versions and through the autograd Function, and a
+2-layer ESM2 with MoLoRA banks, a prefix and the adapter under remat (two
+forward launches a layer) against the CPU in f32.
 
 Marked `cuda`: needs a CUDA device, and without one every test skips (the
 fixture decides, at run time). This file imports torch only (the machine
@@ -800,6 +805,130 @@ def test_flash_backward_at_the_training_shape(cuda):
                             sm_scale=sm)
     for a, b in zip(got, want):
         assert _grad_close(a, b), (a.float() - b.float()).abs().max()
+
+
+def _esm_rows(dev, B, S, P, H, D, seed):
+    """ESM2's training attention: q [B, S, H, D] and k / v [B, P + S, H, D]
+    (P learned prefix rows first, segment 1), bidirectional, right-padded
+    rows of S, of a length ending inside the last ragged key tile, of one
+    tile and 2 rows, and random lengths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S + (P if i else 0), H, D), generator=g,
+                           device=dev).to(torch.bfloat16) for i in range(3))
+    lens = [S, S - 1, 130] + torch.randint(
+        50, S + 1, (B - 3,), generator=g, device=dev).tolist()
+    seg = (torch.arange(S, device=dev)[None]
+           < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+    seg_kv = torch.cat([torch.ones((B, P), dtype=torch.int32, device=dev),
+                        seg], 1)
+    return q, k, v, seg, seg_kv
+
+
+@pytest.mark.parametrize("P", [0, 16])
+def test_flash_at_esm2s_training_shapes(cuda, P):
+    """Kernel rows 3, 8 and 9 at ESM2-3B's training attention (B4 S1026
+    H40 D64, bidirectional, right-padded; the last key tile holds 2 rows),
+    and with a 16-row prefix (Skv 1042, not bounded): forward with lse and
+    the backward against their plain versions, bounded both ways where Sq ==
+    Skv, twice for the same bits, padded rows and keys exactly 0; and
+    through flash_attention under grad, one launch of each."""
+    B, S, H, D = 4, 1026, 40, 64
+    q, k, v, seg, seg_kv = _esm_rows(cuda, B, S, P, H, D, 21 + P)
+    ints = fa.mask_inputs(q, k, seg, seg_kv, None, None)
+    sm = D ** -0.5
+    ref, ref_lse = fa.flash_fwd_ref(q, k, v, *ints, causal=False,
+                                    sm_scale=sm)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    for bounded in ((False, True) if P == 0 else (False,)):
+        out, lse = fa.flash_fwd(q, k, v, *ints, causal=False, sm_scale=sm,
+                                bounded=bounded, want_lse=True)
+        again = fa.flash_fwd(q, k, v, *ints, causal=False, sm_scale=sm,
+                             bounded=bounded, want_lse=True)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert _close(out, ref) and not out[seg == 0].any().item()
+        live = ref_lse > -1e29
+        assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+        want = fa.flash_bwd_ref(q, k, v, *ints, out, lse, do, causal=False,
+                                sm_scale=sm)
+        got = fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=False,
+                           sm_scale=sm, bounded=bounded)
+        again = fa.flash_bwd(q, k, v, *ints, out, lse, do, causal=False,
+                             sm_scale=sm, bounded=bounded)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a.float()).all(), name
+            assert _grad_close(a, b), (name, bounded,
+                                       (a.float() - b.float()).abs().max())
+        assert not got[0][seg == 0].any().item()
+        assert not got[1][seg_kv == 0].any().item()
+        assert not got[2][seg_kv == 0].any().item()
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    o = fa.flash_attention(qg, kg, vg, seg, seg_kv, causal=False,
+                           backend="rowblock")
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], fa.launches_bwd_dq - before[1],
+            fa.launches_bwd_dkv - before[2]) == (1, 1, 1)
+    assert _close(o.detach(), ref)
+
+
+def test_esm2_training_forward_on_the_card(cuda):
+    """A 2-layer ESM2 (width 640, H10 D64) with MoLoRA banks, a prefix and
+    the adapter, in bf16 under autograd with remat: each layer launches the
+    flash forward twice (the forward and its recompute) and each backward
+    kernel once; the banks', prefix's and adapter's gradients against the
+    same step on the CPU in f32 (cosine >= 0.99)."""
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.models import esm2
+    from procyon_tpu_torch.models import lora
+    from procyon_tpu_torch.training import optimizer as topt
+    cfg = esm2.ESM2Config(dim=640, n_layers=2, n_heads=10, prefix_len=8,
+                          adapter_rank=16, attn_backend="rowblock",
+                          remat=True, lora=lora.LoRAConfig(
+                              rank=8, alpha=8.0, num_experts=4))
+    cpu32 = dataclasses.replace(cfg, dtype=torch.float32, lora=dataclasses
+                                .replace(cfg.lora, dtype=torch.float32))
+    params = esm2.init_params(3, cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for name, leaf in topt.tree_items(params["layers"]):
+        if name[0].startswith("lora_") and name[1] == "B" \
+                or name[:2] == ("adapter", "wu"):
+            leaf.copy_(0.05 * torch.randn(leaf.shape, generator=g,
+                                          device=cuda))
+    p32 = bridge.map_tensors(lambda t: t.float().cpu(), params)
+    lens = [300, 177, 64]
+    toks = torch.full((3, 302), esm2.PAD_IDX, dtype=torch.long)
+    for i, n in enumerate(lens):
+        toks[i, 0], toks[i, n + 1] = esm2.CLS_IDX, esm2.EOS_IDX
+        toks[i, 1:n + 1] = torch.randint(4, 24, (n,))
+    grads = {}
+    for where, c, p in (("card", cfg, params), ("cpu", cpu32, p32)):
+        leaves = {"/".join(k): t for k, t in topt.tree_items(p["layers"])
+                  if k[0].startswith("lora_") or k[0] in ("prefix",
+                                                          "adapter")}
+        for t in leaves.values():
+            t.requires_grad_(True)
+        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        out = esm2.forward(p, c, toks.to(next(iter(leaves.values())).device),
+                           return_logits=True, lora_expert=2)
+        loss = out["logits"].float().logsumexp(-1).mean()
+        gs = torch.autograd.grad(loss, list(leaves.values()))
+        grads[where] = {k: x.float().cpu() for k, x in zip(leaves, gs)}
+        if where == "card":
+            torch.cuda.synchronize()
+            assert (fa.launches - before[0], fa.launches_bwd_dq - before[1],
+                    fa.launches_bwd_dkv - before[2]) == (4, 2, 2)
+    for k, gc in grads["cpu"].items():
+        gg = grads["card"][k]
+        assert torch.isfinite(gg).all(), k
+        if not gc.any():
+            assert not gg.any(), k
+            continue
+        cos = torch.nn.functional.cosine_similarity(gg.flatten(),
+                                                    gc.flatten(), dim=0)
+        assert cos >= 0.99, (k, float(cos))
 
 
 @pytest.mark.parametrize("case", ["fresh", "cache_slice", "grid_wraps",

@@ -142,11 +142,3 @@ def test_port_init_params_shapes_and_scales():
         assert leaf.shape == flat_j[path].shape, path
         assert abs(float(np.std(leaf)) - float(np.std(flat_j[path]))) \
             <= 0.2 * float(np.std(flat_j[path])) + 1e-6, path
-
-
-@pytest.mark.parametrize("kw", [dict(prefix_len=2), dict(adapter_rank=4),
-                                dict(lora=object())])
-def test_unported_features_raise(kw):
-    cfg = tesm.tiny_config(**kw)
-    with pytest.raises(NotImplementedError):
-        tesm.init_params(0, cfg, device="cpu")

@@ -9,6 +9,7 @@ MODULES = [
     "procyon_tpu_torch",
     "procyon_tpu_torch.bridge",
     "procyon_tpu_torch.config",
+    "procyon_tpu_torch.native",
     "procyon_tpu_torch.ops._build",
     "procyon_tpu_torch.ops.activations",
     "procyon_tpu_torch.ops.attention_rowblock",
