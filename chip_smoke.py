@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
         [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged,times,
-                swiglu,decode,serving,eval,bert,esm_train]
+                swiglu,decode,serving,eval,bert,esm_train,dist]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -237,7 +237,24 @@ source, all started together), then:
      phase, the MLM step's tokens/s and MFU, peak memory, launches of
      rows 3, 8 and 9 a phase (two forwards a layer under remat); then the
      trained encoder merged, quantized and fused, one W8A8 batch of B16 x
-     S1024 (rows 1 and 4) against the merged bf16 encoder.
+     S1024 (rows 1 and 4) against the merged bf16 encoder;
+ 28. more than one rank (path n), after the W8A8 group: row 10 at a TP 2
+     rank's B16 Hq16 Hkv4; two ranks of this script (--dist-worker) on
+     the card over gloo (NCCL refuses two ranks on one device): TP 2
+     serving at Llama-3-8B width (32 layers; each rank half the weights
+     and 4 of 8 kv heads; 16 requests behind a 256-token prefix, 32 new
+     tokens, in plain, int8 KV, spec_k 2 and prefix cache + wave prefill)
+     replaying the one-process run's choices with every sampled row's
+     logits held, the two ranks' own tokens equal, a skipped all-reduce
+     after wo shown to fail; data parallelism and FSDP on the QLoRA step
+     (8 layers, B1 a rank; meshes (2, 1, 1) and (1, 2, 1), the combined
+     step's global contrastive batch) with loss, grad_norm and every
+     gradient held to the one-process step, a mean of the ranks' means
+     and positives at the local index shown to fail; run_pretrain on one
+     NCCL rank under torchrun against the plain run, bit for bit; and
+     scripts/dryrun_multichip.py on two ranks. Launches of rows 3, 8, 9
+     and 10 a rank are printed and added to the kernels line. Two gloo
+     ranks on one card check correctness and give no speed number.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -285,12 +302,13 @@ calls, with the card's copy rate, for pairing with an earlier commit;
 probe; "serving"; "eval": the evaluation slice's phases of item 25, with
 the caption path of item 8 for its metrics and the mid-train eval on the
 service's bf16 decoder; "bert": item 26; "esm_train": item 27 on the
-synthetic service), and prints no result line.
+synthetic service; "dist": item 28), and prints no result line.
 """
 
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -4035,11 +4053,11 @@ def phase_train_small(dev):
             update, start32 = opt.update, topt.tree_map(
                 lambda t: t.detach().float().cpu().clone(), state["params"])
 
-            def record(items, grads, st):
+            def record(items, grads, st, **kw):
                 # the gradients the card's step hands its optimizer
                 seen.update({"/".join(q): g.detach().float().cpu()
                              for (q, _), g in zip(items, grads)})
-                update(items, grads, st)
+                update(items, grads, st, **kw)
             opt.update = record
         b = ts.batch_to_device(batch, dev if where == "card" else "cpu")
         before = fa.launches_bwd_dq
@@ -4641,9 +4659,9 @@ def swiglu_on_layers(cfg, params, batch):
     orig = llama._mlp
     layers = []
 
-    def mlp(x, lp, c, mode):
+    def mlp(x, lp, c, mode, tp=None):
         if mode != "w8a8":
-            return orig(x, lp, c, mode)
+            return orig(x, lp, c, mode, tp)
         x2 = x.reshape(-1, x.shape[-1])
         w = [lp["mlp"][k] for k in ("w_gate", "w_up", "w_down")]
         # the layout the kernels read without a copy, made before the
@@ -4656,7 +4674,7 @@ def swiglu_on_layers(cfg, params, batch):
                                      eps=c.norm_eps)
         ev[1].record()
         ev[2].record()
-        r = orig(x, lp, c, mode)
+        r = orig(x, lp, c, mode, tp)
         ev[3].record()
         torch.cuda.synchronize()
         layers.append(dict(kernel_ms=ev[0].elapsed_time(ev[1]),
@@ -6494,6 +6512,827 @@ def profile_request(service, source, desc):
     print(text)
 
 
+# ---------------------------------------------------------------------------
+# More than one rank (path n): two ranks share the one card over gloo
+# (NCCL refuses two ranks on one device), each a process this script
+# starts with `--dist-worker`; then one NCCL rank under torchrun; then the
+# multi-rank dry run. Each check's one-process reference runs first in
+# this process and is handed to the ranks through files.
+# ---------------------------------------------------------------------------
+
+# TP 2 serving at Llama-3-8B width (full depth: each rank holds half of
+# the 16 GB of bf16 weights): bench_serving's traffic cut to 16 requests
+# behind one shared 256-token prefix, 32 new tokens, in the JAX dry run's
+# four modes; the logits of a fixed set of DIST_COLS vocabulary columns
+# of every sampled row are held to the one-process run's
+DIST = dict(world=2, serve_layers=32, requests=16, prefix=256, tail=(8, 40),
+            new_tokens=32, slots=16, page=64, pages_per_seq=8, n_pages=192,
+            chunk=128, wave=4, cols=8192, train_layers=8, timeout=900)
+DIST_MODES = (("plain", {}, False), ("kv8", {}, True),
+              ("spec_k2", {"spec_k": 2}, False),
+              ("prefix+wave", {"prefix_cache": True,
+                               "prefill_chunk": DIST["chunk"],
+                               "prefill_batch": DIST["wave"]}, False))
+# bf16 on both sides; the TP run sums wo's and w_down's partial products
+# over the ranks in another order (and rounds them to bf16 once more)
+DIST_LOGIT_ATOL = 0.25
+# the data-parallel / FSDP QLoRA step (cell f's shape: int8 frozen base,
+# LoRA r16 x 4, B2 x S2048 global, B1 a rank; depth cut to
+# DIST["train_layers"]) against the one-process step on the same global
+# batch, in bf16 (the kernels) and in f32 (the same weights, the int8
+# base dequantized to f32, attention by mha_reference): loss and
+# grad_norm relative errors; each trained leaf's gradient g within
+# DIST_GRAD_RTOL of the one-process one w (||g - w|| / ||w||) and
+# 1 - cos(g, w) within DIST_GRAD_COS_ERR. In bf16 the ranks' products
+# at B1 round elsewhere than the one process's at B2; in f32 every
+# number is held to DIST_F32_RTOL, so the bf16 gap is rounding
+DIST_LOSS_RTOL = 1e-2
+DIST_NORM_RTOL = 2e-2
+DIST_GRAD_RTOL = 5e-2
+DIST_GRAD_COS_ERR = 1e-3
+DIST_F32_RTOL = 1e-4
+
+
+def dist_spawn(kind, tmp, world=DIST["world"]):
+    """`world` ranks of this script (--dist-worker kind), all on card 0
+    (LOCAL_RANK 0), joined over gloo at a free localhost port; waits for
+    them and fails unless every one exits 0. Returns the ranks' results."""
+    import socket
+    import torch
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "LOCAL_RANK": "0"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", kind,
+         str(r), str(world), str(port), tmp], env=env, cwd=ROOT)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        rcs = [p.wait(timeout=DIST["timeout"]) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * world, f"dist {kind}: ranks exited {rcs}")
+    return [torch.load(os.path.join(tmp, f"{kind}_rank{r}.pt"),
+                       weights_only=False) for r in range(world)], \
+        time.perf_counter() - t0
+
+
+def dist_serving_cfg():
+    import torch
+    from procyon_tpu_torch.models import llama
+    return llama.llama3_8b(n_layers=DIST["serve_layers"], max_seq_len=1024,
+                           dtype=torch.bfloat16)
+
+
+def dist_serving_pcfg(cfg, quantize_kv):
+    from procyon_tpu_torch.inference import kv_pool
+    return kv_pool.PagedConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, page_size=DIST["page"],
+        n_pages=DIST["n_pages"], max_pages_per_seq=DIST["pages_per_seq"],
+        slots=DIST["slots"], dtype=cfg.dtype, quantize_kv=quantize_kv)
+
+
+def dist_serving_workload(b, vocab):
+    """16 requests behind one shared 256-token prefix, 32 new tokens each;
+    returns the generated tokens in submission order."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 61)
+    prefix = list(map(int, rng.integers(4, vocab, DIST["prefix"])))
+    lo, hi = DIST["tail"]
+    rids = [b.submit(prefix + list(map(int, rng.integers(
+        4, vocab, int(rng.integers(lo, hi + 1))))),
+        max_new=DIST["new_tokens"]) for _ in range(DIST["requests"])]
+    out = b.run()
+    return [out[r] for r in rids]
+
+
+def dist_hook(b, cols, log, replay=False, errs=None, agree=None):
+    """Records (or replays) every token choice of batcher `b`: `_sample`
+    and the greedy speculative `_greedy_accept`. Recording keeps the
+    choice and the sampled rows' logits at `cols`; replaying returns the
+    recorded choice and appends the logits' largest error and whether the
+    batcher's own choice agreed."""
+    import torch
+    sample, accept = b._sample, b._greedy_accept
+
+    def rows(logits):
+        live = sorted(b.live)
+        return live if logits.shape[0] == b.pcfg.slots and live \
+            else list(range(logits.shape[0]))
+
+    def seen(kind, logits, choice):
+        got = logits[rows(logits)][..., cols].float().cpu()
+        if not replay:
+            log.append((kind, got, choice))
+            return choice
+        want_kind, want, want_choice = log[len(errs)]
+        check(want_kind == kind and want.shape == got.shape,
+              f"dist serving: choice {len(errs)} is a {kind} of "
+              f"{tuple(got.shape)}, the one-process run's a {want_kind} of "
+              f"{tuple(want.shape)}")
+        check(bool(torch.isfinite(got).all()), "dist serving: non-finite "
+                                               "logits")
+        errs.append((got - want).abs().max().item())
+        mine = choice if kind == "s" else choice[0]
+        ref = want_choice if kind == "s" else want_choice[0]
+        agree.append(bool(torch.equal(mine.cpu(), ref)))
+        return want_choice
+
+    def s(logits):
+        t = seen("s", logits, sample(logits).cpu())
+        return t.to(logits.device)
+
+    def a(tokens, logits):
+        g, m = accept(tokens, logits)
+        g, m = seen("a", logits, (g.cpu(), m.cpu()))
+        return g.to(logits.device), m.to(logits.device)
+
+    b._sample, b._greedy_accept = s, a
+
+
+def phase_dist_serving(dev, tmp):
+    """TP 2 serving: the one-process batcher on the whole Llama-3-8B
+    decoder records every choice in the four modes; two ranks rebuild the
+    same seeded tree one after the other, each keeping its half (q / k / v
+    / w_gate / w_up columns, wo / w_down rows, the vocabulary of lm_head;
+    4 of the 8 kv heads), and replay the choices: every sampled row's
+    logits within DIST_LOGIT_ATOL, rows 3 and 10 launched on each rank,
+    then each mode left to its own tokens, which must be the same on both
+    ranks. A planted fault (rank 1 keeps its partial wo product, skipping
+    the all-reduce's sum) must fail the logits check."""
+    import torch
+    from procyon_tpu_torch.inference import serving
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.ops import paged_attention as pa
+    cfg = dist_serving_cfg()
+    torch.cuda.empty_cache()
+    before_gib = torch.cuda.memory_allocated(dev) / 2 ** 30
+    params = llama.init_params(SEED + 61, cfg, device=dev)
+    cols = torch.randperm(cfg.vocab_size, generator=torch.Generator()
+                          .manual_seed(SEED + 61))[:DIST["cols"]]
+    ref = {"cols": cols, "log": {}, "tokens": {}, "launches": {},
+           "seconds": {}}
+    t0 = time.perf_counter()
+    for name, kw, qkv in DIST_MODES:
+        t1 = time.perf_counter()
+        b = serving.ContinuousBatcher(params, cfg,
+                                      dist_serving_pcfg(cfg, qkv), **kw)
+        log = []
+        dist_hook(b, cols, log)
+        fa.launches = pa.launches = 0
+        ref["tokens"][name] = dist_serving_workload(b, cfg.vocab_size)
+        torch.cuda.synchronize()
+        ref["launches"][name] = (fa.launches, pa.launches)
+        ref["seconds"][name] = time.perf_counter() - t1
+        ref["log"][name] = log
+        del b
+    one_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(tmp, "serve_ref.pt"))
+    ranks, rank_s = dist_spawn("serve", tmp)
+    out = {"layers": cfg.n_layers, "one_process_s": one_s,
+           "two_ranks_s": rank_s, "card_gib_before": before_gib,
+           "rank_peak_gib": [r["peak_gib"] for r in ranks],
+           "rank_weights_gib": [r["weights_gib"] for r in ranks]}
+    for name, _, _ in DIST_MODES:
+        per = [r["modes"][name] for r in ranks]
+        err = max(p["max_logit_err"] for p in per)
+        check(err <= DIST_LOGIT_ATOL,
+              f"dist serving {name}: logits {err} from the one-process run")
+        check(all(p["replayed"] == ref["tokens"][name] for p in per),
+              f"dist serving {name}: the replayed tokens are not the one-"
+              "process run's")
+        check(per[0]["own"] == per[1]["own"],
+              f"dist serving {name}: the two ranks' own tokens differ")
+        own = per[0]["own"] or ref["tokens"][name]
+        for p in per:
+            check(p["flash"] > 0 and p["paged"] >= 0,
+                  f"dist serving {name}: launches {p['flash']} / "
+                  f"{p['paged']} of rows 3 / 10 on a rank")
+        if name == "plain":
+            check(all(p["paged"] > 0 for p in per),
+                  "dist serving plain: row 10 was not launched on a rank")
+        n = sum(len(w) for w in ref["tokens"][name])
+        same = sum(a == b for o, w in zip(own, ref["tokens"][name])
+                   for a, b in zip(o, w)) / n
+        out[name] = {"max_logit_err": err, "choices": len(per[0]["errs"]),
+                     "own_choice_agrees": per[0]["agree"],
+                     "replay_s": [p["seconds"] for p in per],
+                     "one_process_s": ref["seconds"][name],
+                     "row3_launches_per_rank": [p["flash"] for p in per],
+                     "row10_launches_per_rank": [p["paged"] for p in per],
+                     "one_process_launches": ref["launches"][name]}
+        print(f"dist serving {name} (TP 2 over gloo on one card, "
+              f"Llama-3-8B, {cfg.n_layers} layers, {DIST['requests']} "
+              f"requests behind a {DIST['prefix']}-token prefix, "
+              f"{DIST['new_tokens']} new tokens): {len(per[0]['errs'])} "
+              f"choices replayed, logits within {err:.4f} (asserted <= "
+              f"{DIST_LOGIT_ATOL}); the rank's own choice agreed on "
+              f"{per[0]['agree']:.3f}"
+              + (f"; left to their own tokens both ranks emit the same, "
+                 f"{same:.3f} of the one-process run's" if name == "plain"
+                 else "")
+              + f"; {per[0]['seconds']:.1f} s a rank (one process "
+              f"{ref['seconds'][name]:.1f} s); launches a rank: row 3 "
+              f"{[p['flash'] for p in per]}, row 10 "
+              f"{[p['paged'] for p in per]} (one process: "
+              f"{ref['launches'][name]})")
+        if name == "plain":
+            out[name]["own_tokens_equal_one_process"] = same
+    fault = max(r["fault_err"] for r in ranks)
+    check(fault > DIST_LOGIT_ATOL, f"dist serving: the skipped all-reduce "
+                                   f"left the logits within {fault}")
+    out["fault_max_logit_err"] = fault
+    print(f"dist serving: rank 1 skipping the sum after wo moves the "
+          f"logits by {fault:.3f} (caught); weights a rank "
+          f"{[round(r['weights_gib'], 2) for r in ranks]} GiB, peak a rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (torch's "
+          f"allocator, the transient whole tree included), "
+          f"{before_gib:.1f} GiB held by this process before; one process "
+          f"{one_s:.1f} s, two ranks {rank_s:.1f} s (the builds "
+          f"{[round(r['build_s'], 1) for r in ranks]} s of it)")
+    return out
+
+
+def dist_worker_serve(rank, world, tmp):
+    import torch
+    import torch.distributed as dist
+    from procyon_tpu_torch import parallel
+    from procyon_tpu_torch.inference import serving
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.ops import paged_attention as pa
+    from procyon_tpu_torch.parallel import collectives
+    dev = torch.device("cuda", 0)
+    mesh = parallel.create_mesh(parallel.MeshConfig(1, 1, world))
+    cfg = dist_serving_cfg()
+    params = None
+    t0 = time.perf_counter()
+    for r in range(world):          # one whole tree on the card at a time
+        if r == rank:
+            whole = llama.init_params(SEED + 61, cfg, device=dev)
+            params = parallel.shard_params(whole, mesh, cfg,
+                                           axes=("model",))
+            del whole
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size()
+                  for _, t in parallel.sharding.leaf_items(params))
+    res = {"modes": {}, "build_s": time.perf_counter() - t0}
+    ref = torch.load(os.path.join(tmp, "serve_ref.pt"), weights_only=False)
+    cols = ref["cols"]
+    for name, kw, qkv in DIST_MODES:
+        pcfg = dist_serving_pcfg(cfg, qkv)
+        b = serving.ContinuousBatcher(params, cfg, pcfg, mesh=mesh, **kw)
+        errs, agree = [], []
+        dist_hook(b, cols, ref["log"][name], True, errs, agree)
+        fa.launches = pa.launches = 0
+        t0 = time.perf_counter()
+        replayed = dist_serving_workload(b, cfg.vocab_size)
+        torch.cuda.synchronize()
+        launches = (fa.launches, pa.launches)
+        check(len(errs) == len(ref["log"][name]),
+              f"dist serving {name}: {len(errs)} choices on rank {rank}, "
+              f"{len(ref['log'][name])} in one process")
+        del b
+        seconds = time.perf_counter() - t0
+        # left to its own tokens (the plain mode): both ranks must agree
+        own = dist_serving_workload(serving.ContinuousBatcher(
+            params, cfg, pcfg, mesh=mesh, **kw), cfg.vocab_size) \
+            if name == "plain" else None
+        res["modes"][name] = dict(
+            max_logit_err=max(errs), errs=errs, replayed=replayed,
+            agree=sum(agree) / len(agree), own=own, flash=launches[0],
+            paged=launches[1], seconds=seconds)
+    # the planted fault: rank 1 keeps its own partial wo product (the
+    # all-reduce still runs, so the ranks stay in step)
+    real = collectives.reduce_from
+    calls = [0]
+
+    def skip_wo(x, group):
+        out = real(x, group)
+        calls[0] += 1
+        return x if rank == 1 and calls[0] % 2 == 1 else out
+
+    b = serving.ContinuousBatcher(params, cfg, dist_serving_pcfg(cfg, False),
+                                  mesh=mesh)
+    errs, agree = [], []
+    dist_hook(b, cols, ref["log"]["plain"], True, errs, agree)
+    with patched(collectives, "reduce_from", skip_wo):
+        dist_serving_workload(b, cfg.vocab_size)
+    res["fault_err"] = max(errs)
+    res["weights_gib"] = weights / 2 ** 30
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return res
+
+
+def dist_train_setup(dev):
+    """The QLoRA cell at DIST["train_layers"] layers: int8 decoder, LoRA
+    r16 x 4 with B ~ N(0, 0.02^2) (so A's gradient does not vanish), the
+    frozen-table projectors; the global batches (qa, qa with uneven
+    supervised tokens a rank, retrieval with conflict ids)."""
+    import numpy as np
+    import torch
+    from procyon_tpu_torch.data.collators import encode_conflict_ids
+    from procyon_tpu_torch.models import llama, unified
+    from procyon_tpu_torch.training import optimizer as topt
+    lcfg = llama.llama3_8b(n_layers=DIST["train_layers"],
+                           dtype=torch.bfloat16)
+    cfg = qlora_config(unified.UnifiedConfig(
+        llama=lcfg, esm=None, protein_embed_dim=2560,
+        token_projector_layers=3, token_projector_hidden=2560,
+        retrieval_dim=1024, dtype=torch.bfloat16))
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    params = qlora_params(unified.init_params(g, cfg, device=dev), cfg, g,
+                          b_scale=TRAIN_SMALL_B)
+    t = TRAIN
+    qa = train_batch(t["B"], t["S"], lcfg.vocab_size, 2560, SEED + 63)
+    uneven = dict(qa, labels=qa["labels"].copy())
+    # rank 1's row: 64 supervised tokens, all one id (a gradient of its
+    # own direction), against rank 0's 1024
+    uneven["labels"][1, t["S"] // 2:t["S"] // 2 + 64] = 7
+    uneven["labels"][1, t["S"] // 2 + 64:] = -100
+    ret = dict(train_batch(t["B"], t["S"], lcfg.vocab_size, 2560,
+                           SEED + 64))
+    ret["conflict_ids"] = encode_conflict_ids(3, list(range(t["B"])))
+    opt = topt.build_optimizer(topt.OptimizerConfig(
+        lr=t["lr"], warmup_steps=t["warmup"], total_steps=1000))
+    return cfg, params, opt, {"qa": qa, "uneven": uneven, "retrieval": ret}
+
+
+DIST_TRAIN_CASES = (("qa (2, 1, 1)", (2, 1, 1), "qa"),
+                    ("qa (1, 2, 1)", (1, 2, 1), "qa"),
+                    ("uneven (2, 1, 1)", (2, 1, 1), "uneven"),
+                    ("combined (2, 1, 1)", (2, 1, 1), "combined"),
+                    ("combined (1, 2, 1)", (1, 2, 1), "combined"))
+
+
+def dist_train_grads(cfg, opt, state, batches, case, mesh, dev):
+    """(loss, metrics, {path: whole gradient f32 on the CPU}, grad_norm) of
+    a case's loss over the state's trainable leaves, as its step computes
+    them (qa on expert 0; combined: qa + retrieval on expert 3)."""
+    import torch
+    from procyon_tpu_torch.parallel import sharding
+    from procyon_tpu_torch.training import train_step as ts
+
+    def local(b):
+        b = ts.batch_to_device(b, dev)
+        return sharding.shard_batch(b, mesh) if mesh is not None else b
+
+    if case == "combined":
+        qa, ret = local(batches["qa"]), local(batches["retrieval"])
+
+        def loss_of(p):
+            l1, m1 = ts.lm_loss_fn(p, cfg, qa, 1.0, lora_expert=3, mesh=mesh)
+            l2, m2 = ts.retrieval_loss_fn(p, cfg, ret, 1.0, lora_expert=3,
+                                          mesh=mesh)
+            return l1 + l2, {**m1, **{f"retrieval/{k}": v
+                                      for k, v in m2.items()}}
+    else:
+        b = local(batches[case])
+
+        def loss_of(p):
+            return ts.lm_loss_fn(p, cfg, b, 1.0, lora_expert=0, mesh=mesh)
+
+    loss, metrics, items, grads = ts.value_and_grad(opt, state, True, loss_of)
+    norm = float(ts.grad_norm(state, items, grads))
+    sh = state.get("sharding")
+    whole = {}
+    for (p, _), g in zip(items, grads):
+        if sh is not None:
+            g = sharding.gather_leaf(g, sh.spec(p), sh.mesh,
+                                     ("fsdp", "model"))
+        whole["/".join(p)] = g.float().cpu()
+    return float(loss), {k: float(v) for k, v in metrics.items()}, whole, \
+        norm
+
+
+def dist_grad_errs(got, want):
+    """(the largest ||g - w|| / ||w||, its leaf, 1 - the least cosine)
+    over the leaves whose one-process gradient w is not 0."""
+    worst, leaf, cos_err = 0.0, None, 0.0
+    for k, w in want.items():
+        wn = w.norm().item()
+        if wn == 0:
+            continue
+        g = got[k]
+        err = (g - w).norm().item() / wn
+        if err >= worst:
+            worst, leaf = err, k
+        cos = (g.flatten() @ w.flatten()).item() / max(g.norm().item() * wn,
+                                                       1e-30)
+        cos_err = max(cos_err, 1 - cos)
+    return worst, leaf, cos_err
+
+
+def dist_f32_ratio(got, want, want32):
+    """(the largest ||g - f|| / ||w - f|| over the leaves, its leaf, the
+    two distances there relative to ||f||, and log_temp's): how much
+    farther from the f32 step f a rank's bf16 gradient g is than the
+    one-process bf16 gradient w. Reported, not bounded."""
+    worst, at, temp = 0.0, None, (math.nan, math.nan)
+    for k, f in want32.items():
+        fn = f.norm().item()
+        if fn == 0:
+            continue
+        d_rank = (got[k] - f).norm().item() / fn
+        d_one = (want[k] - f).norm().item() / fn
+        ratio = d_rank / max(d_one, 1e-30)
+        if k.endswith("log_temp"):
+            temp = (d_one, d_rank)
+        if ratio >= worst:
+            worst, at = ratio, (k, d_one, d_rank)
+    return worst, at, temp
+
+
+def dist_train_check(got, want, f32=False):
+    """(passes, errors) of a rank's (loss, metrics, grads, grad_norm)
+    against the one-process one's, at the bf16 bounds or at DIST_F32_RTOL
+    throughout."""
+    loss_err = abs(got[0] - want[0]) / max(abs(want[0]), 1e-6)
+    norm_err = abs(got[3] - want[3]) / max(abs(want[3]), 1e-12)
+    grad_err, leaf, cos_err = dist_grad_errs(got[2], want[2])
+    bounds = (DIST_F32_RTOL,) * 4 if f32 else (
+        DIST_LOSS_RTOL, DIST_NORM_RTOL, DIST_GRAD_RTOL, DIST_GRAD_COS_ERR)
+    ok = all(e <= b for e, b in zip((loss_err, norm_err, grad_err, cos_err),
+                                    bounds))
+    return ok, dict(loss_rel=loss_err, grad_norm_rel=norm_err,
+                    grad_rel=grad_err, worst_leaf=leaf,
+                    one_minus_cos=cos_err, loss=got[0], grad_norm=got[3],
+                    bounds=bounds)
+
+
+def dist_f32(cfg, params, dev):
+    """(cfg, params) in f32: the same weights, the int8 base kept (it is
+    dequantized to f32 in the products)."""
+    import torch
+    from procyon_tpu_torch import bridge
+    f32 = torch.float32
+    cfg32 = dataclasses.replace(cfg, dtype=f32, llama=dataclasses.replace(
+        cfg.llama, dtype=f32, lora=dataclasses.replace(cfg.llama.lora,
+                                                       dtype=f32)))
+    return cfg32, bridge.to_torch(bridge.to_numpy(params), device=dev)
+
+
+@contextlib.contextmanager
+def reference_attention():
+    """The decoder's attention by mha_reference (f32, any device) for the
+    f32 steps; the kernels take bf16 only."""
+    from procyon_tpu_torch.models import llama
+    from procyon_tpu_torch.ops import flash_attention as fa
+
+    def attention(q, k, v, seg_q=None, seg_kv=None, *, causal=False,
+                  q_positions=None, kv_positions=None, backend=None):
+        m = fa.mask_inputs(q, k, seg_q, seg_kv, q_positions, kv_positions)
+        return fa.mha_reference(q, k, v, m[0], m[1], causal=causal,
+                                q_positions=m[2], kv_positions=m[3])
+
+    with patched(llama, "flash_attention", attention):
+        yield
+
+
+def phase_dist_train(dev, tmp):
+    """Data parallelism and FSDP on the QLoRA step, two ranks over gloo on
+    the one card: the one-process loss, gradients and grad_norm of each
+    case on the global batch first, then the ranks on meshes (2, 1, 1)
+    and (1, 2, 1) with B1 a rank, the combined QA + retrieval step with
+    the global contrastive batch (conflict ids gathered). The gradients
+    are compared, not only updates (AdamW's first step would hide a
+    gradient summed where it should be averaged). Planted faults that
+    must fail the same check: the ranks' loss means averaged with uneven
+    supervised tokens a rank, and the contrastive positives taken at the
+    local index."""
+    import torch
+    from procyon_tpu_torch.training import train_step as ts
+    cfg, params, opt, batches = dist_train_setup(dev)
+    state = ts.init_train_state(params, opt, ts.lora_trainable_predicate)
+    ref = {}
+    for case in ("qa", "uneven", "combined"):
+        ref[case] = dist_train_grads(cfg, opt, state, batches, case, None,
+                                     dev)
+    cfg32, p32 = dist_f32(cfg, params, dev)
+    del state, params
+    state = ts.init_train_state(p32, opt, ts.lora_trainable_predicate)
+    with reference_attention():
+        for case in ("qa", "uneven", "combined"):
+            ref[case, "f32"] = dist_train_grads(cfg32, opt, state, batches,
+                                                case, None, dev)
+    del state, p32
+    torch.cuda.empty_cache()
+    torch.save(ref, os.path.join(tmp, "train_ref.pt"))
+    ranks, rank_s = dist_spawn("train", tmp)
+    out = {"layers": DIST["train_layers"], "two_ranks_s": rank_s}
+    results = []
+    for (name, _, case), f32 in itertools.product(DIST_TRAIN_CASES + (
+            ("fault: mean of means", None, "uneven"),
+            ("fault: local positives", None, "combined")), (False, True)):
+        key = (name, "f32") if f32 else name
+        got = ranks[0]["cases"][key]
+        for r in ranks[1:]:
+            check(r["cases"][key][0] == got[0]
+                  and r["cases"][key][3] == got[3],
+                  f"dist train {key}: the ranks' loss / grad_norm differ")
+        ok, errs = dist_train_check(got, ref[(case, "f32") if f32
+                                             else case], f32)
+        fault = name.startswith("fault")
+        if not f32:
+            ratio, at, temp = dist_f32_ratio(got[2], ref[case][2],
+                                             ref[case, "f32"][2])
+            errs.update(f32_ratio=ratio, f32_ratio_leaf=at[0],
+                        f32_dist_one=at[1], f32_dist_ranks=at[2],
+                        log_temp_f32_dist=temp)
+        out[f"{name} f32" if f32 else name] = errs
+        print(f"dist train {name} {'f32' if f32 else 'bf16'}: loss "
+              f"{errs['loss']:.5f} (rel {errs['loss_rel']:.2e}), grad_norm "
+              f"{errs['grad_norm']:.4f} (rel {errs['grad_norm_rel']:.2e}), "
+              f"gradients within {errs['grad_rel']:.2e} a leaf "
+              f"({errs['worst_leaf']}), 1 - least cosine "
+              f"{errs['one_minus_cos']:.2e} of the one-process run's "
+              f"(bounds {errs['bounds']})"
+              + ("" if f32 else
+                 f"; from the f32 step a leaf is at most "
+                 f"{errs['f32_ratio']:.3f}x as far as the one process's "
+                 f"({errs['f32_ratio_leaf']}: {errs['f32_dist_ranks']:.2e} "
+                 f"against {errs['f32_dist_one']:.2e}; log_temp "
+                 f"{errs['log_temp_f32_dist'][1]:.2e} against "
+                 f"{errs['log_temp_f32_dist'][0]:.2e})")
+              + f": {'held' if ok else 'caught' if fault else 'FAILED'}")
+        results.append((key, ok, fault, errs))
+    for key, ok, fault, errs in results:
+        verdict = "passed" if fault else "failed"
+        check(ok != fault, f"dist train {key}: {verdict} the check: {errs}")
+    out["launches_per_rank"] = [r["launches"] for r in ranks]
+    for r in ranks:
+        check(all(n > 0 for n in r["launches"].values()),
+              f"dist train: rows 3 / 8 / 9 not all launched on a rank: "
+              f"{r['launches']}")
+    print(f"dist train: launches a rank over the cases (rows 3, 8, 9): "
+          f"{out['launches_per_rank']}; two ranks {rank_s:.1f} s (builds "
+          f"included)")
+    return out
+
+
+def dist_worker_train(rank, world, tmp):
+    import torch
+    import torch.distributed as dist
+    from procyon_tpu_torch import parallel
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.parallel import collectives
+    from procyon_tpu_torch.training import train_step as ts
+    dev = torch.device("cuda", 0)
+    params = None
+    for r in range(world):
+        if r == rank:
+            cfg, params, opt, batches = dist_train_setup(dev)
+        dist.barrier()
+    meshes = {}
+    res = {"cases": {}}
+    fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+
+    def run(dims, case):
+        mesh = meshes[dims]
+        state = ts.init_train_state(params, opt, ts.lora_trainable_predicate,
+                                    mesh=mesh, cfg=cfg)
+        out = dist_train_grads(cfg, opt, state, batches, case, mesh, dev)
+        return out if rank == 0 else (out[0], out[1], {}, out[3])
+
+    for dims in ((2, 1, 1), (1, 2, 1)):      # every rank makes every group
+        meshes[dims] = parallel.create_mesh(parallel.MeshConfig(*dims))
+    for name, dims, case in DIST_TRAIN_CASES:
+        res["cases"][name] = run(dims, case)
+    res["launches"] = {"row3": fa.launches, "row8": fa.launches_bwd_dq,
+                       "row9": fa.launches_bwd_dkv}
+    bf16 = (cfg, params)
+    cfg, params = dist_f32(cfg, params, dev)
+    with reference_attention():
+        for name, dims, case in DIST_TRAIN_CASES:
+            res["cases"][name, "f32"] = run(dims, case)
+    f32 = (cfg, params)
+
+    def mean_of_means(total, count, group):
+        mean = total / count.clamp_min(1)
+        if group is None:
+            return mean
+        out = collectives.all_reduce(mean.detach(), group) / \
+            dist.get_world_size(group)
+        return mean + (out - mean).detach()
+
+    for (cfg, params), tag in ((bf16, None), (f32, "f32")):
+        with contextlib.ExitStack() as stack:
+            if tag:
+                stack.enter_context(reference_attention())
+            for name, fn, case in (
+                    ("fault: mean of means",
+                     patched(collectives, "global_mean", mean_of_means),
+                     "uneven"),
+                    ("fault: local positives",
+                     patched(collectives, "rank", lambda group: 0),
+                     "combined")):
+                with fn:
+                    res["cases"][(name, tag) if tag else name] = run(
+                        (2, 1, 1), case)
+    return res
+
+
+def phase_dist_torchrun(dev, tmp):
+    """One NCCL rank under torchrun: run_pretrain --synthetic true
+    --mesh_fsdp -1 --max_steps 4 through `python -m torch.distributed.run
+    --standalone --nproc_per_node 1` (the NCCL group, initialize_multihost,
+    the rank-0 checkpoint), against the same run as a plain process: the
+    same losses, bit for bit (a mesh of one rank takes the one-process
+    path)."""
+    base = [sys.executable, "-m"]
+    args = ["procyon_tpu_torch.scripts.run_pretrain", "--synthetic", "true",
+            "--max_steps", "4", "--log_steps", "1"]
+    runs = {}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    for name, cmd in (
+            ("plain", base + args),
+            ("torchrun", base + ["torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", "1", "-m"] + args
+             + ["--mesh_fsdp", "-1"])):
+        out = os.path.join(tmp, f"run_{name}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--output_dir", out], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"dist {name} run_pretrain: rc "
+                                    f"{proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+        rows = [json.loads(line) for line in
+                open(os.path.join(out, "metrics.jsonl"))]
+        runs[name] = dict(losses=[{k: v for k, v in r.items()
+                                   if k.endswith("loss")} for r in rows],
+                          seconds=time.perf_counter() - t0,
+                          stderr=proc.stderr,
+                          ckpt=os.path.isdir(os.path.join(out,
+                                                          "checkpoint-4")))
+    check("over nccl" in runs["torchrun"]["stderr"],
+          "dist torchrun: run_pretrain did not report its NCCL group")
+    check(runs["torchrun"]["ckpt"] and runs["plain"]["ckpt"],
+          "dist torchrun: no checkpoint-4")
+    check(runs["torchrun"]["losses"] == runs["plain"]["losses"]
+          and len(runs["plain"]["losses"]) == 4,
+          f"dist torchrun: losses {runs['torchrun']['losses']} against "
+          f"{runs['plain']['losses']}")
+    print(f"dist torchrun: run_pretrain on one NCCL rank (torchrun "
+          f"--standalone --nproc_per_node 1, --mesh_fsdp -1) logs the plain "
+          f"run's losses bit for bit over 4 steps and rank 0 wrote "
+          f"checkpoint-4 ({runs['torchrun']['seconds']:.1f} s, plain "
+          f"{runs['plain']['seconds']:.1f} s)")
+    return {"losses_equal": True, "steps": 4,
+            "seconds": runs["torchrun"]["seconds"]}
+
+
+def phase_dist_dryrun(dev):
+    """scripts/dryrun_multichip.py on two gloo ranks on the card, at its own
+    small shapes (bf16, the kernels; the flagship step at dim 4096)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "procyon_tpu_torch.scripts.dryrun_multichip",
+         "--ranks", "2", "--device", "cuda"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0, f"dist dry run: rc {proc.returncode}: "
+                                f"{proc.stdout[-1500:]} {proc.stderr[-2000:]}")
+    oks = [json.loads(line.split("OK ", 1)[1]) for line in
+           proc.stdout.splitlines() if line.startswith("dryrun_multichip OK")]
+    check(sorted(r["rank"] for r in oks) == [0, 1],
+          f"dist dry run: OK lines of ranks {[r['rank'] for r in oks]}")
+    r = oks[0]
+    print(f"dist dry run (2 gloo ranks on the card, mesh {r['mesh']}): "
+          f"multi-task loss {r['multitask']['loss']:.4f} (one process within "
+          f"{r['multitask']['loss_err']:.2e}), flagship dim "
+          f"{r['flagship']['dim']} qa {r['flagship']['qa_loss']:.4f} joint "
+          f"{r['flagship']['joint_loss']:.4f} (within "
+          f"{r['flagship']['loss_err']:.2e}), serving logits within "
+          f"{max(v['max_logit_err'] for v in r['serving'].values()):.4f} in "
+          f"{list(r['serving'])}; {time.perf_counter() - t0:.1f} s")
+    return r
+
+
+def phase_dist_rank_shapes(dev):
+    """Rows 3, 8 and 9 at the shapes a rank of path n gives them, each
+    held against its plain version there: row 3 at a TP 2 rank's serving
+    prefill (16 q / 4 kv heads over the gathered page context: the plain
+    mode's whole prompt, B1 x 296 over 512 empty context rows, and a wave
+    of the prefix-cache mode, B4 x 128 behind the 256 cached prefix
+    tokens), row 3 and rows 8 / 9 at a data-parallel rank's training
+    shape (B1 x S2048, 32 / 8 heads), rows 8 / 9 at the dry run's TP 2
+    flagship step (B4 x S48, 16 / 4 heads)."""
+    import torch
+    Hq, Hkv, D = (FLASH_SHAPE[k] for k in ("Hq", "Hkv", "D"))
+    m = DIST["world"]
+    ctx = DIST["page"] * DIST["pages_per_seq"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 65)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def ints(B, n, lo=0):
+        return torch.arange(lo, lo + n, dtype=torch.int32,
+                            device=dev).expand(B, n)
+
+    out = {}
+    for name, B, T, filled in (
+            ("whole prompt", 1, DIST["prefix"] + DIST["tail"][1], 0),
+            ("prefix-cache wave", DIST["wave"], DIST["chunk"],
+             DIST["prefix"])):
+        seg_kv = torch.zeros((B, ctx + T), dtype=torch.int32, device=dev)
+        seg_kv[:, :filled] = 1
+        seg_kv[:, ctx:] = 1
+        kv_pos = torch.zeros((B, ctx + T), dtype=torch.int32, device=dev)
+        kv_pos[:, :filled] = ints(B, filled)
+        kv_pos[:, ctx:] = ints(B, T, filled)
+        out[f"row 3, TP 2 serving, {name}"] = flash_case(
+            f"flash (a TP 2 rank's {name})", rnd(B, T, Hq // m, D),
+            rnd(B, ctx + T, Hkv // m, D), rnd(B, ctx + T, Hkv // m, D),
+            torch.ones((B, T), dtype=torch.int32, device=dev), seg_kv,
+            causal=True, q_pos=ints(B, T, filled), kv_pos=kv_pos)
+    S = FLASH_BWD_TRAIN["S"]
+    q, k, v = rnd(1, S, Hq, D), rnd(1, S, Hkv, D), rnd(1, S, Hkv, D)
+    out["row 3, a DP rank's training shape"] = flash_case(
+        "flash (a DP rank's training shape)", q, k, v, None, None,
+        causal=True)
+    out["rows 8, 9, a DP rank's training shape"] = flash_bwd_case(
+        "flash bwd (a DP rank's training shape)", q, k, v, None)
+    out["rows 8, 9, the dry run's TP 2 flagship step"] = flash_bwd_case(
+        "flash bwd (the dry run's TP 2 flagship step)", rnd(4, 48, Hq // m, D),
+        rnd(4, 48, Hkv // m, D), rnd(4, 48, Hkv // m, D), None)
+    return out
+
+
+def run_dist_group(dev):
+    """Path n, more than one rank: rows 3, 8, 9 and 10 at a rank's shapes
+    against their plain versions, TP 2 serving, data parallelism / FSDP
+    on the QLoRA step, one NCCL rank under torchrun, the dry run. Returns
+    (the launches of rows 3, 8, 9 and 10 on the ranks, the results)."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    shape = dict(PAGED_SHAPE, Hq=16, Hkv=4)
+    with patched(sys.modules[__name__], "PAGED_SHAPE", shape):
+        row10 = phase_paged_attention(dev, DIST["slots"], False)
+    rank_shapes = phase_dist_rank_shapes(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = phase_dist_serving(dev, tmp)
+        train = phase_dist_train(dev, tmp)
+        nccl = phase_dist_torchrun(dev, tmp)
+    dry = phase_dist_dryrun(dev)
+    launches = {
+        "flash_attention_fwd": sum(sum(v["row3_launches_per_rank"])
+                                   for k, v in serve.items()
+                                   if isinstance(v, dict)
+                                   and "row3_launches_per_rank" in v)
+        + sum(r["row3"] for r in train["launches_per_rank"]),
+        "flash_attention_bwd_dq": sum(r["row8"]
+                                      for r in train["launches_per_rank"]),
+        "flash_attention_bwd_dkv": sum(r["row9"]
+                                       for r in train["launches_per_rank"]),
+        "paged_attention": sum(sum(v["row10_launches_per_rank"])
+                               for k, v in serve.items()
+                               if isinstance(v, dict)
+                               and "row10_launches_per_rank" in v)}
+    seconds = time.perf_counter() - t0
+    print(f"dist group: {seconds:.1f} s; launches on the ranks {launches}; "
+          "two ranks share one card over gloo (through the host): no speed "
+          "number for NCCL on several cards")
+    return launches, {"row10_tp2_shape": {k: row10[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}, "rank_shapes": rank_shapes, "serving": serve,
+        "train": train, "torchrun": nccl, "dryrun": dry, "seconds": seconds}
+
+
+def dist_worker_main(argv):
+    """--dist-worker KIND RANK WORLD PORT TMP: one rank of a dist check,
+    joined over gloo on card 0; its result goes to TMP/KIND_rankR.pt."""
+    import torch
+    kind, rank, world, port, tmp = argv[0], int(argv[1]), int(argv[2]), \
+        argv[3], argv[4]
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from procyon_tpu_torch import parallel
+    parallel.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                                  backend="gloo", device="cuda")
+    fn = {"serve": dist_worker_serve, "train": dist_worker_train}[kind]
+    result = fn(rank, world, tmp)
+    torch.save(result, os.path.join(tmp, f"{kind}_rank{rank}.pt"))
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def run_only(dev, names, profile):
     """The build and the named groups of phases alone, for a quick
     iteration on one kernel or one check: "flash" (the forward's cases),
@@ -6515,7 +7354,7 @@ def run_only(dev, names, profile):
     two BERTScore CLIs), "esm_train" (the live-encoder slice: the native
     data path, rows 3, 8 and 9 at ESM2-3B's shapes, the 2-layer check,
     LoRA phase training and the merged encoder served, on the synthetic
-    service). Prints
+    service), "dist" (path n, more than one rank: run_dist_group). Prints
     their lines and no result line."""
     def mlp():
         rows = [phase_mlp(dev, m) for m in MLP_ROWS]
@@ -6545,6 +7384,7 @@ def run_only(dev, names, profile):
         "bert": lambda: run_bert_group(dev, profile),
         "esm_train": lambda: run_esm_train_group(
             dev, synthetic_service(dev), profile)[2],
+        "dist": lambda: run_dist_group(dev)[1],
     }
     for name in names:
         check(name in groups, f"--only: no group {name!r} (of "
@@ -6569,6 +7409,8 @@ def main():
         print("chip_smoke: procyon_tpu_torch/ not found beside this script",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return dist_worker_main(sys.argv[2:])
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6700,6 +7542,9 @@ def main():
     qa_metrics = phase_qa_eval(dev, small)
     del small
     torch.cuda.empty_cache()
+    dist_launches, dist_results = run_dist_group(dev)
+    for key, n in dist_launches.items():
+        launches[key] += n
     launches.update(probe_launches)
     launches["page_move_staged"] = staged.pop("path_launches")
     for k in kernels:
@@ -6804,6 +7649,14 @@ def main():
                  "bench_bind and bench_retrieval B16 x L256",
         "fused_rms_swiglu_int8_launches": launches["fused_rms_swiglu_int8"],
         **w8a8, "qa_eval_card": qa_metrics}}))
+    print(json.dumps({"main_path": {
+        "model": "more than one rank: TP 2 serving at Llama-3-8B width (32 "
+                 "layers, 16 requests behind a 256-token prefix, 32 new "
+                 "tokens, four modes), DP / FSDP on the QLoRA step (cell "
+                 "f's shape cut to 8 layers), one NCCL rank under torchrun, "
+                 "the dry run; two ranks share the card over gloo",
+        "card": smi, "launches_on_the_ranks": dist_launches,
+        **dist_results}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,9 @@ pattern: flags parsed into dataclasses, overridable wholesale from YAML
 
 `build_*` functions translate these user-facing args into the framework's
 internal configs (UnifiedConfig, OptimizerConfig, TrainLoopConfig,
-CollatorConfig), the analogue of postprocess_args (:1813). The port trains
-on one card: the mesh and multi-process fields are kept so that recipe
-YAMLs parse, and scripts/run_pretrain.py refuses values that need more
-than one card.
+CollatorConfig), the analogue of postprocess_args (:1813). The mesh and
+multi-process fields lay out the ranks of scripts/run_pretrain.py
+(parallel/).
 """
 
 import dataclasses
@@ -139,9 +138,8 @@ class TrainArgs:
     # training/prefetch.py); 0 = synchronous
     prefetch_depth: int = 2
     # mesh axes and multi-process scale-out (the reference's torchrun +
-    # NCCL surface, run_pretrain.py:117): kept for the YAML configs; the
-    # port trains on one card, and run_pretrain refuses an axis > 1 or a
-    # dist_* setting (multi-GPU training is not ported yet)
+    # NCCL surface, run_pretrain.py:117; parallel/): the rank grid and
+    # parallel.initialize_multihost's flags
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_model: int = 1

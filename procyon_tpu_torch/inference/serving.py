@@ -29,6 +29,14 @@ pinned host memory with non-blocking copies (a copy from pageable memory
 would wait for the stream first). Every forward gets the host's bound on
 its positions (`max_position`), so `paged_forward` never reads one back.
 
+Tensor-parallel serving (`mesh` with a `model` axis): each rank holds its
+slices of the weights (parallel.shard_params along `model`) and a pool of
+its kv heads' lanes and int8 scales; page tables and seq_len are the same
+on every rank. Every rank runs the same host schedule (admission, waves,
+the prefix cache, speculative rounds) and samples from the gathered full
+logits with a generator seeded the same on every rank, so the tokens are
+identical without a broadcast.
+
 The pool-write invariant: rows at positions >= seq_len are garbage by
 contract; every real writer covers a position in the same dispatch that
 advances seq_len past it. That is what makes chunk pad rows, speculative
@@ -82,7 +90,9 @@ def _bucket(n: int) -> int:
 class ContinuousBatcher:
     """The reference's constructor arguments and public surface. `device`
     is where the pool and the slot tables live; the parameters must lie
-    there already. `mesh` (tensor-parallel serving) is not ported."""
+    there already. `mesh` (parallel.Mesh): tensor-parallel serving over
+    its `model` axis; `params` are the whole tree (sliced here) or this
+    rank's slices along `model` already."""
 
     def __init__(self, params, cfg, pcfg: kv_pool.PagedConfig, *,
                  temperature: float = 0.0, seed: int = 0,
@@ -97,18 +107,22 @@ class ContinuousBatcher:
                 "sampled speculative decoding is spec_quantum=1 only "
                 "(the device-drafted trip is greedy; host-drafted "
                 "rounds carry the rejection-sampling correction)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...): tensor-parallel serving is "
-                "not ported to procyon_tpu_torch yet (ROADMAP.md, queue 1, "
-                "slice 4 remainder)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters on {params['embed'].device} but "
                              f"device={self.device}")
+        self.mesh = mesh if mesh is not None and \
+            mesh.group("model") is not None else None
+        if self.mesh is not None and \
+                llama.tensor_parallel(params, cfg, self.mesh) is None:
+            from procyon_tpu_torch.parallel.sharding import shard_params
+            params = shard_params(params, self.mesh, cfg, axes=("model",))
         self.params = params
         self.cfg = cfg
         self.pcfg = pcfg
+        # the pool this rank holds: its kv heads' lanes
+        self._pool_cfg = dataclasses.replace(
+            pcfg, n_kv_heads=llama.local_kv_heads(params, cfg, self.mesh))
         # spec_k defaults off: speculative decoding pays only when the text
         # repeats itself (the n-gram drafter's acceptance is a property of
         # the text); exactness is draft-independent either way
@@ -118,7 +132,6 @@ class ContinuousBatcher:
         # one [R, slots, K+2] readback a trip. Per-request draft_fn only
         # applies at spec_quantum == 1 (host drafting).
         self.spec_quantum = max(int(spec_quantum), 1)
-        self.mesh = None
         self.pool = self._init_pool()
         self.alloc = kv_pool.PageAllocator(pcfg)
         self.temperature = temperature
@@ -196,7 +209,7 @@ class ContinuousBatcher:
         return t.cpu().numpy()
 
     def _init_pool(self):
-        return kv_pool.init_pool(self.pcfg, device=self.device)
+        return kv_pool.init_pool(self._pool_cfg, device=self.device)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """logits [B, vocab] f32 -> [B] int32 on the device."""
@@ -240,10 +253,10 @@ class ContinuousBatcher:
         ys = []
         for i in range(k):
             logits, _ = llama.paged_forward(
-                self.params, self.cfg, self.pool, self.pcfg, self._slot_ids,
-                tokens=tokens[:, None], seg_ids=seg2,
+                self.params, self.cfg, self.pool, self._pool_cfg,
+                self._slot_ids, tokens=tokens[:, None], seg_ids=seg2,
                 lora_expert=self._lora(self.experts),
-                max_position=self._bound(i))
+                max_position=self._bound(i), mesh=self.mesh)
             tokens = self._sample(logits[:, -1])
             ys.append(tokens)
         return tokens, torch.stack(ys)
@@ -253,10 +266,11 @@ class ContinuousBatcher:
         tokens past the lengths the host has counted."""
         seg = live[:, None].expand(tokens.shape)
         logits, _ = llama.paged_forward(
-            self.params, self.cfg, self.pool, self.pcfg, self._slot_ids,
-            tokens=tokens, seg_ids=seg,
+            self.params, self.cfg, self.pool, self._pool_cfg,
+            self._slot_ids, tokens=tokens, seg_ids=seg,
             lora_expert=self._lora(self.experts),
-            max_position=self._bound(ahead + self.spec_k))
+            max_position=self._bound(ahead + self.spec_k),
+            mesh=self.mesh)
         return logits
 
     def _rewind(self, m, live) -> None:
@@ -495,9 +509,9 @@ class ContinuousBatcher:
         last-valid-position logits on the device. Returns [W] int32."""
         kw = {"input_embeds": x} if fused else {"tokens": x}
         logits, _ = llama.paged_forward(
-            self.params, self.cfg, self.pool, self.pcfg, slots,
+            self.params, self.cfg, self.pool, self._pool_cfg, slots,
             seg_ids=seg, lora_expert=self._lora(experts),
-            logits_at=valids - 1, max_position=bound, **kw)
+            logits_at=valids - 1, max_position=bound, mesh=self.mesh, **kw)
         return self._sample(logits[:, 0])
 
     def _promote_blocks(self, slot, row, n_shared, keys):

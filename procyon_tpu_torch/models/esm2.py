@@ -53,6 +53,8 @@ from procyon_tpu_torch.ops.flash_attention import flash_attention
 from procyon_tpu_torch.ops.fused_mlp import fused_ln_mlp_int8
 from procyon_tpu_torch.ops.norms import layer_norm
 from procyon_tpu_torch.ops.rotary import flat_rotary_tables
+from procyon_tpu_torch.parallel import collectives as coll
+from procyon_tpu_torch.parallel.sharding import split_group
 
 PAD_IDX = 1
 MASK_IDX = 32
@@ -235,15 +237,17 @@ def prefix_key_rotation(rot, P: int):
                                    device=sin.device), sin]))
 
 
-def _attention(q, k, v, seg, rot, cfg: ESM2Config, prefix=None):
+def _attention(q, k, v, seg, rot, cfg: ESM2Config, prefix=None,
+               n_heads=None):
     """q/k/v [B, S, H*D] pre-rotary -> [B, S, H*D]. On a CUDA tensor every
     backend ends in a kernel: "rowblock" in the packed row-block kernel
     (rotary fused) or, where that does not apply (head_dim 24, a prefix,
     under autograd), in the flash kernel, as None does. "ref" is the CPU
     reference. `prefix` {"k", "v"} [P, H*D] prepends P key / value rows
-    (segment 1, identity rotation) that every query may attend."""
+    (segment 1, identity rotation) that every query may attend. n_heads:
+    the heads q / k / v hold (a rank's, under tensor parallelism)."""
     B, S, HD = q.shape
-    shape4 = (B, S, cfg.n_heads, cfg.head_dim)
+    shape4 = (B, S, n_heads or cfg.n_heads, cfg.head_dim)
     q, k, v = q.reshape(shape4), k.reshape(shape4), v.reshape(shape4)
     seg_kv, rot_k = seg, rot
     if prefix is not None:
@@ -277,23 +281,44 @@ def _adapter(y, lp, cfg: ESM2Config):
     return y + (mid @ a["wu"] + a["bu"]).to(y.dtype)
 
 
-def _mlp(x, lp, cfg: ESM2Config, lora_expert=0):
+def _lora_col(lp, name, cfg: ESM2Config, inp, out, lora_expert, g):
+    """_lora onto a column-split product: the whole delta from the
+    replicated input, then this rank's columns."""
+    if g is None or cfg.lora is None or lp.get(f"lora_{name}") is None:
+        return _lora(lp, name, cfg, inp, out, lora_expert)
+    return out + coll.split_to(_lora(lp, name, cfg, inp, 0.0, lora_expert),
+                               g)
+
+
+def _row(lp, group, name, cfg: ESM2Config, inp, lora_expert, g):
+    """A row-split product (this rank's input columns) summed over the
+    group, plus the LoRA delta of the whole (gathered) input."""
+    out = coll.reduce_from(quant.mm(inp, lp[group][name], cfg.quant_mode), g)
+    if g is None or cfg.lora is None or lp.get(f"lora_{name}") is None:
+        return _lora(lp, name, cfg, inp, out, lora_expert)
+    return _lora(lp, name, cfg, coll.gather_from(inp, g), out, lora_expert)
+
+
+def _mlp(x, lp, cfg: ESM2Config, lora_expert=0, mesh=None):
+    """The MLP with its residual; under a split MLP (mesh), this rank's
+    columns of w1 / rows of w2 and the all-reduce after w2."""
     mode = cfg.quant_mode
+    g = split_group(lp["mlp"]["w1"], cfg.ffn_dim, mesh)
     h = layer_norm(x, lp["mlp_norm"]["w"], lp["mlp_norm"]["b"],
                    eps=cfg.norm_eps)
-    h1 = _lora(lp, "w1", cfg, h, quant.mm(h, lp["mlp"]["w1"], mode),
-               lora_expert) + lp["mlp"]["b1"]
+    h1 = _lora_col(lp, "w1", cfg, h,
+                   quant.mm(coll.copy_to(h, g), lp["mlp"]["w1"], mode),
+                   lora_expert, g) + coll.split_to(lp["mlp"]["b1"], g)
     if cfg.gelu_approx:
         h = torch.nn.functional.gelu(h1.float(), approximate="tanh").to(
             h1.dtype)
     else:
         h = gelu_erf_fast(h1)
-    x = x + _lora(lp, "w2", cfg, h, quant.mm(h, lp["mlp"]["w2"], mode),
-                  lora_expert) + lp["mlp"]["b2"]
+    x = x + _row(lp, "mlp", "w2", cfg, h, lora_expert, g) + lp["mlp"]["b2"]
     return _adapter(x, lp, cfg)
 
 
-def _block(x, lp, seg, rot, cfg: ESM2Config, lora_expert=0):
+def _block(x, lp, seg, rot, cfg: ESM2Config, lora_expert=0, mesh=None):
     B, S, _ = x.shape
     hd = cfg.head_dim
     HD = cfg.n_heads * hd
@@ -319,29 +344,39 @@ def _block(x, lp, seg, rot, cfg: ESM2Config, lora_expert=0):
                     m["w2"]["q"], m["w2"]["s"], m["b2"], eps=cfg.norm_eps,
                     add_residual=True)
                 return _adapter(out.reshape(B, S, cfg.dim), lp, cfg)
-            return _mlp(x, lp, cfg)
+            return _mlp(x, lp, cfg, mesh=mesh)
         q, k, v = qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:]
+        g = None
     else:
-        q, k, v = (_lora(lp, n, cfg, h,
-                         quant.mm(h, lp["attn"][n], mode)
-                         + lp["attn"]["b" + n[1:]], lora_expert)
+        g = split_group(lp["attn"]["wq"], HD, mesh)
+        h_in = coll.copy_to(h, g)
+        q, k, v = (_lora_col(lp, n, cfg, h,
+                             quant.mm(h_in, lp["attn"][n], mode)
+                             + coll.split_to(lp["attn"]["b" + n[1:]], g),
+                             lora_expert, g)
                    for n in ("wq", "wk", "wv"))
-    attn = _attention(q, k, v, seg, rot, cfg,
-                      prefix=lp.get("prefix") if cfg.prefix_len else None
-                      ).to(x.dtype)
-    x = x + _lora(lp, "wo", cfg, attn, quant.mm(attn, lp["attn"]["wo"], mode),
-                  lora_expert) + lp["attn"]["bo"]
-    return _mlp(x, lp, cfg, lora_expert)
+    prefix = lp.get("prefix") if cfg.prefix_len else None
+    if prefix is not None and g is not None:
+        prefix = {n: coll.split_to(prefix[n], g) for n in ("k", "v")}
+    n_heads = cfg.n_heads // coll.size(g)
+    attn = _attention(q, k, v, seg, rot, cfg, prefix=prefix,
+                      n_heads=n_heads).to(x.dtype)
+    x = x + _row(lp, "attn", "wo", cfg, attn, lora_expert, g) \
+        + lp["attn"]["bo"]
+    return _mlp(x, lp, cfg, lora_expert, mesh)
 
 
 def forward(params, cfg: ESM2Config, tokens: torch.Tensor, *,
             seg_ids: Optional[torch.Tensor] = None,
-            return_logits: bool = False, lora_expert=0):
+            return_logits: bool = False, lora_expert=0, mesh=None):
     """tokens [B, S] (ESM alphabet, cls/eos included), on the parameters'
     device. Returns {"hidden": [B, S, dim] after the final LayerNorm,
     "logits": [B, S, vocab] f32 when return_logits}. Padding (PAD_IDX) is
     masked out of attention through segment ids. lora_expert selects the
-    active (Mo)LoRA expert (the reference's set_prot_lora_group)."""
+    active (Mo)LoRA expert (the reference's set_prot_lora_group). mesh:
+    with a `model` axis, `params` are this rank's slices and the blocks
+    run tensor-parallel (the separate q / k / v layout; a fused wqkv is
+    replicated), as llama.forward's."""
     B, S = tokens.shape
     tokens = tokens.long()
     if seg_ids is None:
@@ -368,7 +403,10 @@ def forward(params, cfg: ESM2Config, tokens: torch.Tensor, *,
     if S > cfg.max_seq_len:
         raise ValueError(f"{S} tokens per row > max_seq_len "
                          f"{cfg.max_seq_len}")
-    cos_f, sin_f, _ = flat_rotary_tables(cfg.head_dim, cfg.n_heads,
+    attn0 = params["layers"]["attn"]
+    n_heads = cfg.n_heads if "wqkv" in attn0 else cfg.n_heads // coll.size(
+        split_group(attn0["wq"], cfg.n_heads * cfg.head_dim, mesh))
+    cos_f, sin_f, _ = flat_rotary_tables(cfg.head_dim, n_heads,
                                          cfg.max_seq_len)
     rot = (cos_f[:S].to(device=x.device, dtype=cfg.dtype),
            sin_f[:S].to(device=x.device, dtype=cfg.dtype))
@@ -379,9 +417,10 @@ def forward(params, cfg: ESM2Config, tokens: torch.Tensor, *,
         if cfg.remat and needs_grad(x, lp):
             x = torch.utils.checkpoint.checkpoint(
                 _block, x, lp, seg_ids, rot, cfg, lora_expert=lora_expert,
-                use_reentrant=False)
+                mesh=mesh, use_reentrant=False)
         else:
-            x = _block(x, lp, seg_ids, rot, cfg, lora_expert=lora_expert)
+            x = _block(x, lp, seg_ids, rot, cfg, lora_expert=lora_expert,
+                       mesh=mesh)
 
     x = layer_norm(x, params["final_norm"]["w"], params["final_norm"]["b"],
                    eps=cfg.norm_eps)

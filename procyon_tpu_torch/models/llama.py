@@ -31,6 +31,15 @@ Weights may be bf16 / f32 tensors, int8 leaves {"q", "s"} or packed int4
 leaves {"p", "s"} (`quantize_params`); `ops/quant.mm` dispatches on the
 leaf, and int4 products of at most 256 rows go through the kernel of
 ops/int4_matmul.py.
+
+Tensor parallelism (`mesh=` with a `model` axis; `TensorParallel`): a
+rank holds its heads' columns of q / k / v and rows of wo (whole kv heads
+only, parallel/sharding.py), its columns of w_gate / w_up and rows of
+w_down, and its slice of lm_head's vocabulary; the block runs on those,
+with Megatron's copy / reduce pairs around each split product
+(parallel/collectives.py: the all-reduce after wo and after w_down, the
+logits gathered). The kernels see a rank's shapes. Without a model group
+nothing changes.
 """
 
 import dataclasses
@@ -43,6 +52,8 @@ import torch.utils.checkpoint
 from procyon_tpu_torch.models import lora as lora_mod
 from procyon_tpu_torch.models._init import Seed, make_generator
 from procyon_tpu_torch.ops import quant
+from procyon_tpu_torch.parallel import collectives as coll
+from procyon_tpu_torch.parallel.sharding import split_group
 from procyon_tpu_torch.ops.flash_attention import flash_attention
 from procyon_tpu_torch.ops.paged_attention import \
     paged_decode_attention_fullpage
@@ -157,11 +168,17 @@ def init_params(seed: Seed, cfg: LlamaConfig, *, device="cuda"):
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int,
-                  max_len: Optional[int] = None, *, device="cuda"):
-    """Contiguous KV cache [L, B, Smax, Hkv, D] + filled length."""
+                  max_len: Optional[int] = None, *, device="cuda",
+                  params=None, mesh=None):
+    """Contiguous KV cache [L, B, Smax, Hkv, D] + filled length; under a
+    mesh, the kv heads that this rank's `params` split to it."""
+    if mesh is not None and params is None:
+        raise ValueError("init_kv_cache(mesh=) needs this rank's params")
     S = max_len or cfg.max_seq_len
     device = torch.device(device)
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    kv = cfg.n_kv_heads if mesh is None else local_kv_heads(params, cfg,
+                                                            mesh)
+    shape = (cfg.n_layers, batch, S, kv, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -174,6 +191,67 @@ def init_kv_cache(cfg: LlamaConfig, batch: int,
 
 
 _mm = quant.mm
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """Megatron's split of a decoder over the mesh's `model` group, read
+    from the shapes of this rank's leaves: `attn` when q / k / v hold this
+    rank's heads (columns) and wo its rows, `mlp` when w_gate / w_up hold
+    its columns and w_down its rows, `head` when lm_head holds its slice
+    of the vocabulary. A quantized leaf is replicated (sharding.py), so
+    its block runs whole on every rank."""
+    group: object
+    attn: bool
+    mlp: bool
+    head: bool
+    n_heads: int
+    n_kv_heads: int
+
+    def grp(self, part: bool):
+        return self.group if part else None
+
+
+def tensor_parallel(params, cfg: LlamaConfig, mesh):
+    """The TensorParallel of this rank's tree, None without a model
+    group or when no leaf of it is split."""
+    lay = params["layers"]
+    attn, mlp, head = (split_group(w, full, mesh) is not None for w, full in (
+        (lay["attn"]["wq"], cfg.n_heads * cfg.head_dim),
+        (lay["mlp"]["w_gate"], cfg.intermediate),
+        (params["lm_head"], cfg.vocab_size)))
+    if not (attn or mlp or head):
+        return None
+    m = mesh.shape["model"]
+    return TensorParallel(mesh.group("model"), attn, mlp, head,
+                          cfg.n_heads // m if attn else cfg.n_heads,
+                          cfg.n_kv_heads // m if attn else cfg.n_kv_heads)
+
+
+def local_kv_heads(params, cfg: LlamaConfig, mesh) -> int:
+    """The kv heads this rank's forward runs on, read from its tree as the
+    forward reads them: a cache or pool sized by this agrees with it
+    (quantized attention stays whole on every rank)."""
+    tp = tensor_parallel(params, cfg, mesh)
+    return tp.n_kv_heads if tp is not None else cfg.n_kv_heads
+
+
+def _lora_tp(bank, lcfg, h, base, expert, tp, routed=False):
+    """lora.apply (or apply_routed) onto a column-split base: the delta of
+    the whole projection, computed from the replicated input, then this
+    rank's columns (gathered back in the backward)."""
+    fn = lora_mod.apply_routed if routed else lora_mod.apply
+    if tp is None or not tp.attn:
+        return fn(bank, lcfg, h, base, expert)
+    return base + coll.split_to(fn(bank, lcfg, h, 0.0, expert), tp.group)
+
+
+def _lm_head(x, params, tp):
+    """f32 logits; a vocabulary-split head's slices gathered."""
+    if tp is None or not tp.head:
+        return _mm(x, params["lm_head"]).float()
+    return coll.gather_from(
+        _mm(coll.copy_to(x, tp.group), params["lm_head"]).float(), tp.group)
 
 
 def _layer(layers, i: int):
@@ -238,33 +316,39 @@ def _decode_attention_step(q, cache_k, cache_v, seg_ids, cache_seg,
 
 def _block(x, lp, seg_ids, positions, rot, cfg: LlamaConfig,
            cache_k=None, cache_v=None, cache_seg=None, cache_pos=None,
-           cache_len=None, lora_expert=0):
+           cache_len=None, lora_expert=0, tp=None):
     """One decoder block. x [B, S, dim]. With a cache, layer i's cache_k /
     cache_v [B, Smax, Hkv, D] are updated in place at
-    [cache_len, cache_len + S)."""
+    [cache_len, cache_len + S). Under `tp` (TensorParallel) the block runs
+    this rank's heads and MLP columns, with the all-reduces after wo and
+    w_down."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     cos_q, sin_q, perm_q, cos_k, sin_k, perm_k = rot
+    n_heads = tp.n_heads if tp is not None else cfg.n_heads
+    n_kv = tp.n_kv_heads if tp is not None else cfg.n_kv_heads
+    g_attn = tp.grp(tp.attn) if tp is not None else None
 
     h = rms_norm(x, lp["attn_norm"], eps=cfg.norm_eps)
     mode = cfg.quant_mode if S > 1 else "dequant"
-    q_flat = _mm(h, lp["attn"]["wq"], mode)
-    k_flat = _mm(h, lp["attn"]["wk"], mode)
-    v_flat = _mm(h, lp["attn"]["wv"], mode)
+    h_in = coll.copy_to(h, g_attn)
+    q_flat = _mm(h_in, lp["attn"]["wq"], mode)
+    k_flat = _mm(h_in, lp["attn"]["wk"], mode)
+    v_flat = _mm(h_in, lp["attn"]["wv"], mode)
     if cfg.lora is not None:
-        q_flat = lora_mod.apply(lp["lora_wq"], cfg.lora, h, q_flat,
-                                expert_idx=lora_expert)
-        v_flat = lora_mod.apply(lp["lora_wv"], cfg.lora, h, v_flat,
-                                expert_idx=lora_expert)
+        q_flat = _lora_tp(lp["lora_wq"], cfg.lora, h, q_flat, lora_expert,
+                          tp)
+        v_flat = _lora_tp(lp["lora_wv"], cfg.lora, h, v_flat, lora_expert,
+                          tp)
     if S == 1:
         q = apply_rotary_flat_decode(q_flat, cos_q, sin_q, hd)
         k = apply_rotary_flat_decode(k_flat, cos_k, sin_k, hd)
     else:
         q = apply_rotary_flat(q_flat, cos_q, sin_q, perm_q)
         k = apply_rotary_flat(k_flat, cos_k, sin_k, perm_k)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v_flat.reshape(B, S, cfg.n_kv_heads, hd)
+    q = q.reshape(B, S, n_heads, hd)
+    k = k.reshape(B, S, n_kv, hd)
+    v = v_flat.reshape(B, S, n_kv, hd)
 
     if cache_k is not None:
         # write new k/v at [cache_len, cache_len + S), attend over the cache
@@ -283,25 +367,32 @@ def _block(x, lp, seg_ids, positions, rot, cfg: LlamaConfig,
     else:
         attn = flash_attention(q, k, v, seg_ids, seg_ids, causal=True,
                                backend=cfg.attn_backend)
-    attn = attn.reshape(B, S, cfg.n_heads * hd).to(x.dtype)
-    x = x + _mm(attn, lp["attn"]["wo"], mode)
-    return _mlp(x, lp, cfg, mode)
+    attn = attn.reshape(B, S, n_heads * hd).to(x.dtype)
+    x = x + coll.reduce_from(_mm(attn, lp["attn"]["wo"], mode), g_attn)
+    return _mlp(x, lp, cfg, mode, tp)
 
 
-def _mlp(x, lp, cfg: LlamaConfig, mode: str):
+def _mlp(x, lp, cfg: LlamaConfig, mode: str, tp=None):
     """The MLP half of a block with its residual: x + down(silu(gate(h)) *
     up(h)), h = rms_norm(x), each product by `mode` ("dequant" or
-    "w8a8")."""
-    h = rms_norm(x, lp["mlp_norm"], eps=cfg.norm_eps)
+    "w8a8"); under a split MLP, this rank's columns and the all-reduce
+    after w_down."""
+    g = tp.grp(tp.mlp) if tp is not None else None
+    h = coll.copy_to(rms_norm(x, lp["mlp_norm"], eps=cfg.norm_eps), g)
     gated = torch.nn.functional.silu(_mm(h, lp["mlp"]["w_gate"], mode)) \
         * _mm(h, lp["mlp"]["w_up"], mode)
-    return x + _mm(gated, lp["mlp"]["w_down"], mode)
+    return x + coll.reduce_from(_mm(gated, lp["mlp"]["w_down"], mode), g)
 
 
 def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
             seg_ids=None, positions=None, kv_cache=None, lora_expert=0,
-            want_logits: bool = True, max_position: Optional[int] = None):
+            want_logits: bool = True, max_position: Optional[int] = None,
+            mesh=None):
     """Run the decoder stack on the parameters' device.
+
+    mesh (parallel.Mesh): with a `model` axis, `params` are this rank's
+    slices (parallel.shard_params) and the stack runs tensor-parallel
+    (TensorParallel); the logits come back whole on every rank.
 
     input_embeds [B, S, dim] (fusion path) or tokens [B, S]. seg_ids [B, S]
     (0 = pad). positions [B, S] absolute positions for RoPE; none may reach
@@ -334,15 +425,17 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
     if max_position >= cfg.max_seq_len:
         raise ValueError(f"position {max_position} >= max_seq_len "
                          f"{cfg.max_seq_len}")
+    tp = tensor_parallel(params, cfg, mesh)
+    n_heads = tp.n_heads if tp is not None else cfg.n_heads
+    n_kv = tp.n_kv_heads if tp is not None else cfg.n_kv_heads
 
     def tables(n_heads):
         cos_g, sin_g, perm = flat_rotary_at(positions, cfg.head_dim, n_heads,
                                             cfg.rope_theta)
         return cos_g.to(cfg.dtype), sin_g.to(cfg.dtype), perm
 
-    rot_q = tables(cfg.n_heads)
-    rot = rot_q + (rot_q if cfg.n_kv_heads == cfg.n_heads
-                   else tables(cfg.n_kv_heads))
+    rot_q = tables(n_heads)
+    rot = rot_q + (rot_q if n_kv == n_heads else tables(n_kv))
 
     layers = params["layers"]
     new_cache = None
@@ -352,10 +445,10 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
             if cfg.remat and needs_grad(x, lp):
                 x = torch.utils.checkpoint.checkpoint(
                     _block, x, lp, seg_ids, positions, rot, cfg,
-                    lora_expert=lora_expert, use_reentrant=False)
+                    lora_expert=lora_expert, tp=tp, use_reentrant=False)
             else:
                 x = _block(x, lp, seg_ids, positions, rot, cfg,
-                           lora_expert=lora_expert)
+                           lora_expert=lora_expert, tp=tp)
     else:
         cache_len = int(kv_cache["length"])
         if cache_len + S > kv_cache["seg"].shape[1]:
@@ -371,7 +464,7 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
             x = _block(x, _layer(layers, i), seg_ids, positions, rot, cfg,
                        cache_k=kv_cache["k"][i], cache_v=kv_cache["v"][i],
                        cache_seg=cache_seg, cache_pos=cache_pos,
-                       cache_len=cache_len, lora_expert=lora_expert)
+                       cache_len=cache_len, lora_expert=lora_expert, tp=tp)
         new_cache = {"k": kv_cache["k"], "v": kv_cache["v"],
                      "seg": cache_seg, "pos": cache_pos,
                      "length": cache_len + S}
@@ -379,7 +472,7 @@ def forward(params, cfg: LlamaConfig, *, input_embeds=None, tokens=None,
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     out = {"hidden": x}
     if want_logits:
-        out["logits"] = _mm(x, params["lm_head"]).float()
+        out["logits"] = _lm_head(x, params, tp)
     if new_cache is not None:
         out["kv_cache"] = new_cache
     return out
@@ -550,7 +643,7 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
                   lora_expert=0, share_gsz: int = 0,
                   share_prefix_pages: int = 0, share_tail_pages: int = 0,
                   share_g0=None, logits_at=None,
-                  max_position: Optional[int] = None):
+                  max_position: Optional[int] = None, mesh=None):
     """Forward T tokens per slot against the paged pool, then append their
     K/V. T == 1 is the decode step; T > 1 is (chunked) prefill. The pool's
     k / v (and scale) tensors and its seq_len are updated in place; returns
@@ -585,7 +678,12 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
     reach cfg.max_seq_len. max_position is their upper bound where the
     caller knows it on the host (a decode loop knows its prompt lengths and
     its step); without it the bound is read from the device, which stalls
-    the host once per call."""
+    the host once per call.
+
+    mesh: as `forward`'s. Under a split attention the pool holds this
+    rank's kv heads' lanes (pcfg.n_kv_heads is the local count) and every
+    route runs on them; page tables and seq_len are the same on every
+    rank."""
     from procyon_tpu_torch.inference import kv_pool
 
     if input_embeds is None:
@@ -601,7 +699,13 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
         expert_oh = torch.nn.functional.one_hot(
             lora_expert.to(dev).long(), cfg.lora.num_experts).to(cfg.dtype)
     hd = cfg.head_dim
-    KH = cfg.n_kv_heads
+    tp = tensor_parallel(params, cfg, mesh)
+    n_heads = tp.n_heads if tp is not None else cfg.n_heads
+    KH = tp.n_kv_heads if tp is not None else cfg.n_kv_heads
+    g_attn = tp.grp(tp.attn) if tp is not None else None
+    if pcfg.n_kv_heads != KH:
+        raise ValueError(f"the pool holds {pcfg.n_kv_heads} kv heads, this "
+                         f"rank's parameters {KH}")
     kd = KH * hd
     start = pool["seq_len"][slot_ids]                            # [B] int32
     positions = start[:, None] + torch.arange(T, dtype=torch.int32,
@@ -620,8 +724,8 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
                                             cfg.rope_theta)
         return cos_g.to(cfg.dtype), sin_g.to(cfg.dtype), perm
 
-    cos_q, sin_q, perm_q = tables(cfg.n_heads)
-    cos_k, sin_k, perm_k = (cos_q, sin_q, perm_q) if KH == cfg.n_heads \
+    cos_q, sin_q, perm_q = tables(n_heads)
+    cos_k, sin_k, perm_k = (cos_q, sin_q, perm_q) if KH == n_heads \
         else tables(KH)
 
     cascade = (T == 1 and share_gsz > 1 and share_prefix_pages > 0
@@ -674,27 +778,24 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
         lp = _layer(layers, li)
         page_off = li * pcfg.n_pages
         h = rms_norm(x, lp["attn_norm"], eps=cfg.norm_eps)
-        q_flat = _mm(h, lp["attn"]["wq"])
-        k_flat = _mm(h, lp["attn"]["wk"])
-        v_flat = _mm(h, lp["attn"]["wv"])
+        h_in = coll.copy_to(h, g_attn)
+        q_flat = _mm(h_in, lp["attn"]["wq"])
+        k_flat = _mm(h_in, lp["attn"]["wk"])
+        v_flat = _mm(h_in, lp["attn"]["wv"])
         if cfg.lora is not None:
-            if expert_oh is not None:
-                q_flat = lora_mod.apply_routed(lp["lora_wq"], cfg.lora, h,
-                                               q_flat, expert_oh)
-                v_flat = lora_mod.apply_routed(lp["lora_wv"], cfg.lora, h,
-                                               v_flat, expert_oh)
-            else:
-                q_flat = lora_mod.apply(lp["lora_wq"], cfg.lora, h, q_flat,
-                                        expert_idx=lora_expert)
-                v_flat = lora_mod.apply(lp["lora_wv"], cfg.lora, h, v_flat,
-                                        expert_idx=lora_expert)
+            routed = expert_oh is not None
+            ex = expert_oh if routed else lora_expert
+            q_flat = _lora_tp(lp["lora_wq"], cfg.lora, h, q_flat, ex, tp,
+                              routed)
+            v_flat = _lora_tp(lp["lora_wv"], cfg.lora, h, v_flat, ex, tp,
+                              routed)
         if T == 1:
             q = apply_rotary_flat_decode(q_flat, cos_q, sin_q, hd)
             k_new = apply_rotary_flat_decode(k_flat, cos_k, sin_k, hd)
         else:
             q = apply_rotary_flat(q_flat, cos_q, sin_q, perm_q)
             k_new = apply_rotary_flat(k_flat, cos_k, sin_k, perm_k)
-        q = q.reshape(B, T, cfg.n_heads, hd)
+        q = q.reshape(B, T, n_heads, hd)
         k_new = k_new.reshape(B, T, KH, hd)
         v_new = v_flat.reshape(B, T, KH, hd)
 
@@ -772,15 +873,16 @@ def paged_forward(params, cfg: LlamaConfig, pool, pcfg, slot_ids, *,
                                        causal=True, q_positions=positions,
                                        kv_positions=pos_all,
                                        backend=cfg.attn_backend)
-        attn = attn.reshape(B, T, cfg.n_heads * hd).to(x.dtype)
-        x = _mlp(x + _mm(attn, lp["attn"]["wo"]), lp, cfg, "dequant")
+        attn = attn.reshape(B, T, n_heads * hd).to(x.dtype)
+        x = _mlp(x + coll.reduce_from(_mm(attn, lp["attn"]["wo"]), g_attn),
+                 lp, cfg, "dequant", tp)
         new_k.append(k_new.reshape(B, T, kd))
         new_v.append(v_new.reshape(B, T, kd))
 
     if logits_at is not None:
         x = x[torch.arange(B, device=dev), logits_at.to(dev).long()][:, None]
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    logits = _mm(x, params["lm_head"]).float()
+    logits = _lm_head(x, params, tp)
 
     kv_pool.write_tokens(pool, pcfg, torch.stack(new_k), torch.stack(new_v),
                          slot_ids, start)

@@ -18,9 +18,10 @@ Forward modes:
 
 Batches are dicts of tensors on the parameters' device. `forward` is
 differentiable (the training losses, train steps in training/), and so is
-`protein_mlm_logits`, the encoder's masked-LM head (the MLM task). Not
-ported yet (ROADMAP.md, queue 1): the cross-device contrastive batch
-(multi-GPU training).
+`protein_mlm_logits`, the encoder's masked-LM head (the MLM task). Under a
+mesh (parallel.Mesh) the towers run tensor-parallel over its `model` axis
+and the batch holds this rank's rows of the global batch (data x fsdp):
+the LM loss and the contrastive loss are global-batch means.
 """
 
 import dataclasses
@@ -31,6 +32,7 @@ import torch
 from procyon_tpu_torch.models import (contrastive, esm2, llama, pooling,
                                       projectors)
 from procyon_tpu_torch.models._init import Seed, make_generator
+from procyon_tpu_torch.parallel import collectives as coll
 
 # aliases: dataclass field names below shadow the module names in class scope
 _LlamaConfig = llama.LlamaConfig
@@ -151,14 +153,14 @@ def encode_proteins(params, cfg: UnifiedConfig,
                     group_ids: Optional[torch.Tensor] = None,
                     num_groups: Optional[int] = None,
                     row_valid: Optional[torch.Tensor] = None,
-                    lora_expert=0):
+                    lora_expert=0, mesh=None):
     """ESM-encode residue tokens [R, Lp] -> pooled embeddings [R or G, De];
     group_ids/num_groups merge chunk rows of long proteins. lora_expert
     selects the encoder's (Mo)LoRA expert when cfg.esm.lora is set."""
     if cfg.esm is None:
         raise ValueError("encode_proteins requires a live ESM encoder")
     out = esm2.forward(params["esm"], cfg.esm, protein_tokens,
-                       lora_expert=lora_expert)
+                       lora_expert=lora_expert, mesh=mesh)
     token_mask = (protein_tokens != esm2.PAD_IDX).to(torch.int32)
     pooled = pooling.pool_tokens(out["hidden"], token_mask,
                                  cfg.protein_pooling)
@@ -230,7 +232,7 @@ def build_soft_bank(params, cfg: UnifiedConfig, protein_embeds,
     return banks[0] if len(banks) == 1 else torch.cat(banks, dim=0)
 
 
-def _with_protein_embeds(params, cfg, batch, lora_expert=0):
+def _with_protein_embeds(params, cfg, batch, lora_expert=0, mesh=None):
     """The batch with "protein_embeds", encoding "protein_tokens" with the
     live encoder (on `lora_expert`) when they are not precomputed."""
     if batch.get("protein_embeds") is not None:
@@ -240,7 +242,8 @@ def _with_protein_embeds(params, cfg, batch, lora_expert=0):
     embeds = encode_proteins(
         params, cfg, toks, group_ids=batch.get("protein_group_ids"),
         num_groups=toks.shape[0] if grouped else None,
-        row_valid=batch.get("protein_row_valid"), lora_expert=lora_expert)
+        row_valid=batch.get("protein_row_valid"), lora_expert=lora_expert,
+        mesh=mesh)
     return {**batch, "protein_embeds": embeds}
 
 
@@ -263,7 +266,7 @@ def _prot_hidden(hidden, ret_pos):
 
 def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
             axis_name=None, kv_cache=None, lora_expert=0,
-            want_logits: bool = True, max_position=None):
+            want_logits: bool = True, max_position=None, mesh=None):
     """Run the fusion model.
 
     batch keys (all fixed-shape; produced by data/collators.py):
@@ -279,8 +282,19 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
     want_logits=False skips the LM head (see llama.forward); the LM loss
     needs it. max_position is llama.forward's host-side bound of
     `positions`.
+
+    mesh (parallel.Mesh): `params` are this rank's slices (model axis)
+    and the per-example rows of `batch` its rows of the global batch;
+    `axis_name` defaults to the mesh's batch group. "lm_loss" and the
+    retrieval loss are then global-batch means (the same on every rank;
+    each rank's gradient is its share's, and the shares' gradients sum to
+    the global one). axis_name alone (a process group) makes only the
+    contrastive batch global. A conflict_mask is local and is not used
+    under axis_name (conflict_ids is), as in the JAX package.
     """
-    batch = _with_protein_embeds(params, cfg, batch, lora_expert)
+    if mesh is not None and axis_name is None:
+        axis_name = mesh.group("batch")
+    batch = _with_protein_embeds(params, cfg, batch, lora_expert, mesh)
     input_embeds = assemble_input_embeds(params, cfg, batch)
     out = llama.forward(params["llama"], cfg.llama,
                         input_embeds=input_embeds,
@@ -288,7 +302,7 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
                         positions=batch.get("positions"),
                         kv_cache=kv_cache, lora_expert=lora_expert,
                         want_logits=want_logits,
-                        max_position=max_position)
+                        max_position=max_position, mesh=mesh)
     result = {"hidden": out["hidden"]}
     for key in ("logits", "kv_cache"):
         if key in out:
@@ -312,7 +326,8 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
             loss, metrics = contrastive.info_nce_in_batch(
                 params["contrastive"], cfg.contrastive, targets, query,
                 valid=batch.get("ret_valid"),
-                conflict_mask=batch.get("conflict_mask"),
+                conflict_mask=None if axis_name is not None
+                else batch.get("conflict_mask"),
                 conflict_ids=batch.get("conflict_ids"),
                 axis_name=axis_name)
         result.update({"retrieval_loss": loss, "retrieval_metrics": metrics,
@@ -326,7 +341,9 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, safe[..., None])[..., 0]
         nll = torch.where(mask, nll, 0.0)
-        result["lm_loss"] = nll.sum() / mask.sum().clamp_min(1)
+        result["lm_loss"] = coll.global_mean(
+            nll.sum(), mask.sum(),
+            mesh.group("batch") if mesh is not None else None)
         result["lm_token_count"] = mask.sum()
         # per-row loss for caption weighting
         result["lm_loss_per_row"] = nll.sum(-1) / mask.sum(-1).clamp_min(1)
@@ -334,13 +351,13 @@ def forward(params, cfg: UnifiedConfig, batch, *, retrieval=False,
 
 
 def protein_mlm_logits(params, cfg: UnifiedConfig, protein_tokens, *,
-                       lora_expert=0):
+                       lora_expert=0, mesh=None):
     """The encoder's masked-LM logits [R, Lp, vocab] in f32: the tied
     embedding head (dense, GELU, LayerNorm, the embedding's transpose, a
     bias) on the residue tokens, through the encoder's `lora_expert`."""
     return esm2.forward(params["esm"], cfg.esm, protein_tokens,
-                        return_logits=True,
-                        lora_expert=lora_expert)["logits"]
+                        return_logits=True, lora_expert=lora_expert,
+                        mesh=mesh)["logits"]
 
 
 def retrieval_query_embedding(params, cfg: UnifiedConfig, batch):

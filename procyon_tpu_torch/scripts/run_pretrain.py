@@ -1,5 +1,5 @@
 """Instruction pretraining CLI (counterpart of scripts/run_pretrain.py), on
-one card.
+one card or several.
 
 Parses (TrainArgs, DataArgs, ModelArgs) with the --from_yaml override,
 builds the dataset mix, collators and model, and runs the multi-task
@@ -34,9 +34,16 @@ proteins of at most --max_protein_len residues), e.g.
       --lora_num_experts 4 --lora_phase_training true \\
       --mlm_skip_frequency 1 --max_steps 4 --output_dir /tmp/run2
 
-Not on one card, each raising NotImplementedError (ROADMAP.md, queue 1):
-a mesh axis > 1 and the dist_* flags (multi-GPU training, parallel/ over
-NCCL).
+Several ranks (parallel/): under torchrun, e.g.
+  python -m torch.distributed.run --nproc_per_node N \
+      -m procyon_tpu_torch.scripts.run_pretrain --mesh_fsdp -1 ...
+(NCCL, a card a rank), or one process a rank with --dist_coordinator
+host:port --dist_num_processes N --dist_process_id r (gloo with --device
+cpu). --mesh_data / --mesh_fsdp / --mesh_model lay the ranks out (-1: the
+rest); every rank builds the same global stream from the same seed and
+keeps its rows (parallel.shard_batch), the state is sharded by the rule
+table, and rank 0 logs and writes the checkpoints, which have the
+one-process layout.
 """
 
 import dataclasses
@@ -45,26 +52,35 @@ import sys
 
 import torch
 
-_MULTI_GPU = ("{} needs more than one card: multi-GPU training (parallel/, "
-              "FSDP / DDP over NCCL) is not ported to procyon_tpu_torch yet "
-              "(ROADMAP.md, queue 1)")
 
-
-def _check_one_card(targs):
-    for name in ("mesh_data", "mesh_fsdp", "mesh_model"):
-        if getattr(targs, name) > 1:
-            raise NotImplementedError(_MULTI_GPU.format(f"--{name} > 1"))
-    if (targs.dist_num_processes > 1 or targs.dist_coordinator
-            or targs.dist_process_id >= 0):
-        raise NotImplementedError(_MULTI_GPU.format("the dist_* flags"))
+def _check_same_run(targs, device):
+    """Every rank was given the same seed and mesh (their streams and
+    parameters must agree): a collective over the default group, whose
+    size and backend rank 0 reports on stderr."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return
+    mine = torch.tensor([targs.seed, targs.mesh_data, targs.mesh_fsdp,
+                         targs.mesh_model], dtype=torch.int64,
+                        device=device)
+    first = mine.clone()
+    dist.broadcast(first, 0)
+    if not torch.equal(first, mine):
+        raise ValueError(f"rank {dist.get_rank()} has seed / mesh "
+                         f"{mine.tolist()}, rank 0 {first.tolist()}")
+    if dist.get_rank() == 0:
+        print(f"run_pretrain: {dist.get_world_size()} ranks over "
+              f"{dist.get_backend()}", file=sys.stderr)
 
 
 def setup(argv=None):
     """Parse the arguments and build everything the run needs. Returns a
     dict: targs, dargs, margs, ucfg, params, optimizer, loop, weights,
     streams, stream_states, device, tokenizer_info and eval_fn (None
-    unless --eval_steps > 0)."""
+    unless --eval_steps > 0) and mesh (None on one rank, or with every
+    axis at 1)."""
     from procyon_tpu_torch import config as cfg_mod
+    from procyon_tpu_torch import parallel
     from procyon_tpu_torch.data import data_config
     from procyon_tpu_torch.data.datasets import ProCyonDataStore, \
         SyntheticStore
@@ -76,8 +92,13 @@ def setup(argv=None):
         build_frozen_mask_optimizer, build_optimizer)
 
     targs, dargs, margs = cfg_mod.parse_all(argv)
-    _check_one_card(targs)
+    parallel.initialize_multihost(
+        targs.dist_coordinator, targs.dist_num_processes,
+        targs.dist_process_id, device=targs.device)
     device = torch.device(targs.device)
+    _check_same_run(targs, device)
+    mesh = parallel.create_mesh(parallel.MeshConfig(
+        targs.mesh_data, targs.mesh_fsdp, targs.mesh_model))
 
     if dargs.synthetic:
         # shrink the model for the integration path
@@ -141,6 +162,10 @@ def setup(argv=None):
             max_protein_len=margs.max_protein_len, seed=targs.seed,
             state_holder=stream_states,
             resume_state=(resume_states or {}).get("mlm"))
+    if mesh.size("batch") > 1:
+        # every rank draws the same global batch and keeps its rows
+        streams = {t: (lambda s=s: parallel.shard_batch(s(), mesh))
+                   for t, s in streams.items()}
 
     # eval_on_the_fly (trainIT.py:725-748 + _run_eval :1556-1654): VAL-split
     # streams, all-protein retrieval AUROC/AUPRC, QA/caption val losses
@@ -181,7 +206,8 @@ def setup(argv=None):
                 params=params, optimizer=optimizer, loop=loop,
                 weights=weights, streams=streams,
                 stream_states=stream_states, device=device,
-                tokenizer_info=tokenizer_info, eval_fn=eval_fn)
+                tokenizer_info=tokenizer_info, eval_fn=eval_fn,
+                mesh=None if mesh.trivial else mesh)
 
 
 def main(argv=None):
@@ -193,8 +219,10 @@ def main(argv=None):
     run = setup(argv)
     targs = run["targs"]
     to_device = DeviceCopier(run["device"])
+    main_rank = run["mesh"] is None or run["mesh"].rank == 0
     metrics_logger = MetricsLogger(
-        targs.output_dir, use_wandb=targs.use_wandb,
+        targs.output_dir if main_rank else None,
+        use_wandb=targs.use_wandb and main_rank,
         wandb_project=targs.wandb_project)
 
     # background host->device pipeline: batches arrive on the device, and
@@ -215,7 +243,8 @@ def main(argv=None):
                           metrics_logger=metrics_logger,
                           stream_states=run_states, to_device=run_to_device,
                           eval_fn=run["eval_fn"],
-                          tokenizer_info=run["tokenizer_info"])
+                          tokenizer_info=run["tokenizer_info"],
+                          mesh=run["mesh"])
         if targs.resume:
             trainer.maybe_resume()
         trainer.train()
@@ -223,8 +252,11 @@ def main(argv=None):
         if close_prefetch is not None:
             close_prefetch()
         metrics_logger.close()
-    print(json.dumps({"final_step": trainer.global_step,
-                      "output_dir": targs.output_dir}))
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if main_rank:
+        print(json.dumps({"final_step": trainer.global_step,
+                          "output_dir": targs.output_dir}))
     return 0
 
 

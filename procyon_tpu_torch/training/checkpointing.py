@@ -11,6 +11,12 @@ procyon_tpu/training/checkpointing.py), torch-native:
   * training_state.json: step, mixer state and per-task progress for exact
     resume;
   * best_model_checkpoint: the early-stopping marker, which pruning keeps.
+
+A sharded train state (more than one rank, train_step.init_train_state(...,
+mesh=)) is gathered to whole leaves before the write, so the files are the
+one-process layout; every rank takes part in the gather and rank 0
+writes. `restore_checkpoint` reads whole leaves and shards them again for
+the live state's mesh: a checkpoint written by N ranks resumes on M.
 """
 
 import json
@@ -38,13 +44,41 @@ def _to_cpu(tree):
     return tree
 
 
+def _state_tree(state: Dict, fn) -> Dict:
+    """The state's tensor trees through fn(tree); "sharding" left out."""
+    out = {k: v for k, v in state.items() if k != "sharding"}
+    for k in ("params", "frozen"):
+        if k in out:
+            out[k] = fn(out[k])
+    if "opt_state" in out:
+        out["opt_state"] = {k: fn(v) if k in ("mu", "nu") else v
+                            for k, v in out["opt_state"].items()}
+    return out
+
+
+def whole_state(state: Dict) -> Dict:
+    """The train state with whole leaves (a collective on a sharded state:
+    every rank calls it)."""
+    sh = state.get("sharding")
+    if sh is None:
+        return state
+    from procyon_tpu_torch.parallel.sharding import gather_params
+    return _state_tree(state, lambda t: gather_params(t, sh.mesh,
+                                                      sh.specs))
+
+
 def save_checkpoint(base: str, step: int, state: Dict, *,
                     cfg=None, tokenizer_info: Optional[Dict] = None,
                     training_state: Optional[Dict] = None,
                     keep_last: int = 0) -> str:
     """Save the train state + JSON sidecars under checkpoint-{step}/; with
-    `cfg` (a UnifiedConfig) its configs.json too."""
+    `cfg` (a UnifiedConfig) its configs.json too. On a sharded state every
+    rank calls it and rank 0 writes."""
+    sh = state.get("sharding")
+    state = whole_state(state)
     path = os.path.abspath(checkpoint_dir(base, step))
+    if sh is not None and sh.mesh.rank != 0:
+        return path
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
@@ -111,10 +145,18 @@ def _onto(saved, like, where: str):
 def restore_checkpoint(path: str, like_state: Dict) -> Dict:
     """The state saved under `path`, each tensor on the device and in the
     dtype of the matching leaf of `like_state` (a live state of the same
-    structure)."""
+    structure; a sharded one gets this rank's slices)."""
     saved = torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
                        map_location="cpu", weights_only=True)
-    return _onto(saved, like_state, "")
+    sh = like_state.get("sharding")
+    if sh is None:
+        return _onto(saved, like_state, "")
+    from procyon_tpu_torch.parallel.sharding import shard_params
+    saved = _state_tree(saved, lambda t: shard_params(t, sh.mesh,
+                                                      specs=sh.specs))
+    out = _onto(saved, _state_tree(like_state, lambda t: t), "")
+    out["sharding"] = sh
+    return out
 
 
 def load_training_state(path: str) -> Optional[Dict]:
@@ -126,6 +168,10 @@ def load_training_state(path: str) -> Optional[Dict]:
 
 
 def mark_best(base: str, step: int):
+    """The early-stopping marker; under a process group rank 0 writes it."""
+    if torch.distributed.is_initialized() and \
+            torch.distributed.get_rank() != 0:
+        return
     with open(os.path.join(base, "best_model_checkpoint"), "w") as f:
         f.write(str(step))
 

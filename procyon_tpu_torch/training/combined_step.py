@@ -5,7 +5,6 @@ callable, and the joint phase of LoRA phase training.
 """
 
 from procyon_tpu_torch.models import unified
-from procyon_tpu_torch.training import optimizer as opt_mod
 from procyon_tpu_torch.training import train_step as ts
 
 
@@ -19,7 +18,8 @@ def make_combined_step(cfg: unified.UnifiedConfig, optimizer,
     expert_override: run every task through this LoRA expert index (the
     reference's joint phase sets group 3 for the all-task step).
     frozen_base: QLoRA state layout, as make_train_step's. The update is
-    in place."""
+    in place. A sharded state (init_train_state(..., mesh=)) takes each
+    task's rows of the global batch, as make_train_step's steps do."""
     n_experts = max(ts.lora_num_experts(cfg), 1)
 
     def expert(task):
@@ -28,6 +28,8 @@ def make_combined_step(cfg: unified.UnifiedConfig, optimizer,
         return ts.TASK_LORA_EXPERT.get(task, 0) % n_experts
 
     def step(state, batches):
+        mesh = ts.state_mesh(state)
+
         def lf(params):
             total = 0.0
             metrics = {}
@@ -37,7 +39,7 @@ def make_combined_step(cfg: unified.UnifiedConfig, optimizer,
                                  weights.retrieval)):
                 if task in batches:
                     l, m = fn(params, cfg, batches[task], w,
-                              lora_expert=expert(task))
+                              lora_expert=expert(task), mesh=mesh)
                     total = total + l
                     metrics.update({f"{task}/{k}": v for k, v in m.items()})
             if "mlm" in batches and cfg.esm is not None:
@@ -45,7 +47,8 @@ def make_combined_step(cfg: unified.UnifiedConfig, optimizer,
                 # sets one group for both towers (the JAX package's passes
                 # no expert here: ROADMAP.md, section 3)
                 l, m = ts.mlm_loss_fn(params, cfg, batches["mlm"],
-                                      weights.mlm, lora_expert=expert("mlm"))
+                                      weights.mlm, lora_expert=expert("mlm"),
+                                      mesh=mesh)
                 total = total + l
                 metrics.update({f"mlm/{k}": v for k, v in m.items()})
             return total, metrics
@@ -54,7 +57,7 @@ def make_combined_step(cfg: unified.UnifiedConfig, optimizer,
                                                         frozen_base, lf)
         ts._apply_updates(state, optimizer, items, grads)
         metrics["loss"] = loss
-        metrics["grad_norm"] = opt_mod.global_norm(grads)
+        metrics["grad_norm"] = ts.grad_norm(state, items, grads)
         return state, metrics
 
     return step

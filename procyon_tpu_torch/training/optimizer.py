@@ -23,6 +23,11 @@ torch.optim's defaults, so that the port's updates are the reference's:
 The one deliberate difference: a group's global norm is summed in f32
 (optax sums each leaf's squares in the leaf's dtype).
 
+On a sharded train state (parallel.Sharding) the moments are this rank's
+slices, like the parameters, and every norm is global: each leaf's squared
+sum is summed over the ranks that hold distinct slices of it (fsdp and /
+or model), and counted once where ranks hold the same values.
+
 Parameters are updated in place (the reference's jitted step donates its
 state; in place is the eager counterpart and keeps one copy).
 """
@@ -77,9 +82,13 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], paths=None,
+                sharding=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32 (a device
-    scalar: nothing is read back)."""
+    scalar: nothing is read back). With a sharding (and the tensors'
+    paths), the norm of the whole leaves that the ranks' slices make up."""
+    if sharding is not None:
+        return _sharded_sq_sum(tensors, paths, sharding).sqrt()
     total = None
     for t in tensors:
         s = t.float().square().sum()
@@ -87,6 +96,27 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     if total is None:
         return torch.zeros(())
     return total.sqrt()
+
+
+def _sharded_sq_sum(tensors, paths, sharding) -> torch.Tensor:
+    """The squared sums summed by the mesh axes that slice each leaf, each
+    set summed over its axes' groups."""
+    from procyon_tpu_torch.parallel import collectives as coll
+    mesh = sharding.mesh
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    for t, p in zip(tensors, paths):
+        spec = sharding.spec(p)
+        key = tuple(a for a in ("fsdp", "model") if a in spec)
+        s = t.float().square().sum()
+        by_axes[key] = s if key not in by_axes else by_axes[key] + s
+    dev = tensors[0].device if len(tensors) else None
+    total = torch.zeros((), device=dev)
+    for key in sorted(by_axes):
+        s = by_axes[key]
+        for axis in key:
+            s = coll.all_reduce(s, mesh.group(axis))
+        total = total + s
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -219,10 +249,12 @@ class GroupedAdamW:
 
     @torch.no_grad()
     def update(self, items: Sequence[Tuple[Path, torch.Tensor]],
-               grads: Sequence[torch.Tensor], state: Dict) -> None:
+               grads: Sequence[torch.Tensor], state: Dict,
+               sharding=None) -> None:
         """One optimizer step over `items` (the trainable (path, param)
         pairs, as `trainable_items` gives them) with their `grads`; params,
-        moments and the count change in place."""
+        moments and the count change in place. With a sharding the items
+        are this rank's slices and each group's clip norm is global."""
         cfg = self.cfg
         count = int(state["count"])
         count_inc = count + 1
@@ -236,7 +268,8 @@ class GroupedAdamW:
             by_group.setdefault(group_of(path), []).append(i)
         for group, idx in by_group.items():
             lr = float(np.float32(self.schedules[group](count)))
-            norm = global_norm([grads[i] for i in idx])
+            norm = global_norm([grads[i] for i in idx],
+                               [items[i][0] for i in idx], sharding)
             clip = norm < cfg.grad_clip
             for i in idx:
                 path, p = items[i]

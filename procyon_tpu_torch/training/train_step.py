@@ -17,6 +17,18 @@ State: {"params": tree, "opt_state": ..., "step": int} for a full
 fine-tune, plus "frozen": tree with a trainable predicate (the QLoRA
 layout: quantized towers frozen, LoRA banks, projectors and the
 contrastive temperature trained).
+
+More than one rank (init_train_state(..., mesh=)): the state holds this
+rank's slices of every leaf the rule table shards (parallel/sharding.py),
+moments included, and "sharding" (parallel.Sharding). A step takes this
+rank's rows of the global batch (parallel.shard_batch), gathers the fsdp
+slices of the tree for the forward (the whole tree once a step; model
+slices stay, and the towers run tensor-parallel), and reduces each
+gradient over data x fsdp: a reduce-scatter for an fsdp-sharded leaf, an
+all-reduce for a replicated one. Losses and metrics are global-batch
+values (sums over the ranks divided by global counts,
+parallel/collectives.global_mean), not means of the ranks' means; clip
+norms and grad_norm are global norms.
 """
 
 import dataclasses
@@ -27,6 +39,8 @@ import torch
 
 from procyon_tpu_torch.bridge import is_leaf, merge_params
 from procyon_tpu_torch.models import esm2, unified
+from procyon_tpu_torch.parallel import collectives as coll
+from procyon_tpu_torch.parallel import sharding as shd
 from procyon_tpu_torch.training import optimizer as opt_mod
 
 
@@ -66,13 +80,31 @@ def lora_trainable_predicate(path: str) -> bool:
             or path.startswith("contrastive"))
 
 
-def init_train_state(params, optimizer, trainable_predicate=None):
+def init_train_state(params, optimizer, trainable_predicate=None, *,
+                     mesh=None, cfg=None):
+    """The train state of a whole tree. Under a mesh with an axis > 1 the
+    state keeps this rank's slices (cfg, the model's config, lets a
+    `model` axis split attention by whole heads) and "sharding"."""
+    sharding = None
+    if mesh is not None and not mesh.trivial:
+        specs = shd.param_shardings(params, mesh, cfg)
+        params = shd.shard_params(params, mesh, specs=specs)
+        sharding = shd.Sharding(mesh, specs)
     if trainable_predicate is None:
-        return {"params": params, "opt_state": optimizer.init(params),
-                "step": 0}
-    trainable, frozen = partition_params(params, trainable_predicate)
-    return {"params": trainable, "frozen": frozen,
-            "opt_state": optimizer.init(trainable), "step": 0}
+        state = {"params": params, "opt_state": optimizer.init(params),
+                 "step": 0}
+    else:
+        trainable, frozen = partition_params(params, trainable_predicate)
+        state = {"params": trainable, "frozen": frozen,
+                 "opt_state": optimizer.init(trainable), "step": 0}
+    if sharding is not None:
+        state["sharding"] = sharding
+    return state
+
+
+def state_mesh(state):
+    sh = state.get("sharding")
+    return sh.mesh if sh is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -80,10 +112,15 @@ def init_train_state(params, optimizer, trainable_predicate=None):
 # ---------------------------------------------------------------------------
 
 
-def lm_loss_fn(params, cfg, batch, weight, lora_expert=0):
+def _batch_group(mesh):
+    return mesh.group("batch") if mesh is not None else None
+
+
+def lm_loss_fn(params, cfg, batch, weight, lora_expert=0, mesh=None):
     out = unified.forward(params, cfg, batch, retrieval=False,
                           lora_expert=lora_expert,
-                          max_position=batch.get("max_position"))
+                          max_position=batch.get("max_position"), mesh=mesh)
+    group = _batch_group(mesh)
     # optional per-batch loss rescale (per-dataset caption loss weights)
     batch_w = batch.get("loss_weight", 1.0)
     loss = out["lm_loss"] * weight * batch_w
@@ -91,7 +128,7 @@ def lm_loss_fn(params, cfg, batch, weight, lora_expert=0):
     labels = batch["labels"][:, 1:].long()
     mask = labels != -100
     correct = (logits.argmax(-1) == labels) & mask
-    acc = correct.sum() / mask.sum().clamp_min(1)
+    acc = coll.global_mean(correct.sum(), mask.sum(), group)
     ppl = torch.exp(torch.clamp(out["lm_loss"], max=20.0))
     metrics = {"lm_loss": out["lm_loss"], "token_acc": acc, "ppl": ppl}
     if batch.get("qa_labels") is not None and \
@@ -104,8 +141,10 @@ def lm_loss_fn(params, cfg, batch, weight, lora_expert=0):
                         batch["answer_pos"].long()]
         pred_yes = _column(at, batch["yes_token"]) \
             > _column(at, batch["no_token"])
-        metrics["qa_acc"] = (pred_yes == (batch["qa_labels"] > 0)).float() \
-            .mean()
+        hit = (pred_yes == (batch["qa_labels"] > 0)).float()
+        metrics["qa_acc"] = hit.mean() if group is None else \
+            coll.global_mean(hit.sum(), torch.tensor(B, device=hit.device),
+                             group)
     return loss, metrics
 
 
@@ -117,32 +156,40 @@ def _column(x, token):
     return x[:, int(token)]
 
 
-def retrieval_loss_fn(params, cfg, batch, weight, lora_expert=0):
+def retrieval_loss_fn(params, cfg, batch, weight, lora_expert=0,
+                      mesh=None):
     # the LM head and loss are dead code here (the reference's jit drops
     # them); eager PyTorch is told so
     batch = {k: v for k, v in batch.items() if k != "labels"}
     out = unified.forward(params, cfg, batch, retrieval=True,
                           lora_expert=lora_expert, want_logits=False,
-                          max_position=batch.get("max_position"))
+                          max_position=batch.get("max_position"), mesh=mesh)
     loss = out["retrieval_loss"] * weight
     return loss, {"retrieval_loss": out["retrieval_loss"],
                   **out["retrieval_metrics"]}
 
 
-def mlm_loss_fn(params, cfg, batch, weight, lora_expert=0):
+def mlm_loss_fn(params, cfg, batch, weight, lora_expert=0, mesh=None):
     """The encoder's masked-LM loss and accuracy over the masked residues
-    (labels other than -100), mean over them."""
-    logits = unified.protein_mlm_logits(params, cfg, batch["protein_tokens"],
-                                        lora_expert=lora_expert)
-    labels = batch["mlm_labels"].long()      # -100 = not masked
+    (labels other than -100), mean over them. Under a mesh, shard_batch
+    keeps protein_tokens whole (a shared bank of the other tasks) and
+    splits mlm_labels, so each rank takes its block of the token rows
+    here."""
+    tokens, labels = batch["protein_tokens"], batch["mlm_labels"]
+    group = _batch_group(mesh)
+    if group is not None and tokens.shape[0] != labels.shape[0]:
+        tokens = shd.shard_batch({"rows": tokens}, mesh)["rows"]
+    logits = unified.protein_mlm_logits(params, cfg, tokens,
+                                        lora_expert=lora_expert, mesh=mesh)
+    labels = labels.long()                   # -100 = not masked
     mask = labels != -100
     safe = torch.where(mask, labels, 0)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(mask, nll, 0.0)
-    denom = mask.sum().clamp_min(1)
-    loss = nll.sum() / denom
-    acc = ((logits.argmax(-1) == labels) & mask).sum() / denom
+    loss = coll.global_mean(nll.sum(), mask.sum(), group)
+    acc = coll.global_mean(((logits.argmax(-1) == labels) & mask).sum(),
+                           mask.sum(), group)
     return loss * weight, {"mlm_loss": loss, "mlm_acc": acc}
 
 
@@ -179,16 +226,23 @@ def value_and_grad(optimizer, state, frozen_base, loss_of):
     switched on for the call only; with frozen_base, loss_of gets the
     trainable tree merged with state["frozen"]). items are the (path,
     leaf) pairs of `optimizer.trainable_items`, grads theirs in order;
-    unreached leaves get zero grads."""
+    unreached leaves get zero grads. On a sharded state loss_of gets the
+    fsdp-gathered tree, and the grads are reduced to this rank's slices
+    (collectives.reduce_grad)."""
     params = state["params"]
     items = optimizer.trainable_items(params)
-    leaves = [t for _, t in items]
+    sh = state.get("sharding")
+    frozen = state.get("frozen")
+    if sh is not None:
+        params = shd.gather_params(params, sh.mesh, sh.specs, ("fsdp",))
+        if frozen_base:
+            frozen = shd.gather_params(frozen, sh.mesh, sh.specs, ("fsdp",))
+    leaves = [t for _, t in optimizer.trainable_items(params)]
     with torch.enable_grad():
         for t in leaves:
             t.requires_grad_(True)
         try:
-            full = merge_params(params, state.get("frozen")) \
-                if frozen_base else params
+            full = merge_params(params, frozen) if frozen_base else params
             loss, metrics = loss_of(full)
             # a loss that reaches no trained leaf (an MLM phase whose
             # expert lies past the encoder's bank) has zero gradients
@@ -199,15 +253,26 @@ def value_and_grad(optimizer, state, frozen_base, loss_of):
                 t.requires_grad_(False)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
+    if sh is not None:
+        grads = [coll.reduce_grad(g, sh.spec(p), sh.mesh)
+                 for (p, _), g in zip(items, grads)]
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
     return loss.detach(), metrics, items, grads
 
 
 def _apply_updates(state, optimizer, items, grads):
-    optimizer.update(items, grads, state["opt_state"])
+    optimizer.update(items, grads, state["opt_state"],
+                     sharding=state.get("sharding"))
     state["step"] = int(state["step"]) + 1
     return state
+
+
+def grad_norm(state, items, grads):
+    """The global norm of the trainable grads (over every rank's slices
+    on a sharded state)."""
+    return opt_mod.global_norm(grads, paths=[p for p, _ in items],
+                               sharding=state.get("sharding"))
 
 
 def _micro(batch, i: int):
@@ -239,9 +304,11 @@ def make_train_step(cfg: unified.UnifiedConfig, optimizer, task: str,
     expert = TASK_LORA_EXPERT.get(task, 0) % max(lora_num_experts(cfg), 1)
 
     def run(state, batch):
+        mesh = state_mesh(state)
         return value_and_grad(optimizer, state, frozen_base,
                               lambda p: loss_fn(p, cfg, batch, weight,
-                                                lora_expert=expert))
+                                                lora_expert=expert,
+                                                mesh=mesh))
 
     if accumulation_steps <= 1:
         def step(state, batch):
@@ -249,7 +316,7 @@ def make_train_step(cfg: unified.UnifiedConfig, optimizer, task: str,
             _apply_updates(state, optimizer, items, grads)
             metrics = dict(metrics)
             metrics["loss"] = loss
-            metrics["grad_norm"] = opt_mod.global_norm(grads)
+            metrics["grad_norm"] = grad_norm(state, items, grads)
             return state, metrics
         return step
 
@@ -270,7 +337,7 @@ def make_train_step(cfg: unified.UnifiedConfig, optimizer, task: str,
         metrics = {k: torch.stack([torch.as_tensor(x) for x in v]).float()
                    .mean() for k, v in mstack.items()}
         metrics["loss"] = torch.stack(losses).float().mean()
-        metrics["grad_norm"] = opt_mod.global_norm(grads)
+        metrics["grad_norm"] = grad_norm(state, items, grads)
         return state, metrics
 
     return step
@@ -288,8 +355,8 @@ def make_eval_step(cfg: unified.UnifiedConfig, task: str):
     loss_fn = _LOSS_FNS[task]
 
     @torch.no_grad()
-    def step(params, batch):
-        loss, metrics = loss_fn(params, cfg, batch, 1.0)
+    def step(params, batch, mesh=None):
+        loss, metrics = loss_fn(params, cfg, batch, 1.0, mesh=mesh)
         metrics = dict(metrics)
         metrics["loss"] = loss
         return metrics

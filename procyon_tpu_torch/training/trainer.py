@@ -9,6 +9,12 @@ per task, like the reference's per-loss engine.backward calls); with
 `lora_phase_training`, qa / retrieval / mlm run on experts 0 / 1 / 2, then
 one joint update over every task on expert 3.
 
+More than one rank (`mesh`): every rank runs the same loop on its rows of
+the same global batches (the streams hand each rank its rows), the state
+holds each rank's slices (train_step.init_train_state), logging, metrics
+and checkpoint writes happen on rank 0 (every rank takes part in the
+checkpoint's gather), and the mid-train eval sees whole parameters.
+
 A departure from the reference (ROADMAP.md, section 3): an eval whose
 watched metric is NaN (no val query scored) leaves the patience count as
 it was and is logged with the count of queries scored, where the
@@ -59,7 +65,7 @@ class Trainer:
                  mixer: Optional[TaskMixer] = None,
                  stream_states: Optional[Dict[str, dict]] = None,
                  to_device: Optional[Callable] = None,
-                 tokenizer_info: Optional[Dict] = None):
+                 tokenizer_info: Optional[Dict] = None, mesh=None):
         """task_streams: task name -> callable returning the next batch
         for that task (built from a TaskMixer + collators; see
         scripts/run_pretrain.py). to_device turns a stream's batch into
@@ -74,10 +80,16 @@ class Trainer:
         self.stream_states = stream_states
         self.to_device = to_device or (lambda b: b)
         self.tokenizer_info = tokenizer_info
-        self.logger = get_logger(log_dir=loop.output_dir)
-        self.metrics = metrics_logger or MetricsLogger(loop.output_dir)
+        self.is_main = mesh is None or mesh.rank == 0
+        self.logger = get_logger(log_dir=loop.output_dir if self.is_main
+                                 else None)
+        if not self.is_main:
+            self.logger.disabled = True
+        self.metrics = metrics_logger or MetricsLogger(
+            loop.output_dir if self.is_main else None)
 
-        self.state = ts.init_train_state(params, optimizer)
+        self.state = ts.init_train_state(params, optimizer, mesh=mesh,
+                                         cfg=cfg)
         self.joint_step = None
         phase_tasks = set(task_streams)
         if loop.lora_phase_training:
@@ -172,17 +184,20 @@ class Trainer:
                 dt = (time.perf_counter() - t_last) / loop.log_steps
                 t_last = time.perf_counter()
                 step_metrics["steps_per_sec"] = 1.0 / max(dt, 1e-9)
-                self.metrics.log(step_metrics, self.global_step)
+                if self.is_main:
+                    self.metrics.log(step_metrics, self.global_step)
                 brief = {k: round(float(v), 4)
                          for k, v in list(step_metrics.items())[:6]}
                 self.logger.info(f"step {self.global_step}: {brief}")
 
             if loop.eval_steps and self.global_step % loop.eval_steps == 0 \
                     and self.eval_fn is not None:
-                eval_metrics = self.eval_fn(self.state["params"])
-                self.metrics.log({f"eval/{k}": v
-                                  for k, v in eval_metrics.items()},
-                                 self.global_step)
+                eval_metrics = self.eval_fn(
+                    checkpointing.whole_state(self.state)["params"])
+                if self.is_main:
+                    self.metrics.log({f"eval/{k}": v
+                                      for k, v in eval_metrics.items()},
+                                     self.global_step)
                 if self._early_stop(eval_metrics):
                     self.logger.info("early stopping triggered")
                     break

@@ -64,6 +64,11 @@ MODULES = [
     "procyon_tpu_torch.inference.retrieval_service",
     "procyon_tpu_torch.inference.serving",
     "procyon_tpu_torch.inference.speculative",
+    "procyon_tpu_torch.parallel",
+    "procyon_tpu_torch.parallel.collectives",
+    "procyon_tpu_torch.parallel.mesh",
+    "procyon_tpu_torch.parallel.multihost",
+    "procyon_tpu_torch.parallel.sharding",
     "procyon_tpu_torch.app.main",
     "procyon_tpu_torch.app.server",
     "procyon_tpu_torch.scripts.bench_bind",
@@ -71,6 +76,7 @@ MODULES = [
     "procyon_tpu_torch.scripts.bench_retrieval",
     "procyon_tpu_torch.scripts.caption_bulk",
     "procyon_tpu_torch.scripts.compute_bertscore_baseline",
+    "procyon_tpu_torch.scripts.dryrun_multichip",
     "procyon_tpu_torch.scripts.llm_judge_pipeline",
     "procyon_tpu_torch.scripts.probe_fused_decode",
     "procyon_tpu_torch.scripts.probe_fused_mlp_blocks",

@@ -130,8 +130,47 @@ def test_projection_head_values_and_gradients():
 
 
 def test_cross_device_batch_raises():
+    """Where the JAX package fails too: axis_name outside any process
+    group (JAX: an unbound axis name), and a local conflict_mask with
+    axis_name."""
     s, t, _, lt = _inputs(6)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tcon.info_nce_in_batch({"log_temp": torch.tensor(lt)},
-                               tcon.InfoNCEConfig(), torch.from_numpy(s),
+    p = {"log_temp": torch.tensor(lt)}
+    with pytest.raises(ValueError, match="outside any process group"):
+        tcon.info_nce_in_batch(p, tcon.InfoNCEConfig(), torch.from_numpy(s),
                                torch.from_numpy(t), axis_name="data")
+    with pytest.raises(ValueError, match="conflict_ids instead"):
+        tcon.info_nce_in_batch(p, tcon.InfoNCEConfig(), torch.from_numpy(s),
+                               torch.from_numpy(t), axis_name="data",
+                               conflict_mask=torch.ones(6, 6))
+
+
+def test_cross_device_batch_on_one_rank():
+    """axis_name over a one-rank gloo group in this process: the gathered
+    batch is the local one, and the loss, metrics and gradients are the
+    JAX package's in-batch InfoNCE with conflict ids (several ranks:
+    tests/test_torch_parallel_train.py)."""
+    import torch.distributed as dist
+    from torch_dist_common import free_port
+    s, t, _, lt = _inputs(6)
+    ids = np.array([0, 1, 2, 1, 3, 4])
+    want, wm = jcon.info_nce_in_batch(
+        {"log_temp": jnp.asarray(lt)}, jcon.InfoNCEConfig(),
+        jnp.asarray(s), jnp.asarray(t), conflict_ids=jnp.asarray(ids))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        st = torch.from_numpy(s).requires_grad_(True)
+        got, gm = tcon.info_nce_in_batch(
+            {"log_temp": torch.tensor(lt)}, tcon.InfoNCEConfig(), st,
+            torch.from_numpy(t), conflict_ids=torch.from_numpy(ids),
+            axis_name=dist.group.WORLD)
+        got.backward()
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    for k in wm:
+        np.testing.assert_allclose(float(gm[k]), float(wm[k]), **TOL)
+    jg = jax.grad(lambda x: jcon.info_nce_in_batch(
+        {"log_temp": jnp.asarray(lt)}, jcon.InfoNCEConfig(), x,
+        jnp.asarray(t), conflict_ids=jnp.asarray(ids))[0])(jnp.asarray(s))
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(jg), **TOL)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from procyon_tpu.inference import serving as jserving
+from procyon_tpu_torch import parallel
 from procyon_tpu_torch.inference import serving as tserving
 from procyon_tpu_torch.models import llama as tllama
 from torch_cpu_common import one_torch_thread  # noqa: F401
@@ -67,8 +68,8 @@ def test_constructor_refusals(model):
         make(async_rounds=True, temperature=0.5)
     with pytest.raises(ValueError, match="greedy-plain-decode only"):
         make(async_rounds=True, spec_k=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make(mesh=object())
+    # a one-rank mesh (no process group) takes the one-process path
+    assert make(mesh=parallel.create_mesh()).mesh is None
     with pytest.raises((RuntimeError, AssertionError, ValueError)):
         tserving.ContinuousBatcher(model.tparams, model.tcfg, tp)  # no card
 

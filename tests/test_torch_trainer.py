@@ -151,13 +151,16 @@ def test_run_pretrain_cli_writes_a_checkpoint(tmp_path):
     assert os.path.exists(os.path.join(out, "metrics.jsonl"))
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--mesh_fsdp", "2"], "more than one card"),
-    (["--dist_num_processes", "2"], "more than one card"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--mesh_fsdp", "2"], AssertionError, "devices"),
+    (["--dist_num_processes", "2"], ValueError, "coordinator"),
 ])
 def test_run_pretrain_refuses_what_one_card_cannot_run(tmp_path, flags,
-                                                       match):
-    with pytest.raises(NotImplementedError, match=match):
+                                                       error, match):
+    """One process cannot lay out a mesh of two ranks (the JAX package's
+    MeshConfig.resolve refuses it too), nor join a group of two without a
+    coordinator; several ranks run in tests/test_torch_parallel_*.py."""
+    with pytest.raises(error, match=match):
         run_pretrain.setup(BASE + ["--output_dir", str(tmp_path), *flags])
 
 
