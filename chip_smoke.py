@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
         [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged,times,
-                swiglu,decode,serving,eval,bert,esm_train,dist]
+                swiglu,decode,serving,eval,bert,esm_train,dist,benches]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -26,8 +26,9 @@ source, all started together), then:
   3. drives the protein-embedding path at full ESM2-650M width (33 layers,
      W8A8, fused QKV, seeded random weights), as before: kernel launches
      per layer, the W8A8-vs-bf16 cosine, a small-input check against the
-     plain path on the CPU in f32, cosine top-k queries, proteins/s;
-     then ESM2-35M (head_dim 24, outside the packed row-block kernel) at
+     plain path on the CPU in f32, cosine top-k queries, proteins/s
+     through scripts/bench_w8a8.py's `run` (bf16 and W8A8 on one B64 x
+     L512 batch, rows 1 and 4 counted a call, its JSON line); then ESM2-35M (head_dim 24, outside the packed row-block kernel) at
      full depth on B16 x 512 tokens with attn_backend="rowblock": one
      launch of the flash kernel's source per layer, hidden states against
      the plain path on the CPU in f32;
@@ -95,7 +96,9 @@ source, all started together), then:
      through the int4 kernel), once more in bf16 with async_rounds, then
      int4 and bf16 again (the host's speed drifts, and it bounds a round);
      requests/s, output tokens/s, latency, slot utilisation, ms per round,
-     waste, peak memory;
+     waste, peak memory; each run through scripts/bench_serving.py (its
+     workload, pool, batcher, drive loop and `run`, whose JSON line it
+     prints);
  12. speculative decoding on the induced-bigram int8 checkpoint
      (models/synthetic.py, period 16) at full width and depth: spec_k=7
      with spec_quantum 1 and 4 against plain greedy rounds on the same
@@ -119,9 +122,10 @@ source, all started together), then:
  16. trains at Llama-3-8B width on the /retrieve phase's decoder quantized
      to int8, with LoRA banks r16 x 4, the projectors and the contrastive
      temperature trained (scripts/bench_train.py --flagship's recipe: B2 x
-     S2048, labels over the second half, one soft token, remat): two warm
-     and six timed QA steps, then the combined QA + retrieval step on
-     expert 3, warmed and timed alike; ms per step, tokens/s, MFU, peak
+     S2048, labels over the second half, one soft token, remat; its
+     `qlora_config`, `qlora_params`, `train_batch` and `run`): QA steps
+     warmed, then timed by bench_train's two points (2 and 6 steps), then
+     the combined QA + retrieval step on expert 3, warmed and timed alike; ms per step, tokens/s, MFU, peak
      memory, first and last loss, launches of the flash kernels a step
      (64 forward, 32 dq, 32 dkv a pass), frozen leaves unchanged and every
      trainable leaf changed;
@@ -254,7 +258,24 @@ source, all started together), then:
      NCCL rank under torchrun against the plain run, bit for bit; and
      scripts/dryrun_multichip.py on two ranks. Launches of rows 3, 8, 9
      and 10 a rank are printed and added to the kernels line. Two gloo
-     ranks on one card check correctness and give no speed number.
+     ranks on one card check correctness and give no speed number;
+ 29. the bench scripts and the slice's other entry points: after 25's
+     retrieval eval, scripts/protein_retrieval_disease_pheno.py's `run` on
+     the /retrieve service (the service's own top 10, row 3 once a layer a
+     query); after 27, each model freed before the next is built:
+     scripts/bench_decode.py --paged at dim 4096 x 32 layers (B16 x L512;
+     bf16 seeded, then int4 with its quality gate; rows 3, 10 and, in
+     int4, 13 counted), scripts/bench_caption.py at Llama-3-8B in int4
+     (paged, B4 x beam 10, L448, the cascade and the flat page walk in one
+     run; rows 3, 10, 12 and 13 counted, the quality gate), entry()'s
+     fn against the CPU in f32, and utils/trace.device_op_table on a
+     utils/profiling.trace of row 3 at the training shape (its launches,
+     and its time a launch within 25% of the CUDA events', from one
+     trace); each prints its JSON line and peak memory. Each of these
+     paths and cell e's runs records every shape at which it launches rows
+     3, 10, 12 and 13 (LaunchShapes), and each kernel is then held against
+     its plain version at each of those shapes on seeded random values
+     (the path's own segments, positions, page tables and move lists).
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -302,7 +323,10 @@ calls, with the card's copy rate, for pairing with an earlier commit;
 probe; "serving"; "eval": the evaluation slice's phases of item 25, with
 the caption path of item 8 for its metrics and the mid-train eval on the
 service's bf16 decoder; "bert": item 26; "esm_train": item 27 on the
-synthetic service; "dist": item 28), and prints no result line.
+synthetic service; "dist": item 28; "benches": item 29, with
+bench_w8a8 (item 3's ESM2-650M path), bench_serving (item 11) and
+bench_train (item 16) on the synthetic service first), and prints no
+result line.
 """
 
 import contextlib
@@ -444,7 +468,7 @@ GRAD_FRO_TOL = 1e-2
 # after a 2-step warm-up (the bench's 1e-4 moves few bf16 values in 8
 # steps; the rate does not change the time of a step)
 TRAIN = dict(B=2, S=2048, soft_tokens=8, lora_rank=16, lora_experts=4,
-             warm=2, timed=6, lr=1e-3, warmup=2)
+             warm=2, small=2, big=6, lr=1e-3, warmup=2)
 # the training check: card bf16 against CPU f32, 2 layers, vocab 8192;
 # LoRA B ~ N(0, 0.02^2) so that the gradient of A does not vanish
 TRAIN_SMALL = dict(layers=2, vocab=8192, B=2, S=256)
@@ -595,6 +619,28 @@ ESM_SMALL = dict(layers=2, residues=(250, 190, 96), expert=2, b_scale=0.02,
                            "adapter": {"adapter_rank": 64}})
 ESM_SMALL_LOSS_RTOL = 5e-3
 ESM_SMALL_COS = 1e-3
+# the bench scripts at full width (the "benches" group). bench_decode
+# --paged at ProCyon-Split's Llama-2-7B dim and depth (4096 x 32 layers;
+# the script's rule gives 32 query and 16 kv heads, I 11008, vocab 32000):
+# 16 rows of 512-token prompts
+# (prompt + gen_big + 8 = 544 tokens a slot, 9 pages of 64: a pool of at
+# least 512 tokens a slot takes the paged attention kernel), 8 and 24
+# steps; bench_caption at ProCyon-Full's Llama-3-8B in int4, paged, the
+# cascade and the flat page walk timed in one run (--cascade ab: the
+# flat arm runs row 10, whose pool needs 448-token prompts to reach 512
+# tokens a slot), 8 and 24 steps
+BENCH_DECODE = ("--dim", "4096", "--layers", "32", "--batch", "16",
+                "--prompt_len", "512", "--gen_small", "8", "--gen_big", "24",
+                "--paged")
+BENCH_CAPTION = ("--llama3", "--bits", "4", "--paged", "--cascade", "ab",
+                 "--prompt_len", "448", "--gen_small", "8", "--gen_big",
+                 "24")
+RETRIEVE_CLI_K = 10
+# utils/trace.device_op_table on a traced run of row 3 at the training
+# shape: its launches counted, its time a launch within TRACE_RTOL of the
+# CUDA-event time
+TRACE_LAUNCHES = 20
+TRACE_RTOL = 0.25
 
 
 def fail(msg):
@@ -1246,45 +1292,39 @@ def phase_main_path(dev):
 
 
 def phase_throughput(dev, params, params8, cfg, cfg8, batch=64, seq_len=512,
-                     reps=3, profile=False):
-    """bench.py's workload: B64 rows of L512 with random lengths in
-    [L/2, L-2), ESM2 forward + mean pooling; host clock around
-    synchronized runs after one warm-up. With `profile`, one W8A8 batch
-    under torch.profiler."""
-    import numpy as np
+                     profile=False):
+    """bench.py's workload through scripts/bench_w8a8.py's `run`: B64 rows
+    of L512 with random lengths in [L/2, L-2) (`tokens_batch`), the ESM2
+    forward + mean pooling, bf16 and W8A8 with fused QKV on the main
+    path's weights, each timed by utils/timing.time_fn (CUDA events, two
+    points, the best of two runs each); the row-block attention (row 1) once a layer in both routes
+    and the fused LN + int8 MLP (row 4) once a layer in the W8A8 route.
+    With `profile`, one W8A8 batch under torch.profiler."""
     import torch
-    from procyon_tpu_torch.models import esm2, pooling
-    rng = np.random.default_rng(SEED)
-    tokens = np.full((batch, seq_len), esm2.PAD_IDX, np.int64)
-    for i, n in enumerate(rng.integers(seq_len // 2, seq_len - 2, batch)):
-        tokens[i, 0] = esm2.CLS_IDX
-        tokens[i, 1:n + 1] = rng.integers(4, 24, n)
-        tokens[i, n + 1] = esm2.EOS_IDX
-    tokens = torch.from_numpy(tokens).to(dev)
-    mask = (tokens != esm2.PAD_IDX).to(torch.int32)
-
-    def embed(p, c):
-        return pooling.pool_tokens(esm2.forward(p, c, tokens)["hidden"],
-                                   mask, "mean")
-
-    rates, embs = {}, {}
-    for name, p, c in (("bf16", params["esm"], cfg.esm),
-                       ("w8a8", params8["esm"], cfg8.esm)):
-        embs[name] = embed(p, c)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            embed(p, c)
-        torch.cuda.synchronize()
-        rates[name] = batch * reps / (time.perf_counter() - t0)
-    cos_min = cosines(embs["w8a8"], embs["bf16"]).min().item()
-    print(f"throughput B{batch} L{seq_len}: bf16 {rates['bf16']:.2f} "
-          f"proteins/s, W8A8 {rates['w8a8']:.2f} proteins/s; pooled-hidden "
-          f"cos_min {cos_min:.6f} (bench.py's metric)")
+    from procyon_tpu_torch.scripts import bench_w8a8
+    tokens = bench_w8a8.tokens_batch(batch, seq_len, SEED, device=dev)
+    res = bench_w8a8.run(params["esm"], cfg.esm, params8=params8["esm"],
+                         device=dev, tokens=tokens)
+    n = cfg.esm.n_layers
+    want = {"bf16": {"rowblock_attention": n, "fused_ln_mlp_int8": 0},
+            "w8a8": {"rowblock_attention": n, "fused_ln_mlp_int8": n}}
+    for route, counts in want.items():
+        got = {k: res["launches"][route][k] for k in counts}
+        check(got == counts, f"bench_w8a8 {route}: launches {got}, "
+                             f"expected {counts}")
+    check(res["finite"], "bench_w8a8: non-finite embeddings")
+    rates, cos_min = res["proteins_per_sec"], res["cos_min"]
+    check(cos_min >= SANITY_COS, f"bench_w8a8 cos_min {cos_min}")
+    print(f"throughput B{batch} L{seq_len} (scripts/bench_w8a8.py): bf16 "
+          f"{rates['bf16']:.2f} proteins/s, W8A8 {rates['w8a8']:.2f} "
+          f"proteins/s; pooled-hidden cos_min {cos_min:.6f} (bench.py's "
+          f"metric); launches a call {res['launches']}")
+    print(json.dumps(res["line"]))
     if profile:
         with torch.no_grad():
             profile_once(f"one W8A8 ESM2-650M batch (B{batch} L{seq_len})",
-                         lambda: embed(params8["esm"], cfg8.esm),
+                         lambda: bench_w8a8.embed(params8["esm"], cfg8.esm,
+                                                  tokens),
                          batch / rates["w8a8"] * 1e3)
     return rates, cos_min
 
@@ -3073,92 +3113,15 @@ class ForwardLog:
         return sum(T == 1 for *_, T in self.calls)
 
 
-def serving_workload(cfg, rng, w):
-    """scripts/bench_serving.py's make_workload with --shared_prefix:
-    [(arrival round, kind, payload, max_new)], sorted by arrival. Token and
-    fused prompts alternate; every prompt starts with one shared
-    instruction prefix (tokens, or embedding rows)."""
-    import numpy as np
-    S = w["shared_prefix"]
-    shared_tok = list(map(int, rng.integers(4, cfg.vocab_size, S)))
-    shared_emb = rng.standard_normal((S, cfg.dim)).astype(np.float32) * 0.02
-    reqs = []
-    for i in range(w["requests"]):
-        plen = int(rng.integers(w["min_prompt"], w["max_prompt"] + 1))
-        arrival = int(rng.integers(0, w["arrival_rounds"]))
-        if i % 2 == 0:
-            payload = shared_tok + list(
-                map(int, rng.integers(4, cfg.vocab_size, plen)))
-            kind = "tok"
-        else:
-            tail = rng.standard_normal((plen, cfg.dim)).astype(
-                np.float32) * 0.02
-            payload = np.concatenate([shared_emb, tail])
-            kind = "fused"
-        reqs.append((arrival, kind, payload, w["max_new"]))
-    return sorted(reqs, key=lambda r: r[0])
-
-
-def drive_serving(batcher, workload):
-    """bench_serving.py's drive loop: submit per schedule between ticks.
-    Returns per-request latencies, per-tick slot utilisation, wall seconds,
-    the seconds spent in decode rounds (ticks less their admissions) and
-    the number of ticks that ran a round."""
-    import numpy as np
-    import torch
-    submit_t, finish_t, util = {}, {}, []
-    pending = list(workload)
-    admit_s = [0.0]
-    admit = batcher._admit
-
-    def timed_admit():
-        t = time.perf_counter()
-        admit()
-        admit_s[0] += time.perf_counter() - t
-
-    batcher._admit = timed_admit
-    round_s, n_rounds, ticks = 0.0, 0, 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        while pending or batcher.live or batcher.queue or batcher._inflight:
-            while pending and pending[0][0] <= ticks:
-                _, kind, payload, mn = pending.pop(0)
-                rid = (batcher.submit(payload, max_new=mn) if kind == "tok"
-                       else batcher.submit_fused(payload, max_new=mn))
-                submit_t[rid] = time.perf_counter()
-            had_live = bool(batcher.live)
-            t1, a1 = time.perf_counter(), admit_s[0]
-            batcher.tick()
-            now = time.perf_counter()
-            if had_live:
-                round_s += (now - t1) - (admit_s[0] - a1)
-                n_rounds += 1
-            for rid in batcher.done:
-                finish_t.setdefault(rid, now)
-            util.append(len(batcher.live) / batcher.pcfg.slots)
-            ticks += 1
-            check(ticks < 100000, "the serving loop did not converge")
-    finally:
-        del batcher._admit              # the method again
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    lat = np.asarray([finish_t[r] - submit_t[r] for r in submit_t])
-    return lat, np.asarray(util), wall, round_s, n_rounds
-
-
-def serving_pcfg(lcfg, w):
-    """bench_serving.py's pool: a fixed byte budget of bf16 pages."""
-    from procyon_tpu_torch.inference import kv_pool
-    page_bytes = 2 * w["page_size"] * lcfg.n_kv_heads * lcfg.head_dim * 2
-    n_pages = max(int(w["pool_mb"] * 2 ** 20
-                      / (page_bytes * lcfg.n_layers)), 8)
-    max_pages = -(-(w["max_prompt"] + w["shared_prefix"] + w["max_new"]
-                    + w["step_quantum"]) // w["page_size"])
-    return kv_pool.PagedConfig(
-        n_layers=lcfg.n_layers, n_kv_heads=lcfg.n_kv_heads,
-        head_dim=lcfg.head_dim, page_size=w["page_size"], n_pages=n_pages,
-        max_pages_per_seq=max_pages, slots=w["slots"], dtype=lcfg.dtype)
+def serving_args(**over):
+    """scripts/bench_serving.py's flags for SERVING's traffic (its default
+    traffic with the protein-serving options: a shared instruction prefix,
+    the prefix cache) on the card, with `over` replacing entries."""
+    from procyon_tpu_torch.scripts import bench_serving
+    args = bench_serving.parse_args([])
+    vars(args).update(SERVING, device="cuda", seed=SEED, prefix_cache=True)
+    vars(args).update(over)
+    return args
 
 
 def phase_serving_small(dev):
@@ -3178,6 +3141,7 @@ def phase_serving_small(dev):
     from procyon_tpu_torch.models import llama
     from procyon_tpu_torch.ops import (flash_attention, int4_matmul,
                                        paged_attention, quant)
+    from procyon_tpu_torch.scripts import bench_serving
     c = SERVING_SMALL
     cfg = llama.LlamaConfig(
         vocab_size=c["vocab"], dim=c["dim"], n_layers=c["layers"],
@@ -3209,11 +3173,13 @@ def phase_serving_small(dev):
     reqs.append(("fused", rng.standard_normal((50, cfg.dim)).astype(
         np.float32) * 0.02))
     kw = dict(step_quantum=c["quantum"], prefix_cache=True)
+    # bench_serving's workload form, every request arriving at once
+    workload = [(0, kind, len(p), p, c["new_tokens"]) for kind, p in reqs]
 
-    def submit_all(b):
-        return [b.submit(p, max_new=c["new_tokens"]) if kind == "tok"
-                else b.submit_fused(p, max_new=c["new_tokens"])
-                for kind, p in reqs]
+    def serve(b):
+        """The requests' tokens, in order, through bench_serving.drive."""
+        bench_serving.drive(b, workload)
+        return [b.done[r] for r in range(len(workload))]
 
     def sampled_rows(b, logits):
         # a decode round samples every slot: only the live ones mean
@@ -3232,9 +3198,7 @@ def phase_serving_small(dev):
 
     cpu._sample = recording
     t0 = time.perf_counter()
-    rids = submit_all(cpu)
-    want = cpu.run()
-    want = [want[r] for r in rids]
+    want = serve(cpu)
     cpu_s = time.perf_counter() - t0
 
     errs = []
@@ -3257,9 +3221,7 @@ def phase_serving_small(dev):
     int4_matmul.launches = paged_attention.launches = 0
     flash_attention.launches = 0
     with ForwardLog() as flog:
-        rids = submit_all(card)
-        got = card.run()
-    got = [got[r] for r in rids]
+        got = serve(card)
     torch.cuda.synchronize()
     check(len(errs) == len(log), f"the card sampled {len(errs)} times, the "
                                  f"CPU {len(log)}")
@@ -3281,10 +3243,8 @@ def phase_serving_small(dev):
     check(max(errs) <= SERVING_LOGIT_ATOL,
           f"serving check: logits {max(errs)} from the CPU's")
 
-    free = serving.ContinuousBatcher(params, cfg, pcfg(torch.bfloat16), **kw)
-    rids = submit_all(free)
-    own = free.run()
-    own = [own[r] for r in rids]
+    own = serve(serving.ContinuousBatcher(params, cfg, pcfg(torch.bfloat16),
+                                          **kw))
     agree = sum(a == b for o, w_ in zip(own, want) for a, b in zip(o, w_)) \
         / sum(len(w_) for w_ in want)
 
@@ -3370,20 +3330,24 @@ def profile_round(batcher, what, untraced_ms, warm=2):
 
 def phase_serving(dev, service, profile=False):
     """The slice's main path: continuous-batching serving at Llama-3-8B
-    width on the /retrieve phase's decoder, with bf16 weights, with int4
-    weights, and in bf16 with async rounds. Returns (launches of the int4
-    and the paged attention kernel, results)."""
+    width on the /retrieve phase's decoder through scripts/bench_serving.py
+    (its workload, pool, batcher, drive loop and JSON line), with bf16
+    weights, with int4 weights, and in bf16 with async rounds; rows 3, 10
+    and 13 held against their plain versions at every shape the runs
+    launched them at. Returns (launches of the int4 and the paged
+    attention kernel, results)."""
     import numpy as np
     import torch
     from procyon_tpu_torch import bridge
-    from procyon_tpu_torch.inference import serving
     from procyon_tpu_torch.models import llama
     from procyon_tpu_torch.ops import (flash_attention, int4_matmul,
                                        paged_attention)
+    from procyon_tpu_torch.scripts import bench_serving
     w = SERVING
     lcfg = service.cfg.llama
     params = service.params["llama"]
-    pcfg = serving_pcfg(lcfg, w)
+    args = serving_args()
+    pcfg = bench_serving.pool_config(args, lcfg)
     check((pcfg.n_pages, pcfg.max_ctx) == (128, 640),
           f"the serving pool changed: {pcfg}")
     t0 = time.perf_counter()
@@ -3403,10 +3367,14 @@ def phase_serving(dev, service, profile=False):
           f"{pcfg.max_ctx}; weights {bytes16 / 1e9:.2f} GB bf16, "
           f"{bytes4 / 1e9:.2f} GB int4 (quantized in "
           f"{time.perf_counter() - t0:.1f} s)")
-    workload = serving_workload(lcfg, np.random.default_rng(SEED), w)
-    warm = serving_workload(lcfg, np.random.default_rng(SEED + 1),
-                            dict(w, requests=4, max_new=9, arrival_rounds=1))
+    workload = bench_serving.make_workload(args, lcfg,
+                                           np.random.default_rng(SEED))
+    warm = bench_serving.make_workload(
+        serving_args(requests=4, max_new=9, arrival_rounds=1), lcfg,
+        np.random.default_rng(SEED + 1))
+    n_params = bench_serving.count_params(params)
     results, launches, batchers, tokens = {}, {}, {}, {}
+    shapes = LaunchShapes()
     # bf16 and int4 run twice, in turns: the host's speed drifts within a
     # call, and a round is bound by the host
     for name, tree, async_rounds in (("bf16", params, False),
@@ -3416,16 +3384,19 @@ def phase_serving(dev, service, profile=False):
                                      ("bf16, again", params, False)):
         b = batchers.get(name.split(",")[0])
         if b is None:
-            b = serving.ContinuousBatcher(
-                tree, lcfg, pcfg, step_quantum=w["step_quantum"],
-                prefix_cache=True, async_rounds=async_rounds)
-            drive_serving(b, warm)      # first calls of every route
-        b.reset()
+            b = bench_serving.make_batcher(
+                tree, lcfg, pcfg, serving_args(async_rounds=async_rounds))
+            bench_serving.drive(b, warm)      # first calls of every route
         torch.cuda.reset_peak_memory_stats()
         int4_matmul.launches = paged_attention.launches = 0
         flash_attention.launches = 0
-        with ForwardLog() as flog:
-            lat, util, wall, round_s, n_rounds = drive_serving(b, workload)
+        with ForwardLog() as flog, shapes:
+            res = bench_serving.run(
+                tree, lcfg, serving_args(async_rounds=async_rounds),
+                n_params=n_params, batcher=b, workload=workload, warm=False)
+        d = res["drive"]
+        lat, util, wall = d["lat"], d["util"], d["wall"]
+        round_s, n_rounds = d["round_s"], d["n_rounds"]
         n_int4, n_walk = int4_matmul.launches, paged_attention.launches
         n_flash = flash_attention.launches
         done = b.done
@@ -3472,6 +3443,7 @@ def phase_serving(dev, service, profile=False):
               f"cache hit {b.pcache.stats['hit_tokens']} tokens / missed "
               f"{b.pcache.stats['miss_tokens']}, peak device memory "
               f"{r['peak_device_gib']:.2f} GiB")
+        print(f"    bench_serving: {json.dumps(res['line'])}")
         print(f"    launches: paged attention {n_walk} = {lcfg.n_layers} x "
               f"{steps} decode steps; flash {n_flash} over {prefills} "
               f"prefill forwards; int4 matmul {n_int4}"
@@ -3494,7 +3466,7 @@ def phase_serving(dev, service, profile=False):
         for name in ("bf16", "int4"):
             b = batchers[name]
             b.reset()
-            for _, kind, payload, _ in workload[:w["slots"]]:
+            for _, kind, _, payload, _ in workload[:w["slots"]]:
                 b.submit(payload, max_new=w["max_new"]) if kind == "tok" \
                     else b.submit_fused(payload, max_new=w["max_new"])
             b._admit()
@@ -3503,6 +3475,7 @@ def phase_serving(dev, service, profile=False):
             b.reset()
     del batchers, params4
     torch.cuda.empty_cache()
+    results["held_shapes"] = shapes.hold(dev, "bench_serving", SEED + 64)
     return dict(int4_matmul=launches["int4"][0],
                 paged_attention_serving=launches["bf16"][1]), results
 
@@ -3517,6 +3490,7 @@ def phase_speculative(dev):
     import torch
     from procyon_tpu_torch.inference import serving
     from procyon_tpu_torch.models import llama, synthetic
+    from procyon_tpu_torch.scripts import bench_serving
     c = SPEC
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
@@ -3524,7 +3498,7 @@ def phase_speculative(dev):
                                                  seed=SEED + 32, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    pcfg = serving_pcfg(cfg, SERVING)
+    pcfg = bench_serving.pool_config(serving_args(), cfg)
     rng = np.random.default_rng(SEED + 32)
     prompts = [list(map(int, rng.integers(4, cfg.vocab_size,
                                           int(rng.integers(*c["prompt"])))))
@@ -3588,9 +3562,11 @@ def phase_generate_http(dev, service):
     from procyon_tpu_torch.app import server
     from procyon_tpu_torch.inference import serving
     from procyon_tpu_torch.ops import paged_attention
+    from procyon_tpu_torch.scripts import bench_serving
     lcfg = service.cfg.llama
     batcher = serving.ContinuousBatcher(
-        service.params["llama"], lcfg, serving_pcfg(lcfg, SERVING),
+        service.params["llama"], lcfg,
+        bench_serving.pool_config(serving_args(), lcfg),
         step_quantum=SERVING["step_quantum"])
     rng = np.random.default_rng(SEED + 33)
     vocab = batcher.cfg.vocab_size
@@ -3657,87 +3633,81 @@ def grad_close(out, ref):
     return ratio <= 1.0 and fro <= GRAD_FRO_TOL
 
 
-def device_ms_by_kernel(fn, names, reps=5, traces=3):
+def device_ms_by_kernel(fn, names, reps=5):
     """Device time a call of fn spends in each kernel whose name holds one
-    of `names`, from one torch.profiler trace of `reps` calls. The tracer
-    on the H100 machine now and then hands back a trace with no kernels in
-    it (the same phase traced whole in other processes): a trace that
-    misses a named kernel is taken again, up to `traces` times, and the
-    check fails unless one trace holds every named kernel."""
+    of `names`, from one trace of `reps` calls (utils/profiling.profiled,
+    arranged so that the trace keeps every kernel of the block); fails
+    unless the trace holds every named kernel."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from procyon_tpu_torch.utils import profiling
     fn()
     torch.cuda.synchronize()
-    for attempt in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        found = {}
-        for e in prof.key_averages():
-            for n in names:
-                if n in e.key and e.device_type == DeviceType.CUDA:
-                    found[n] = found.get(n, 0.0) \
-                        + e.self_device_time_total / 1e3 / reps
-        if set(found) == set(names):
-            return found
-        print(f"  trace {attempt + 1} of {traces} saw {sorted(found)} of "
-              f"{list(names)}; tracing again")
-    check(False, f"the profiler saw {sorted(found)} of {list(names)} in "
-                 f"{traces} traces")
-
-
-def kernels_a_call(fn, reps=4, traces=3):
-    """The device kernels one call of fn runs (copies and fills aside),
-    counted in a torch.profiler trace of `reps` calls; a trace with no
-    kernels at all (which the tracer on the H100 machine now and then
-    hands back) is taken again, up to `traces` times."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and "Memcpy" not in e.name and "Memset" not in e.name]
-        if names:
-            return len(names) / reps, sorted(set(names))
-    check(False, f"the profiler saw no kernel in {traces} traces")
-
-
-def device_ms_all(fn, reps=5, traces=3):
-    """Device time a call of fn spends in each kernel it runs, by kernel
-    name (template arguments cut), from one torch.profiler trace of `reps`
-    calls: the split of a wrapper's launches without naming them, so that
-    it reads the kernels of any version of the wrapper. A trace with no
-    kernels in it is taken again, up to `traces` times."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        found = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                name = e.key.replace("(anonymous namespace)::", "")
-                name = name.removeprefix("void ").split("<")[0]
-                name = name.split("(")[0].strip()
-                found[name] = found.get(name, 0.0) \
+    with profiling.profiled([ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+    found = {}
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key and e.device_type == DeviceType.CUDA:
+                found[n] = found.get(n, 0.0) \
                     + e.self_device_time_total / 1e3 / reps
-        if found:
-            return found
-    check(False, f"the profiler saw no kernel in {traces} traces")
+    check(set(found) == set(names),
+          f"the profiler saw {sorted(found)} of {list(names)}")
+    return found
+
+
+def kernels_a_call(fn, reps=4):
+    """The device kernels one call of fn runs (copies, fills and the
+    profiler's leading kernels aside), counted in one trace of `reps` calls
+    (utils/profiling.profiled); fails when the trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from procyon_tpu_torch.utils import profiling
+    fn()
+    torch.cuda.synchronize()
+    with profiling.profiled([ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not any(s in e.name for s in ("Memcpy", "Memset",
+                                               profiling.LEAD_KERNEL))]
+    check(bool(names), "the profiler saw no kernel")
+    return len(names) / reps, sorted(set(names))
+
+
+def device_ms_all(fn, reps=5):
+    """Device time a call of fn spends in each kernel it runs, by kernel
+    name (template arguments cut), from one trace of `reps` calls
+    (utils/profiling.profiled, its leading kernels left out): the split of
+    a wrapper's launches without naming them, so that it reads the kernels
+    of any version of the wrapper. Fails when the trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from procyon_tpu_torch.utils import profiling
+    fn()
+    torch.cuda.synchronize()
+    with profiling.profiled([ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+    found = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA \
+                and profiling.LEAD_KERNEL not in e.key:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("<")[0]
+            name = name.split("(")[0].strip()
+            found[name] = found.get(name, 0.0) \
+                + e.self_device_time_total / 1e3 / reps
+    check(bool(found), "the profiler saw no kernel")
+    return found
 
 
 def sdpa_bwd_ms(q, k, v, do, mask):
@@ -3921,78 +3891,6 @@ def phase_flash_bwd(dev):
     return entries
 
 
-def train_flops_per_token(lcfg, seq, *, frozen_base, remat):
-    """scripts/bench_train.py's count, restated: matmul weights P (layers
-    and lm_head); forward 2P, dL/dx 2P, dL/dW 2P for trained weights only,
-    remat's recompute 2P; attention 2 * 2 * S * d a token and layer, halved
-    for causality, in the forward, the backward and the recompute."""
-    d, hd = lcfg.dim, lcfg.head_dim
-    per_layer = (d * lcfg.n_heads * hd + 2 * d * lcfg.n_kv_heads * hd
-                 + lcfg.n_heads * hd * d + 3 * d * lcfg.intermediate)
-    P = lcfg.n_layers * per_layer + d * lcfg.vocab_size
-    factor = 2 + 2 + (0 if frozen_base else 2) + (2 if remat else 0)
-    attn = 2 * seq * d * lcfg.n_layers
-    return factor * P + (1 + 1 + (1 if remat else 0)) * attn
-
-
-def train_batch(B, S, vocab, embed_dim, seed):
-    """bench_train.py --flagship's batch: random tokens, labels masked over
-    the first half, one soft token at position 2 (8 protein embeddings),
-    the retrieval position at the last token."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    U = TRAIN["soft_tokens"]
-    soft_map = np.full((B, S), -1, np.int32)
-    soft_map[:, 2] = np.arange(B) % U
-    labels = rng.integers(0, vocab, (B, S)).astype(np.int32)
-    labels[:, :S // 2] = -100
-    return {"input_ids": rng.integers(4, vocab, (B, S)).astype(np.int32),
-            "seg_ids": np.ones((B, S), np.int32),
-            "positions": np.broadcast_to(np.arange(S, dtype=np.int32),
-                                         (B, S)).copy(),
-            "soft_map": soft_map,
-            "protein_embeds": rng.standard_normal(
-                (U, embed_dim)).astype(np.float32),
-            "labels": labels,
-            "ret_pos": np.full((B,), S - 1, np.int32),
-            "ret_target_pos": (np.arange(B) % U).astype(np.int32),
-            "ret_valid": np.ones((B,), bool)}
-
-
-def qlora_config(cfg):
-    """cfg with LoRA r16 x 4 on wq / wv and remat on (the one-card recipe
-    of bench_train.py --flagship)."""
-    from procyon_tpu_torch.models import lora
-    return dataclasses.replace(cfg, llama=dataclasses.replace(
-        cfg.llama, remat=True, lora=lora.LoRAConfig(
-            rank=TRAIN["lora_rank"], num_experts=TRAIN["lora_experts"],
-            dtype=cfg.llama.dtype)))
-
-
-def qlora_params(params, cfg, g, b_scale=0.0):
-    """params with LoRA banks added to the decoder (A ~ N(0, 1/dim); B 0,
-    or N(0, b_scale^2) for a check where the gradient of A must not vanish)
-    and the decoder's matrices quantized to int8."""
-    import torch
-    from procyon_tpu_torch.models import llama, lora
-    lcfg = cfg.llama
-    layers = dict(params["llama"]["layers"])
-    for name, out in (("lora_wq", lcfg.n_heads * lcfg.head_dim),
-                      ("lora_wv", lcfg.n_kv_heads * lcfg.head_dim)):
-        banks = [lora.init_params(g, lcfg.lora, lcfg.dim, out,
-                                  device=g.device)
-                 for _ in range(lcfg.n_layers)]
-        layers[name] = {k: torch.stack([b[k] for b in banks])
-                        for k in ("A", "B")}
-        if b_scale:
-            layers[name]["B"] = (b_scale * torch.randn(
-                layers[name]["B"].shape, generator=g, device=g.device)).to(
-                lcfg.dtype)
-    decoder = llama.quantize_params(dict(params["llama"], layers=layers),
-                                    lcfg, bits=8)
-    return dict(params, llama=decoder)
-
-
 def trainable_grads(opt, state, cfg, batch):
     """(loss, {path: gradient}) of the QA loss on expert 0, as the step
     computes them, over the state's trainable leaves."""
@@ -4023,15 +3921,18 @@ def phase_train_small(dev):
     from procyon_tpu_torch.app.main import procyon_full_config
     from procyon_tpu_torch.models import unified
     from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.scripts import bench_train
     from procyon_tpu_torch.training import optimizer as topt
     from procyon_tpu_torch.training import train_step as ts
     s = TRAIN_SMALL
     full = procyon_full_config(s["layers"])
-    cfg = qlora_config(dataclasses.replace(full, llama=dataclasses.replace(
-        full.llama, vocab_size=s["vocab"])))
+    cfg = bench_train.qlora_config(dataclasses.replace(
+        full, llama=dataclasses.replace(full.llama, vocab_size=s["vocab"])),
+        TRAIN["lora_rank"], TRAIN["lora_experts"])
     g = torch.Generator(device=dev).manual_seed(SEED + 32)
-    params = qlora_params(unified.init_params(SEED + 32, cfg, device=dev),
-                          cfg, g, b_scale=TRAIN_SMALL_B)
+    params = bench_train.qlora_params(
+        unified.init_params(SEED + 32, cfg, device=dev), cfg, g,
+        b_scale=TRAIN_SMALL_B)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
                                 llama=dataclasses.replace(
                                     cfg.llama, dtype=torch.float32,
@@ -4039,8 +3940,9 @@ def phase_train_small(dev):
                                         cfg.llama.lora,
                                         dtype=torch.float32)))
     p32 = bridge.to_torch(bridge.to_numpy(params), device="cpu")
-    batch = train_batch(s["B"], s["S"], s["vocab"], cfg.protein_embed_dim,
-                        SEED + 33)
+    batch = bench_train.train_batch(s["B"], s["S"], s["vocab"],
+                                    cfg.protein_embed_dim, SEED + 33,
+                                    TRAIN["soft_tokens"])
     ocfg = topt.OptimizerConfig(lr=TRAIN["lr"], warmup_steps=0,
                                 total_steps=1000)
     runs, seen = {}, {}
@@ -4139,25 +4041,6 @@ def frozen_checksums(tree):
     return out
 
 
-def timed_steps(step, state, batch, n):
-    """n steps back to back; (ms a step on the host clock, the last
-    metrics, launches of rows 3, 8 and 9 a step)."""
-    import torch
-    from procyon_tpu_torch.ops import flash_attention as fa
-    counts = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        state, m = step(state, batch)
-    loss = float(m["loss"])
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n
-    per = [(c1 - c0) / n for c0, c1 in zip(
-        counts, (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv))]
-    check(math.isfinite(loss), f"training loss {loss}")
-    return ms, m, per
-
-
 def profile_once(what, fn, untraced_ms):
     """torch.profiler over one call of fn (after a traced one, which pays
     the tracer's start): wall, device-busy time and kernels of the call, the
@@ -4198,21 +4081,27 @@ def phase_train(dev, service, profile=False):
     """The slice's main path: QLoRA training at full Llama-3-8B width on
     the /retrieve phase's decoder, quantized to int8, with LoRA banks
     r16 x 4, the projectors and the contrastive temperature trained
-    (train_step.lora_trainable_predicate), bench_train.py --flagship's
-    B2 x S2048 batch, remat on: two warm and six timed QA steps
-    (make_train_step(..., "qa", frozen_base=True)), then the combined QA +
-    retrieval step on expert 3 (make_combined_step), warmed and timed the
-    same way. Returns the launches of rows 3, 8 and 9 over the run."""
+    (train_step.lora_trainable_predicate), scripts/bench_train.py
+    --flagship's B2 x S2048 batch, remat on, through bench_train's
+    `qlora_config`, `qlora_params`, `train_batch` and `run`: the QA step
+    (make_train_step(..., "qa", frozen_base=True)) warmed, then timed by
+    bench_train's two points, then the combined QA + retrieval step on
+    expert 3 (make_combined_step) the same way. Returns the launches of
+    rows 3, 8 and 9 over the run."""
     import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.models import llama
     from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.scripts import bench_train
     from procyon_tpu_torch.training import combined_step as tcs
     from procyon_tpu_torch.training import optimizer as topt
     from procyon_tpu_torch.training import train_step as ts
     t = TRAIN
-    cfg = qlora_config(service.cfg)
+    cfg = bench_train.qlora_config(service.cfg, t["lora_rank"],
+                                   t["lora_experts"])
     lcfg = cfg.llama
     g = torch.Generator(device=dev).manual_seed(SEED + 34)
-    params = qlora_params(service.params, cfg, g)
+    params = bench_train.qlora_params(service.params, cfg, g)
     opt = topt.build_optimizer(topt.OptimizerConfig(
         lr=t["lr"], warmup_steps=t["warmup"], total_steps=1000))
     state = ts.init_train_state(
@@ -4222,10 +4111,13 @@ def phase_train(dev, service, profile=False):
     start = {"/".join(p): x.clone() for p, x in
              topt.tree_items(state["params"])}
     frozen = frozen_checksums(state["frozen"])
-    batch = ts.batch_to_device(train_batch(t["B"], t["S"], lcfg.vocab_size,
-                                           cfg.protein_embed_dim, SEED + 35),
-                               dev)
-    fpt = train_flops_per_token(lcfg, t["S"], frozen_base=True, remat=True)
+    batch = ts.batch_to_device(bench_train.train_batch(
+        t["B"], t["S"], lcfg.vocab_size, cfg.protein_embed_dim, SEED + 35,
+        t["soft_tokens"]), dev)
+    fpt = bench_train.train_flops_per_token(lcfg, t["S"], frozen_base=True,
+                                            remat=True)
+    n_params = sum(x.numel() for x in bridge.tree_leaves(
+        llama.init_params(0, lcfg, device="meta")))
     tokens = t["B"] * t["S"]
     supervised = int((batch["labels"][:, 1:] != -100).sum().item())
     print(f"training: Llama-3-8B (int8 frozen base, {lcfg.n_layers} layers) "
@@ -4247,27 +4139,44 @@ def phase_train(dev, service, profile=False):
         return combined(s, {"qa": b, "retrieval": b})
 
     for name, step, passes in (("qa", qa, 1), ("combined", joint, 2)):
-        timed_steps(step, state, batch, t["warm"] - (name == "qa"))
-        ms, m, per = timed_steps(step, state, batch, t["timed"])
+        res = bench_train.run(
+            step, state, batch, cfg, seq=t["S"], batch_size=t["B"],
+            passes=passes, frozen_base=True, steps_small=t["small"],
+            steps_big=t["big"], warm=t["warm"] - (name == "qa"),
+            n_params=n_params, n_trainable=n_train,
+            task_tag=f"{name} step", device=dev,
+            wtag=f"int8 frozen base + bf16 LoRA "
+                 f"r{t['lora_rank']}x{t['lora_experts']}")
+        state, per = res["state"], res["launches_per_step"]
+        check(all(math.isfinite(x) for x in res["losses"]),
+              f"{name} step: losses {res['losses']}")
         check(per == [64 * passes, 32 * passes, 32 * passes],
               f"{name} step: launches of rows 3, 8, 9 a step {per}, "
               f"expected {[64 * passes, 32 * passes, 32 * passes]}")
+        ms = res["per_step_s"] * 1e3
+        check(ms > 0, f"{name} step: {ms} ms a step")
         mfu = fpt * tokens * passes / (ms / 1e3) / PEAK_BF16
+        check(abs(mfu - res["line"]["mfu"]) <= 1e-4,
+              f"{name} step: MFU {mfu} here, {res['line']['mfu']} in "
+              "bench_train's line")
         results[name] = dict(ms_per_step=ms,
                              tokens_per_sec=tokens * passes / (ms / 1e3),
                              supervised_tokens_per_sec=supervised * passes
                              / (ms / 1e3),
-                             mfu=mfu, last_loss=float(m["loss"]),
+                             mfu=mfu, last_loss=res["losses"][-1],
                              flash_fwd_launches_per_step=per[0],
                              flash_bwd_dq_launches_per_step=per[1],
                              flash_bwd_dkv_launches_per_step=per[2])
-        print(f"  {name} step: {ms:.1f} ms a step (host clock, mean of "
-              f"{t['timed']}), {tokens * passes / (ms / 1e3):.0f} tokens/s, "
+        print(f"  {name} step: {ms:.1f} ms a step (host clock, two points "
+              f"at {t['small']} and {t['big']} steps, the best of two runs "
+              f"each), "
+              f"{tokens * passes / (ms / 1e3):.0f} tokens/s, "
               f"{supervised * passes / (ms / 1e3):.0f} supervised tokens/s, "
               f"MFU {mfu:.1%} ({fpt * tokens * passes:.3e} FLOP a step at "
-              f"{PEAK_BF16:.3g}); last loss {float(m['loss']):.4f}; "
+              f"{PEAK_BF16:.3g}); last loss {res['losses'][-1]:.4f}; "
               f"launches a step: flash fwd {per[0]:g}, dq {per[1]:g}, dkv "
               f"{per[2]:g}")
+        print(f"  bench_train: {json.dumps(res['line'])}")
     results["qa"]["first_loss"] = first_loss
     launches = {"flash_attention_fwd": fa.launches,
                 "flash_attention_bwd_dq": fa.launches_bwd_dq,
@@ -6049,17 +5958,18 @@ def phase_esm_train(dev, service, store, profile=False):
     from procyon_tpu_torch.data import data_config
     from procyon_tpu_torch.models import esm2
     from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.scripts import bench_train
     from procyon_tpu_torch.training import optimizer as topt
     from procyon_tpu_torch.training import train_step as ts
     from procyon_tpu_torch.training.trainer import Trainer, TrainLoopConfig
     t = ESM_TRAIN
     ecfg = esm_config()
-    cfg = dataclasses.replace(qlora_config(service.cfg), esm=ecfg)
+    cfg = dataclasses.replace(bench_train.qlora_config(service.cfg), esm=ecfg)
     check(cfg.encoder_out_dim == service.cfg.protein_embed_dim,
           "the service's projectors do not take ESM2-3B's width")
     g = torch.Generator(device=dev).manual_seed(SEED + 63)
     t0 = time.perf_counter()
-    params = dict(qlora_params(service.params, cfg, g),
+    params = dict(bench_train.qlora_params(service.params, cfg, g),
                   esm=esm2.init_params(SEED + 63, ecfg, device=dev))
     torch.cuda.synchronize()
     n_enc = sum(x.numel() for path, x in topt.tree_items(params["esm"])
@@ -6070,10 +5980,9 @@ def phase_esm_train(dev, service, store, profile=False):
         topt.OptimizerConfig(lr=t["lr"], warmup_steps=t["warmup"],
                              total_steps=1000), tconfig.freeze_fn(margs))
     lcfg = cfg.llama
-    qa = ts.batch_to_device(train_batch(TRAIN["B"], TRAIN["S"],
-                                        lcfg.vocab_size,
-                                        cfg.protein_embed_dim, SEED + 35),
-                            dev)
+    qa = ts.batch_to_device(bench_train.train_batch(
+        TRAIN["B"], TRAIN["S"], lcfg.vocab_size, cfg.protein_embed_dim,
+        SEED + 35), dev)
     del qa["protein_embeds"]
     U = TRAIN["soft_tokens"]
     qa["protein_tokens"] = torch.from_numpy(esm_tokens(
@@ -6844,25 +6753,28 @@ def dist_train_setup(dev):
     import torch
     from procyon_tpu_torch.data.collators import encode_conflict_ids
     from procyon_tpu_torch.models import llama, unified
+    from procyon_tpu_torch.scripts import bench_train
     from procyon_tpu_torch.training import optimizer as topt
     lcfg = llama.llama3_8b(n_layers=DIST["train_layers"],
                            dtype=torch.bfloat16)
-    cfg = qlora_config(unified.UnifiedConfig(
+    cfg = bench_train.qlora_config(unified.UnifiedConfig(
         llama=lcfg, esm=None, protein_embed_dim=2560,
         token_projector_layers=3, token_projector_hidden=2560,
         retrieval_dim=1024, dtype=torch.bfloat16))
     g = torch.Generator(device=dev).manual_seed(SEED + 62)
-    params = qlora_params(unified.init_params(g, cfg, device=dev), cfg, g,
-                          b_scale=TRAIN_SMALL_B)
+    params = bench_train.qlora_params(
+        unified.init_params(g, cfg, device=dev), cfg, g,
+        b_scale=TRAIN_SMALL_B)
     t = TRAIN
-    qa = train_batch(t["B"], t["S"], lcfg.vocab_size, 2560, SEED + 63)
+    qa = bench_train.train_batch(t["B"], t["S"], lcfg.vocab_size, 2560,
+                                 SEED + 63)
     uneven = dict(qa, labels=qa["labels"].copy())
     # rank 1's row: 64 supervised tokens, all one id (a gradient of its
     # own direction), against rank 0's 1024
     uneven["labels"][1, t["S"] // 2:t["S"] // 2 + 64] = 7
     uneven["labels"][1, t["S"] // 2 + 64:] = -100
-    ret = dict(train_batch(t["B"], t["S"], lcfg.vocab_size, 2560,
-                           SEED + 64))
+    ret = dict(bench_train.train_batch(t["B"], t["S"], lcfg.vocab_size,
+                                       2560, SEED + 64))
     ret["conflict_ids"] = encode_conflict_ids(3, list(range(t["B"])))
     opt = topt.build_optimizer(topt.OptimizerConfig(
         lr=t["lr"], warmup_steps=t["warmup"], total_steps=1000))
@@ -7333,6 +7245,456 @@ def dist_worker_main(argv):
     return 0
 
 
+class LaunchShapes:
+    """Records, by patching the `_launch` of rows 3, 10, 12 and 13's
+    wrappers for the length of the block, each distinct shape (sizes,
+    strides, dtypes, flags) at which a path launches them, with the first
+    launch's index inputs (segments and positions, page table and lengths,
+    move lists). `hold` then holds each kernel against its plain version at
+    every recorded shape on seeded random values, the index inputs the
+    path's own."""
+
+    def __init__(self):
+        self.seen = {"flash": {}, "paged": {}, "int4": {}, "move": {}}
+        self._patches = []
+
+    def _record(self, kind, key, make):
+        if key not in self.seen[kind]:
+            self.seen[kind][key] = make()
+
+    def __enter__(self):
+        from procyon_tpu_torch.ops import flash_attention as fa
+        from procyon_tpu_torch.ops import int4_matmul as im
+        from procyon_tpu_torch.ops import page_move as pm
+        from procyon_tpu_torch.ops import paged_attention as pa
+
+        def sig(t):
+            return tuple(t.shape), tuple(t.stride()), t.dtype
+
+        def flash(q, k, v, *rest):
+            *ints, causal, sm_scale, bounded, want_lse = rest
+            self._record("flash", (sig(q), sig(k), sig(v), causal, sm_scale,
+                                   bounded, want_lse),
+                         lambda: [t.clone() for t in ints])
+            return flash_launch(q, k, v, *rest)
+
+        def paged(q, k_pool, v_pool, table, lens, n_kv, head_dim, ks, vs,
+                  sm_scale):
+            self._record("paged", (sig(q), sig(k_pool), tuple(table.shape),
+                                   n_kv, head_dim,
+                                   None if ks is None else sig(ks), sm_scale),
+                         lambda: (table.clone(), lens.clone()))
+            return paged_launch(q, k_pool, v_pool, table, lens, n_kv,
+                                head_dim, ks, vs, sm_scale)
+
+        def int4(x, qw):
+            self._record("int4", (sig(x), sig(qw["p"]), sig(qw["s"])),
+                         lambda: None)
+            return int4_launch(x, qw)
+
+        def move(pool_arr, src, dst):
+            self._record("move", sig(pool_arr),
+                         lambda: (src.clone(), dst.clone()))
+            return move_launch(pool_arr, src, dst)
+
+        flash_launch, paged_launch = fa._launch, pa._launch
+        int4_launch, move_launch = im._launch, pm._launch
+        for module, fn in ((fa, flash), (pa, paged), (im, int4), (pm, move)):
+            self._patches.append(patched(module, "_launch", fn))
+            self._patches[-1].__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        while self._patches:
+            self._patches.pop().__exit__(*exc)
+
+    def hold(self, dev, what, seed):
+        """Kernel against plain at every recorded shape (ATOL + RTOL|plain|
+        on outputs, LSE_TOL on live rows' lse, page moves exactly equal).
+        Returns {kernel: [shapes held, worst max_abs_err]}."""
+        import torch
+        from procyon_tpu_torch.ops import flash_attention as fa
+        from procyon_tpu_torch.ops import int4_matmul as im
+        from procyon_tpu_torch.ops import page_move as pm
+        from procyon_tpu_torch.ops import paged_attention as pa
+        from procyon_tpu_torch.ops import quant
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def rand(size, stride, dtype):
+            t = torch.empty_strided(size, stride, dtype=dtype, device=dev)
+            if dtype == torch.int8:
+                return t.copy_(torch.randint(-127, 128, size, generator=g,
+                                             device=dev, dtype=torch.int32))
+            if dtype == torch.float32:                   # scale pools
+                return t.copy_(torch.rand(size, generator=g, device=dev)
+                               * 0.02 + 1e-3)
+            return t.copy_(torch.randn(size, generator=g, device=dev))
+
+        out = {}
+
+        def note(kind, err, name):
+            out.setdefault(kind, []).append((err, name))
+
+        for (qs, ks, vs, causal, sm, bounded, want_lse), ints in \
+                self.seen["flash"].items():
+            q, k, v = (rand(*t) for t in (qs, ks, vs))
+            o, lse = fa.flash_fwd(q, k, v, *ints, causal=causal, sm_scale=sm,
+                                  bounded=bounded, want_lse=True)
+            ref, ref_lse = fa.flash_fwd_ref(q, k, v, *ints, causal=causal,
+                                            sm_scale=sm)
+            name = (f"row 3 q {qs[0]} k {ks[0]}{' causal' if causal else ''}"
+                    f"{' bounded' if bounded else ''}")
+            err = (o.float() - ref.float()).abs().max().item()
+            live = ref_lse > -1e29
+            lse_err = (lse[live] - ref_lse[live]).abs().max().item() \
+                if live.any() else 0.0
+            check(within_tol(o, ref) and lse_err <= LSE_TOL,
+                  f"{what}: {name}: max_abs_err {err}, lse err {lse_err}")
+            note("flash_attention_fwd", err, name)
+        for (qs, kps, P, n_kv, D, sps, sm), (table, lens) in \
+                self.seen["paged"].items():
+            q = rand(*qs)
+            kp, vp = rand(*kps), rand(*kps)
+            scales = [None, None] if sps is None else [rand(*sps),
+                                                       rand(*sps)]
+            kw = dict(n_kv_heads=n_kv, head_dim=D, k_scale_pool=scales[0],
+                      v_scale_pool=scales[1], sm_scale=sm)
+            o, lse = pa.paged_decode_attention_fullpage(q, kp, vp, table,
+                                                        lens, **kw)
+            ref, ref_lse = pa.paged_decode_attention_ref(q, kp, vp, table,
+                                                         lens, **kw)
+            name = (f"row 10 q {qs[0]} pool {kps[0]} {kps[2]} table "
+                    f"{P}")
+            err = (o.float() - ref.float()).abs().max().item()
+            live = lens > 0
+            lse_err = (lse[live] - ref_lse[live]).abs().max().item() \
+                if live.any() else 0.0
+            check(within_tol(o, ref) and lse_err <= LSE_TOL,
+                  f"{what}: {name}: max_abs_err {err}, lse err {lse_err}")
+            note("paged_attention", err, name)
+            del kp, vp, scales
+        for xs, ps, ss in self.seen["int4"]:
+            k, n = xs[0][-1], ps[0][1]
+            w = torch.randn((k, n), generator=g, device=dev) * k ** -0.5
+            qw = quant.quantize4(w, group=k // ss[0][0])
+            del w
+            x = rand(*xs)
+            o, ref = im.qmatvec4(x, qw), im.qmatvec4_ref(x, qw)
+            name = f"row 13 x {xs[0]} k{k} n{n}"
+            err = (o.float() - ref.float()).abs().max().item()
+            check(within_tol(o, ref), f"{what}: {name}: max_abs_err {err}")
+            note("int4_matmul", err, name)
+        for ps, (src, dst) in self.seen["move"].items():
+            pool = rand(*ps)
+            want = pm.move_pages_direct_ref(pool.clone(), src, dst)
+            got = pm.move_pages_direct(pool, src, dst)
+            name = f"row 12 pool {ps[0]} {ps[2]}, {src.numel()} moves"
+            check(torch.equal(got, want), f"{what}: {name}: differs")
+            note("page_move", 0.0, name)
+            del pool, want, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for kind, cases in out.items():
+            worst = max(cases)
+            names = "; ".join(n for _, n in cases) if len(cases) <= 8 \
+                else f"{len(cases)} shapes"
+            print(f"  {what}: {kind} within tolerance of its plain "
+                  f"version (tol {ATOL} + {RTOL}|plain|, lse {LSE_TOL}; "
+                  f"moves exact) at every shape the run launched it at "
+                  f"({names}); worst max_abs_err {worst[0]:.3e} "
+                  f"({worst[1]})")
+        return {k: [len(v), max(v)[0]] for k, v in out.items()}
+
+
+def phase_retrieval_cli(dev, service):
+    """scripts/protein_retrieval_disease_pheno.py's `run` on the /retrieve
+    service's weights, store and tokenizer over all its proteins: for two
+    descriptions, the same top RETRIEVE_CLI_K proteins and scores as the
+    service's own answer, and row 3 once a layer a query, held against its
+    plain version at the shapes it was launched at. Returns its
+    launches."""
+    import torch
+    from procyon_tpu_torch.ops import launch_counts, launches_since
+    from procyon_tpu_torch.scripts import protein_retrieval_disease_pheno \
+        as cli
+    n_layers = service.cfg.llama.n_layers
+    total = 0
+    shapes = LaunchShapes()
+    t0 = time.perf_counter()
+    for source, desc in RETRIEVE_DESCRIPTIONS[:2]:
+        before = launch_counts()
+        with shapes:
+            got = cli.run(service.params, service.cfg, service.tokenizer,
+                          service.store, service.protein_ids,
+                          disease_desc=desc,
+                          instruction_source_dataset=source,
+                          k=RETRIEVE_CLI_K, device=dev)
+        n = launches_since(before)["flash_attention_fwd"]
+        check(n == n_layers, f"retrieval CLI: {n} flash launches for one "
+                             f"query, expected {n_layers}")
+        total += n
+        want = service.retrieve(task_id=f"{source}_all_retrieval",
+                                disease_desc=desc, k=RETRIEVE_CLI_K)
+        check([r["protein_id"] for r in got]
+              == [r["protein_id"] for r in want]
+              and all(abs(a["score"] - b["score"]) <= 1e-4
+                      for a, b in zip(got, want)),
+              f"retrieval CLI ({source}): {got} against the service's "
+              f"{want}")
+    torch.cuda.synchronize()
+    print(f"retrieval CLI (scripts/protein_retrieval_disease_pheno.py run, "
+          f"{len(service.protein_ids)} proteins embedded anew, 2 "
+          f"descriptions): top {RETRIEVE_CLI_K} equal to the service's, "
+          f"scores within 1e-4; {total} flash launches; "
+          f"{time.perf_counter() - t0:.1f} s")
+    shapes.hold(dev, "retrieval CLI", SEED + 60)
+    return total
+
+
+def phase_bench_decode(dev):
+    """scripts/bench_decode.py through its `run`, BENCH_DECODE: bf16
+    seeded weights, then int4 constant weights with the quality probe
+    (its gate must pass). Each: the prefills' attention through row 3,
+    every paged decode step's through row 10 once a layer, the int4 run's
+    products of 16 rows through row 13 (none in bf16), each kernel held
+    against its plain version at every shape the run launched it at; the
+    JSON line and peak memory. Returns the launches."""
+    import torch
+    from procyon_tpu_torch.ops import launch_counts, launches_since
+    from procyon_tpu_torch.scripts import bench_decode
+    total, lines = {}, {}
+    for name, extra in (("bf16", ()), ("int4", ("--quant", "--bits", "4"))):
+        args = bench_decode.parse_args([*BENCH_DECODE, *extra, "--device",
+                                        "cuda", "--seed", str(SEED)])
+        cfg = bench_decode.bench_config(
+            args.dim, args.layers, args.prompt_len + args.gen_big + 32,
+            device=dev)
+        t0 = time.perf_counter()
+        params, n_params, wtag = bench_decode.build_params(cfg, args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = launch_counts()
+        with LaunchShapes() as shapes:
+            res = bench_decode.run(params, cfg, args, n_params=n_params,
+                                   wtag=wtag)
+        n = launches_since(before)
+        line = res["line"]
+        steps = 2 + 2 * (args.gen_small + args.gen_big)
+        prefills = 5
+        L = cfg.llama.n_layers
+        check(n["paged_attention"] == L * steps,
+              f"bench_decode {name}: {n['paged_attention']} paged attention "
+              f"launches for {steps} steps of {L} layers")
+        check(n["flash_attention_fwd"] >= L * prefills,
+              f"bench_decode {name}: {n['flash_attention_fwd']} flash "
+              f"launches for {prefills} prefills of {L} layers")
+        check((n["int4_matmul"] > 0) == (name == "int4"),
+              f"bench_decode {name}: {n['int4_matmul']} int4 launches")
+        check(not res["gate_failed"], f"bench_decode {name}: the quality "
+                                      f"gate failed: {line}")
+        check(tuple(res["tokens"].shape) == (args.batch, 3)
+              and line["value"] > 0, f"bench_decode {name}: {line}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print(f"bench_decode {name} (dim {args.dim}, {L} layers, "
+              f"~{n_params / 1e9:.2f} B params built in {build_s:.1f} s, "
+              f"B{args.batch} x L{args.prompt_len}, paged, two points at "
+              f"{args.gen_small} and {args.gen_big} steps): "
+              f"{line['per_step_ms']} ms a step, {line['value']} tokens/s; "
+              f"launches {n}; peak memory {peak:.2f} GiB")
+        print(json.dumps(line))
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        del params, res
+        torch.cuda.empty_cache()
+        held = shapes.hold(dev, f"bench_decode {name}", SEED + 61)
+        lines[name] = dict(line, peak_gib=peak, held_shapes=held)
+    return total, lines
+
+
+def phase_bench_caption(dev):
+    """scripts/bench_caption.py through its `run`, BENCH_CAPTION
+    (Llama-3-8B int4, paged, 4 prompts x beam 10, the cascade and the flat
+    page walk): the prefills' attention through row 3, the beam's
+    copy-on-write page moves through row 12, the 40-row products through
+    row 13, the flat arm's decode steps through row 10; the quality gate
+    must pass; each kernel held against its plain version at every shape
+    the run launched it at; the JSON line and peak memory. Returns the
+    launches."""
+    import torch
+    from procyon_tpu_torch.ops import launch_counts, launches_since
+    from procyon_tpu_torch.scripts import bench_caption
+    args = bench_caption.parse_args([*BENCH_CAPTION, "--device", "cuda",
+                                     "--seed", str(SEED)])
+    cfg = bench_caption.bench_config(args)
+    t0 = time.perf_counter()
+    params, n_params, wtag = bench_caption.build_params(cfg, args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = launch_counts()
+    with LaunchShapes() as shapes:
+        res = bench_caption.run(params, cfg, args, n_params=n_params,
+                                wtag=wtag)
+    n = launches_since(before)
+    line = res["line"]
+    for key in ("flash_attention_fwd", "page_move", "int4_matmul",
+                "paged_attention"):
+        check(n[key] > 0, f"bench_caption: no {key} launch ({n})")
+    check(not res["gate_failed"], f"bench_caption: the quality gate "
+                                  f"failed: {line}")
+    check(line["cascade"] and line["value"] > 0
+          and line["per_step_ms_flat"] > 0, f"bench_caption: {line}")
+    tokens, scores = res["captions"]
+    check(bool(torch.isfinite(scores).all()), "bench_caption: scores")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"bench_caption (Llama-3-8B int4, ~{n_params / 1e9:.2f} B params "
+          f"built in {build_s:.1f} s, B{args.batch} x beam "
+          f"{args.beam_size}, L{args.prompt_len}, paged, two points at "
+          f"{args.gen_small} and {args.gen_big} steps): cascade "
+          f"{line['per_step_ms']} ms a step, flat page walk "
+          f"{line['per_step_ms_flat']} ms, {line['value']} caption tokens/s; "
+          f"launches {n}; peak memory {peak:.2f} GiB")
+    print(json.dumps(line))
+    del params, res
+    torch.cuda.empty_cache()
+    held = shapes.hold(dev, "bench_caption", SEED + 62)
+    return n, dict(line, peak_gib=peak, held_shapes=held)
+
+
+def phase_entry(dev):
+    """procyon_tpu_torch/entry.entry()'s fn on the card: logits [2, 64,
+    1024] and a finite retrieval loss, row 3 once a decoder layer, the
+    logits' cosine to the same forward on the CPU in f32 (the plain path)
+    at least SANITY_COS, row 3 held against its plain version at the
+    shapes it was launched at. Returns its launches."""
+    import torch
+    from procyon_tpu_torch import bridge
+    from procyon_tpu_torch.ops import launch_counts, launches_since
+    from procyon_tpu_torch.entry import entry, entry_config
+    from procyon_tpu_torch.models import unified
+    before = launch_counts()
+    fn, (params, batch) = entry(dev)
+    with LaunchShapes() as shapes:
+        logits, loss = fn(params, batch)
+    torch.cuda.synchronize()
+    n = launches_since(before)["flash_attention_fwd"]
+    cfg = entry_config()
+    check(tuple(logits.shape) == (2, 64, cfg.llama.vocab_size)
+          and bool(torch.isfinite(logits.float()).all())
+          and math.isfinite(float(loss)), f"entry: {logits.shape} {loss}")
+    check(n == cfg.llama.n_layers, f"entry: {n} flash launches")
+    c32 = dataclasses.replace(
+        cfg, dtype=torch.float32,
+        llama=dataclasses.replace(cfg.llama, dtype=torch.float32,
+                                  attn_backend="ref"),
+        esm=dataclasses.replace(cfg.esm, dtype=torch.float32,
+                                attn_backend="ref"))
+    p32 = bridge.map_tensors(
+        lambda t: t.float().cpu() if t.is_floating_point() else t.cpu(),
+        params)
+    ref = unified.forward(p32, c32, {k: v.cpu() for k, v in batch.items()},
+                          retrieval=True)
+    cos = torch.nn.functional.cosine_similarity(
+        logits.float().cpu().flatten(), ref["logits"].flatten(), dim=0)
+    check(cos.item() >= SANITY_COS, f"entry: logits cosine {cos.item()}")
+    print(f"entry(): fn on the card, logits {tuple(logits.shape)}, "
+          f"retrieval loss {float(loss):.4f} (CPU f32 "
+          f"{float(ref['retrieval_loss']):.4f}), logits cosine to the CPU's "
+          f"{cos.item():.6f}; {n} flash launches")
+    shapes.hold(dev, "entry()", SEED + 63)
+    return n
+
+
+def phase_trace(dev):
+    """utils/profiling.trace around TRACE_LAUNCHES launches of row 3 at the
+    training shape (B2 x S2048, Llama-3-8B widths, causal), then
+    utils/trace.device_op_table on the chrome trace it wrote: one flash
+    kernel row, launched TRACE_LAUNCHES times, its time a launch within
+    TRACE_RTOL of the CUDA-event time of a call; one trace, which fails
+    when it lacks the kernel (device_op_table raises when the trace lost a
+    launched kernel)."""
+    import tempfile
+
+    import torch
+    from procyon_tpu_torch.ops import flash_attention as fa
+    from procyon_tpu_torch.utils import profiling, trace
+    B, S = FLASH_BWD_TRAIN["B"], FLASH_BWD_TRAIN["S"]
+    Hq, Hkv, D = (FLASH_SHAPE[k] for k in ("Hq", "Hkv", "D"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev).to(
+        torch.bfloat16) for H in (Hq, Hkv, Hkv))
+    ints = fa.mask_inputs(q, k, None, None, None, None)
+
+    def kernel():
+        return fa.flash_fwd(q, k, v, *ints, causal=True,
+                            sm_scale=1.0 / math.sqrt(D), bounded=True,
+                            want_lse=True)
+
+    ms = cuda_ms(kernel, iters=TRACE_LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(TRACE_LAUNCHES):
+                kernel()
+        total, table = trace.device_op_table(tmp)
+    rows = [r for r in table if "flash_fwd_kernel" in r[2]]
+    check(len(rows) == 1, f"trace: flash kernel rows {rows} of {table}")
+    t_ms, count, name, long_name = rows[0]
+    per = t_ms / count
+    check(count == TRACE_LAUNCHES, f"trace: {count} launches of {name}")
+    check(abs(per - ms) <= TRACE_RTOL * ms,
+          f"trace: {per:.4f} ms a launch in the trace, {ms:.4f} by CUDA "
+          "events")
+    print(f"trace (utils/profiling.trace + utils/trace.device_op_table, one "
+          f"trace): {name} x{count}, {per:.4f} ms a launch "
+          f"({long_name}) against {ms:.4f} ms a call by CUDA events "
+          f"(within {TRACE_RTOL:.0%}); {len(table)} kernel names, "
+          f"{total:.3f} ms in all")
+    return dict(kernel=name, launches=count, trace_ms=per, event_ms=ms)
+
+
+def run_benches(dev):
+    """The "benches" phases that build their own models, each freed before
+    the next: bench_decode (bf16, int4), bench_caption, entry() and the
+    trace table. Returns (launches by kernel, results)."""
+    import torch
+    launches, results = {}, {}
+    n, results["bench_decode"] = phase_bench_decode(dev)
+    launches.update(n)
+    n, results["bench_caption"] = phase_bench_caption(dev)
+    for k, v in n.items():
+        launches[k] += v
+    launches["flash_attention_fwd"] += phase_entry(dev)
+    torch.cuda.empty_cache()
+    results["trace"] = phase_trace(dev)
+    return launches, results
+
+
+def run_benches_group(dev, profile):
+    """--only=benches: the five bench scripts at full width and the rest of
+    the slice's entry points on the synthetic service: the retrieval CLI,
+    bench_w8a8 (the ESM2-650M main path and its throughput), bench_serving
+    (cell e), bench_train (cell f), then run_benches."""
+    import torch
+    service = synthetic_service(dev)
+    results = {"retrieval_cli_flash_launches": phase_retrieval_cli(
+        dev, service)}
+    launches, cos_min, state = phase_main_path(dev)
+    rates, bench_cos = phase_throughput(dev, *state, profile=profile)
+    del state
+    torch.cuda.empty_cache()
+    results["bench_w8a8"] = dict(proteins_per_sec=rates,
+                                 cos_min_pooled_b64=bench_cos)
+    results["bench_serving"] = phase_serving(dev, service, profile)[1]
+    torch.cuda.empty_cache()
+    results["bench_train"] = phase_train(dev, service, profile)[1]
+    del service
+    torch.cuda.empty_cache()
+    results["launches"], more = run_benches(dev)
+    results.update(more)
+    return results
+
+
 def run_only(dev, names, profile):
     """The build and the named groups of phases alone, for a quick
     iteration on one kernel or one check: "flash" (the forward's cases),
@@ -7354,8 +7716,10 @@ def run_only(dev, names, profile):
     two BERTScore CLIs), "esm_train" (the live-encoder slice: the native
     data path, rows 3, 8 and 9 at ESM2-3B's shapes, the 2-layer check,
     LoRA phase training and the merged encoder served, on the synthetic
-    service), "dist" (path n, more than one rank: run_dist_group). Prints
-    their lines and no result line."""
+    service), "dist" (path n, more than one rank: run_dist_group),
+    "benches" (run_benches_group: the five bench scripts at full width, the
+    retrieval CLI, entry() and the trace table). Prints their lines and no
+    result line."""
     def mlp():
         rows = [phase_mlp(dev, m) for m in MLP_ROWS]
         prequant = phase_prequant_mlp(dev)
@@ -7385,6 +7749,7 @@ def run_only(dev, names, profile):
         "esm_train": lambda: run_esm_train_group(
             dev, synthetic_service(dev), profile)[2],
         "dist": lambda: run_dist_group(dev)[1],
+        "benches": lambda: run_benches_group(dev, profile),
     }
     for name in names:
         check(name in groups, f"--only: no group {name!r} (of "
@@ -7495,6 +7860,8 @@ def main():
     launches["flash_attention_fwd"] = retrieve_launches
     eval_launches, retrieval_eval = phase_retrieval_eval(dev, service)
     launches["flash_attention_fwd"] += eval_launches
+    cli_launches = phase_retrieval_cli(dev, service)
+    launches["flash_attention_fwd"] += cli_launches
     caption_launches, caption = phase_caption(dev, service, profile)
     launches.update(caption_launches)
     torch.cuda.empty_cache()
@@ -7525,6 +7892,11 @@ def main():
             k["esm2_3b_serving"] = {f: esm_entries[k["name"]][f]
                                     for f in keep}
     del service
+    torch.cuda.empty_cache()
+    bench_launches, benches = run_benches(dev)
+    for key in ("flash_attention_fwd", "paged_attention", "page_move",
+                "int4_matmul"):
+        launches[key] += bench_launches[key]
     torch.cuda.empty_cache()
     spec = phase_speculative(dev)
     phase_train_cli(dev)
@@ -7649,6 +8021,15 @@ def main():
                  "bench_bind and bench_retrieval B16 x L256",
         "fused_rms_swiglu_int8_launches": launches["fused_rms_swiglu_int8"],
         **w8a8, "qa_eval_card": qa_metrics}}))
+    print(json.dumps({"main_path": {
+        "model": "the bench scripts at full width: bench_decode --paged "
+                 "(dim 4096, 32 layers, B16 x L512; bf16, int4), "
+                 "bench_caption (Llama-3-8B int4, paged, B4 x beam 10, "
+                 "cascade and flat), the retrieval CLI on the /retrieve "
+                 "service, entry() (bench_w8a8, bench_serving and "
+                 "bench_train run in the ESM2, serving and training lines)",
+        "card": smi, "launches": bench_launches,
+        "retrieval_cli_flash_launches": cli_launches, **benches}}))
     print(json.dumps({"main_path": {
         "model": "more than one rank: TP 2 serving at Llama-3-8B width (32 "
                  "layers, 16 requests behind a 256-token prefix, 32 new "

@@ -9,6 +9,7 @@ MODULES = [
     "procyon_tpu_torch",
     "procyon_tpu_torch.bridge",
     "procyon_tpu_torch.config",
+    "procyon_tpu_torch.entry",
     "procyon_tpu_torch.native",
     "procyon_tpu_torch.ops._build",
     "procyon_tpu_torch.ops.activations",
@@ -35,6 +36,8 @@ MODULES = [
     "procyon_tpu_torch.models.unified",
     "procyon_tpu_torch.data.collators",
     "procyon_tpu_torch.data.data_config",
+    "procyon_tpu_torch.data.context",
+    "procyon_tpu_torch.data.dataset_tracker",
     "procyon_tpu_torch.data.datasets",
     "procyon_tpu_torch.data.instruct",
     "procyon_tpu_torch.data.mixing",
@@ -72,14 +75,21 @@ MODULES = [
     "procyon_tpu_torch.app.main",
     "procyon_tpu_torch.app.server",
     "procyon_tpu_torch.scripts.bench_bind",
+    "procyon_tpu_torch.scripts.bench_caption",
+    "procyon_tpu_torch.scripts.bench_decode",
     "procyon_tpu_torch.scripts.bench_prefill",
     "procyon_tpu_torch.scripts.bench_retrieval",
+    "procyon_tpu_torch.scripts.bench_serving",
+    "procyon_tpu_torch.scripts.bench_train",
+    "procyon_tpu_torch.scripts.bench_w8a8",
     "procyon_tpu_torch.scripts.caption_bulk",
     "procyon_tpu_torch.scripts.compute_bertscore_baseline",
     "procyon_tpu_torch.scripts.dryrun_multichip",
     "procyon_tpu_torch.scripts.llm_judge_pipeline",
     "procyon_tpu_torch.scripts.probe_fused_decode",
     "procyon_tpu_torch.scripts.probe_fused_mlp_blocks",
+    "procyon_tpu_torch.scripts.probe_trace_window",
+    "procyon_tpu_torch.scripts.protein_retrieval_disease_pheno",
     "procyon_tpu_torch.scripts.qa_filter_captions",
     "procyon_tpu_torch.scripts.run_eval_framework",
     "procyon_tpu_torch.scripts.run_pretrain",
@@ -91,7 +101,10 @@ MODULES = [
     "procyon_tpu_torch.training.prefetch",
     "procyon_tpu_torch.training.train_step",
     "procyon_tpu_torch.training.trainer",
+    "procyon_tpu_torch.utils.baselines",
+    "procyon_tpu_torch.utils.profiling",
     "procyon_tpu_torch.utils.timing",
+    "procyon_tpu_torch.utils.trace",
 ]
 
 
