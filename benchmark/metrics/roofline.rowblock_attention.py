@@ -1,0 +1,33 @@
+"""Share of its roofline of the packed row-block attention kernel
+(csrc/rowblock_attention.cu) in the traced calls of an index cell.
+
+One launch a layer a call, over the call's rows [R, S] of the fused
+[R, S, 3 * H * D] projection. The least time at the H100's peaks for the
+work these inputs need: QK^T and PV over keys up to each row's own length
+(4 * H * D * n^2 operations a row of n tokens, bf16), the q / k / v of the
+rows' tokens read once, the whole output written once, the segment ids and
+the two rotary tables read once.
+"""
+
+from benchmark.harness import peaks
+from benchmark.models.esm2 import dims
+
+KERNELS = {"rowblock_attention": ("rowblock_attention_kernel",)}
+
+
+def least_time(rows, width, m):
+    HD = m["heads"] * m["head_dim"]
+    tokens = sum(rows)
+    flops = 4 * HD * sum(n * n for n in rows)
+    n_bytes = (tokens * 3 * HD * 2 + len(rows) * width * HD * 2
+               + len(rows) * width * 4 + 2 * width * HD * 2)
+    return peaks.least_time([(flops, peaks.BF16_FLOPS)], n_bytes)
+
+
+def read(ctx):
+    seconds, n = ctx.table.matching(KERNELS["rowblock_attention"])
+    if not n:
+        return None
+    m = dims(ctx.cell.config)
+    bound = sum(least_time(r["rows"], r["width"], m) for r in ctx.traced)
+    return 100.0 * bound * m["layers"] / seconds
