@@ -55,6 +55,7 @@ from procyon_tpu_torch.ops.norms import layer_norm
 from procyon_tpu_torch.ops.rotary import flat_rotary_tables
 from procyon_tpu_torch.parallel import collectives as coll
 from procyon_tpu_torch.parallel.sharding import split_group
+from procyon_tpu_torch.utils import profiling
 
 PAD_IDX = 1
 MASK_IDX = 32
@@ -406,10 +407,11 @@ def forward(params, cfg: ESM2Config, tokens: torch.Tensor, *,
     attn0 = params["layers"]["attn"]
     n_heads = cfg.n_heads if "wqkv" in attn0 else cfg.n_heads // coll.size(
         split_group(attn0["wq"], cfg.n_heads * cfg.head_dim, mesh))
-    cos_f, sin_f, _ = flat_rotary_tables(cfg.head_dim, n_heads,
-                                         cfg.max_seq_len)
-    rot = (cos_f[:S].to(device=x.device, dtype=cfg.dtype),
-           sin_f[:S].to(device=x.device, dtype=cfg.dtype))
+    with profiling.span("esm2.rotary"):
+        cos_f, sin_f, _ = flat_rotary_tables(cfg.head_dim, n_heads,
+                                             cfg.max_seq_len)
+        rot = (cos_f[:S].to(device=x.device, dtype=cfg.dtype),
+               sin_f[:S].to(device=x.device, dtype=cfg.dtype))
 
     layers = params["layers"]
     for i in range(cfg.n_layers):

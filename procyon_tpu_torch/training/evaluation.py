@@ -19,12 +19,13 @@ import numpy as np
 import torch
 
 from procyon_tpu_torch.bridge import tree_leaves
-from procyon_tpu_torch.data.protein_tokenizer import (batch_encode,
+from procyon_tpu_torch.data.protein_tokenizer import (PAD_IDX, batch_encode,
                                                       bucket_protein_batch)
 from procyon_tpu_torch.evaluate.metrics import per_query_auroc_auprc
 from procyon_tpu_torch.models import unified
 from procyon_tpu_torch.training import train_step as ts
 from procyon_tpu_torch.training.prefetch import ready
+from procyon_tpu_torch.utils import profiling
 
 
 def _params_device(params, device) -> torch.device:
@@ -48,22 +49,33 @@ def all_protein_target_embeddings(params, cfg: unified.UnifiedConfig,
     embed = unified.protein_embed_fn(cfg) if cfg.esm is not None else None
     for i in range(0, len(protein_ids), batch):
         chunk = protein_ids[i:i + batch]
-        if cfg.esm is not None:
-            # the JAX package pins the width and buckets the rows so that
-            # its jitted sweep compiles once; the same shapes here give the
-            # same embeddings
-            pb = bucket_protein_batch(
-                batch_encode([store.protein_sequence(a) for a in chunk],
-                             max_len=max_protein_len),
-                width=max_protein_len + 2)
-            emb = embed(params, *(torch.from_numpy(x).to(device) for x in (
-                pb.tokens, pb.group_ids, pb.row_valid)),
-                pb.tokens.shape[0])[:pb.num_groups]
-        else:
-            raw = np.stack([store.protein_embedding(a) for a in chunk])
-            emb = unified.target_protein_embeddings(
-                params, cfg, torch.from_numpy(raw).to(device))
-        out.append(emb.float().cpu().numpy())
+        with profiling.span("index.call"):
+            if cfg.esm is not None:
+                # the JAX package pins the width and buckets the rows so
+                # that its jitted sweep compiles once; the same shapes here
+                # give the same embeddings
+                with profiling.span("index.tokenize"):
+                    pb = bucket_protein_batch(
+                        batch_encode([store.protein_sequence(a)
+                                      for a in chunk],
+                                     max_len=max_protein_len),
+                        width=max_protein_len + 2)
+                    # every token the encoder runs, the empty filler rows'
+                    # included, and those that are not padding
+                    profiling.count("index.tokens", pb.tokens.size)
+                    profiling.count("index.tokens_real", np.count_nonzero(
+                        (pb.tokens != PAD_IDX) & (pb.row_valid[:, None] > 0)))
+                with profiling.span("index.to_device"):
+                    inputs = [torch.from_numpy(x).to(device) for x in (
+                        pb.tokens, pb.group_ids, pb.row_valid)]
+                emb = embed(params, *inputs,
+                            pb.tokens.shape[0])[:pb.num_groups]
+            else:
+                raw = np.stack([store.protein_embedding(a) for a in chunk])
+                emb = unified.target_protein_embeddings(
+                    params, cfg, torch.from_numpy(raw).to(device))
+            with profiling.span("index.to_host"):
+                out.append(emb.float().cpu().numpy())
     return np.concatenate(out, 0)
 
 

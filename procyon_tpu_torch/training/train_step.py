@@ -42,6 +42,7 @@ from procyon_tpu_torch.models import esm2, unified
 from procyon_tpu_torch.parallel import collectives as coll
 from procyon_tpu_torch.parallel import sharding as shd
 from procyon_tpu_torch.training import optimizer as opt_mod
+from procyon_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,12 +243,16 @@ def value_and_grad(optimizer, state, frozen_base, loss_of):
         for t in leaves:
             t.requires_grad_(True)
         try:
-            full = merge_params(params, frozen) if frozen_base else params
-            loss, metrics = loss_of(full)
+            with profiling.span("train.forward"):
+                full = merge_params(params, frozen) if frozen_base \
+                    else params
+                loss, metrics = loss_of(full)
             # a loss that reaches no trained leaf (an MLM phase whose
             # expert lies past the encoder's bank) has zero gradients
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True) \
-                if loss.requires_grad else [None] * len(leaves)
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves,
+                                            allow_unused=True) \
+                    if loss.requires_grad else [None] * len(leaves)
         finally:
             for t in leaves:
                 t.requires_grad_(False)
@@ -312,32 +317,35 @@ def make_train_step(cfg: unified.UnifiedConfig, optimizer, task: str,
 
     if accumulation_steps <= 1:
         def step(state, batch):
-            loss, metrics, items, grads = run(state, batch)
-            _apply_updates(state, optimizer, items, grads)
-            metrics = dict(metrics)
-            metrics["loss"] = loss
-            metrics["grad_norm"] = grad_norm(state, items, grads)
-            return state, metrics
+            with profiling.span("train.step"):
+                loss, metrics, items, grads = run(state, batch)
+                with profiling.span("train.optimizer"):
+                    _apply_updates(state, optimizer, items, grads)
+                    norm = grad_norm(state, items, grads)
+            return state, dict(metrics, loss=loss, grad_norm=norm)
         return step
 
     def step(state, batches):
-        acc = None
-        losses: List[torch.Tensor] = []
-        mstack: Dict[str, list] = {}
-        for i in range(accumulation_steps):
-            loss, metrics, items, grads = run(state, _micro(batches, i))
-            acc = [g.float() for g in grads] if acc is None else \
-                [a + g.float() for a, g in zip(acc, grads)]
-            losses.append(loss)
-            for k, v in metrics.items():
-                mstack.setdefault(k, []).append(v)
-        grads = [(a / accumulation_steps).to(t.dtype)
-                 for a, (_, t) in zip(acc, items)]
-        _apply_updates(state, optimizer, items, grads)
-        metrics = {k: torch.stack([torch.as_tensor(x) for x in v]).float()
-                   .mean() for k, v in mstack.items()}
-        metrics["loss"] = torch.stack(losses).float().mean()
-        metrics["grad_norm"] = grad_norm(state, items, grads)
+        with profiling.span("train.step"):
+            acc = None
+            losses: List[torch.Tensor] = []
+            mstack: Dict[str, list] = {}
+            for i in range(accumulation_steps):
+                loss, metrics, items, grads = run(state, _micro(batches, i))
+                acc = [g.float() for g in grads] if acc is None else \
+                    [a + g.float() for a, g in zip(acc, grads)]
+                losses.append(loss)
+                for k, v in metrics.items():
+                    mstack.setdefault(k, []).append(v)
+            grads = [(a / accumulation_steps).to(t.dtype)
+                     for a, (_, t) in zip(acc, items)]
+            with profiling.span("train.optimizer"):
+                _apply_updates(state, optimizer, items, grads)
+                norm = grad_norm(state, items, grads)
+            metrics = {k: torch.stack([torch.as_tensor(x) for x in v])
+                       .float().mean() for k, v in mstack.items()}
+            metrics["loss"] = torch.stack(losses).float().mean()
+            metrics["grad_norm"] = norm
         return state, metrics
 
     return step
@@ -369,23 +377,24 @@ def batch_to_device(batch, device, *, non_blocking: bool = False):
     reference_indices (host bookkeeping) is dropped; numpy scalars stay
     host values; "max_position", the largest of the batch's positions, is
     added as a host int so the step need not read it from the device."""
-    out = {}
-    for k, v in batch.items():
-        if k == "reference_indices":
-            continue
-        if isinstance(v, np.ndarray) and v.ndim > 0:
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if non_blocking and torch.device(device).type == "cuda":
-                t = t.pin_memory()
-            out[k] = t.to(device, non_blocking=non_blocking)
-        elif isinstance(v, torch.Tensor):
-            out[k] = v.to(device, non_blocking=non_blocking)
-        else:
-            out[k] = v.item() if isinstance(v, np.generic) else v
-    positions = batch.get("positions")
-    if "max_position" not in out and isinstance(positions, np.ndarray) \
-            and positions.size:
-        out["max_position"] = int(positions.max())
+    with profiling.span("train.to_device"):
+        out = {}
+        for k, v in batch.items():
+            if k == "reference_indices":
+                continue
+            if isinstance(v, np.ndarray) and v.ndim > 0:
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if non_blocking and torch.device(device).type == "cuda":
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=non_blocking)
+            elif isinstance(v, torch.Tensor):
+                out[k] = v.to(device, non_blocking=non_blocking)
+            else:
+                out[k] = v.item() if isinstance(v, np.generic) else v
+        positions = batch.get("positions")
+        if "max_position" not in out and isinstance(positions, np.ndarray) \
+                and positions.size:
+            out["max_position"] = int(positions.max())
     return out
 
 

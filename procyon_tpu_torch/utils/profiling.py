@@ -7,17 +7,19 @@ The reference has no tracing hooks (SURVEY.md §5: per-step wall time prints
     keeps every kernel of the block
   * trace(): the same, writing a chrome trace into a directory, which
     utils/trace.device_op_table reads
-  * StepTimer: rolling per-step wall time + steps/sec
+  * span(): a named range of the host timeline, recorded only while a
+    profiler records, so that a trace shows which phase of a call or step
+    the host was in beside the kernels it launched
+  * count() / counters(): host-side counts that are always kept (tokens a
+    call fed to the encoder, and how many of them were not padding)
   * device_memory_stats(): each card's memory in use and its size (the
     pynvml logging equivalent)
-  * log_compile_time(): the first call's time
 """
 
 import contextlib
 import os
 import time
-from collections import deque
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -79,28 +81,29 @@ def trace(log_dir: str):
         log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
-class StepTimer:
-    def __init__(self, window: int = 50):
-        self.times = deque(maxlen=window)
-        self._last: Optional[float] = None
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
 
-    def tick(self):
-        now = time.perf_counter()
-        if self._last is not None:
-            self.times.append(now - self._last)
-        self._last = now
 
-    @property
-    def steps_per_sec(self) -> float:
-        if not self.times:
-            return 0.0
-        return len(self.times) / sum(self.times)
+def span(name: str):
+    """A `torch.profiler.record_function(name)` range while a profiler
+    records, else one shared null context: with no profiler the cost is a
+    flag check, where record_function would cost tens of microseconds. A
+    span reads nothing from the device and never synchronizes."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
-    @property
-    def mean_step_ms(self) -> float:
-        if not self.times:
-            return 0.0
-        return 1000.0 * sum(self.times) / len(self.times)
+
+def count(name: str, n: int = 1):
+    """Add the host value n to the counter `name` (kept for the process's
+    life, with or without a profiler)."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A copy of every counter's total."""
+    return dict(_COUNTS)
 
 
 def device_memory_stats() -> Dict[str, float]:
@@ -117,20 +120,4 @@ def device_memory_stats() -> Dict[str, float]:
             stats.get("allocated_bytes.all.current", 0) / 2 ** 30
         _, total = torch.cuda.mem_get_info(i)
         out[f"cuda:{i}/bytes_limit_gib"] = total / 2 ** 30
-    return out
-
-
-def log_compile_time(fn, *args, name: str = "fn", logger=None):
-    """Time the first call of fn, ended by a synchronize where a card is
-    present. The name is the reference's: there the first call compiled
-    the jitted program; here nothing is compiled ahead, but on the card a
-    first call also builds (nvcc) and loads every kernel it launches for
-    the first time."""
-    t0 = time.perf_counter()
-    out = fn(*args)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    msg = f"{name}: first call (kernel builds included) {dt:.1f}s"
-    (logger.info if logger else print)(msg)
     return out

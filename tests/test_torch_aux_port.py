@@ -3,13 +3,12 @@ utils/baselines (the same denominators and fields), data/context (the
 same context strings, and the port's collator with a port provider giving
 the JAX collator's input_ids), data/dataset_tracker (the same `sample`
 sequence from the same seed, the to_dict round trip), utils/profiling
-(StepTimer, device_memory_stats without a card, trace's chrome trace) and
+(device_memory_stats without a card, trace's chrome trace) and
 utils/trace (device_op_table on a chrome trace written here)."""
 
 import gzip
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -113,22 +112,11 @@ def test_tracker_round_trip_and_exhaustion():
     assert picks == {"a"}
 
 
-def test_step_timer_and_memory_stats():
-    t = profiling.StepTimer(window=10)
-    for _ in range(3):
-        t.tick()
-        time.sleep(0.01)
-    t.tick()
-    assert t.steps_per_sec > 0 and t.mean_step_ms >= 10
+def test_device_memory_stats():
     stats = profiling.device_memory_stats()
     assert isinstance(stats, dict)
     if not torch.cuda.is_available():
         assert stats == {}
-
-
-def test_log_compile_time_returns_the_result(capsys):
-    out = profiling.log_compile_time(lambda a, b: a + b, 2, 3, name="add")
-    assert out == 5 and "add: first call" in capsys.readouterr().out
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
