@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--profile]
         [--only=flash,flash_bwd,flash_fit,w8a8,mlp,int4,paged,times,
-                swiglu,decode,serving,eval,bert,esm_train,dist,benches]
+                swiglu,gelu,decode,serving,eval,bert,esm_train,dist,
+                benches]
 
 Builds the port's CUDA kernels from procyon_tpu_torch/csrc (one nvcc per
 source, all started together), then:
@@ -239,7 +240,8 @@ source, all started together), then:
      retrieval on 1, mlm on 2 (8 proteins x 1024 residues from the
      store), the joint step on 3; 2 warm and 4 timed global steps, ms a
      phase, the MLM step's tokens/s and MFU, peak memory, launches of
-     rows 3, 8 and 9 a phase (two forwards a layer under remat); then the
+     rows 3, 8 and 9 and of the GELU pair a phase (two forwards a layer
+     under remat); then the
      trained encoder merged, quantized and fused, one W8A8 batch of B16 x
      S1024 (rows 1 and 4) against the merged bf16 encoder;
  28. more than one rank (path n), after the W8A8 group: row 10 at a TP 2
@@ -276,6 +278,13 @@ source, all started together), then:
      3, 10, 12 and 13 (LaunchShapes), and each kernel is then held against
      its plain version at each of those shapes on seeded random values
      (the path's own segments, positions, page tables and move lists).
+ 30. the bias add + erf-GELU pair of ESM2's unfused MLP (csrc/gelu_erf.cu;
+     after row 7, its numbers in the kernels line): at ESM2-3B's index
+     call (GELU_SHAPE, bf16 with bias) the forward against the plain chain
+     and the backward, through GeluErf, against torch.autograd of the plain
+     chain, one launch each, times beside the plain chain's and F.gelu's
+     and the bound; the launches in the kernels line are 27's, the LoRA
+     phase training with ESM2-3B.
 
 Each kernel's least possible time (`bound_ms`) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -496,6 +505,19 @@ SWIGLU_SHAPES = ((4096, 4096, 11008), (4096, 4096, 14336))
 SWIGLU_STEPS = 16.0
 SWIGLU_OFF_ULP = 1e-2
 SWIGLU_ROW_TILE = 128      # rows of a tile of the up and down kernels
+# the bias add + erf-GELU pair (csrc/gelu_erf.cu) at ESM2-3B's index call:
+# 128 rows of 1,026 (112 proteins bucketed) x the MLP's 10,240, bf16 with
+# bias; the forward within one bf16 ulp of the plain chain and at least
+# GELU_SAME of the elements the same bits, the backward within one ulp plus
+# 2^-20 |g| of autograd of the plain chain (the analytic derivative and the
+# chain round otherwise where its two terms cancel) and at least
+# GELU_SAME_BWD the same bits, as tests/test_torch_cuda_kernels.py holds
+# them; the chain's autograd keeps about 13 f32 copies of its input, so the
+# backward is held to it GELU_BWD_PARTS row blocks at a time
+GELU_SHAPE = dict(M=128 * 1026, F=10240)
+GELU_SAME = 0.999
+GELU_SAME_BWD = 0.99
+GELU_BWD_PARTS = 4
 # the W8A8 prefill path (bench_bind / bench_retrieval / bench_prefill at
 # the reference's defaults): a 2-layer copy on the card (bf16) against the
 # CPU (f32), both W8A8. bf16 rounding of an activation flips its int8 code
@@ -759,7 +781,7 @@ def phase_build():
     names = ("rowblock_attention", "fused_ln_mlp_int8", "flash_attention_fwd",
              "page_move", "paged_attention", "int4_matmul",
              "flash_attention_bwd", "fused_decode_mlp",
-             "fused_rms_swiglu_int8")
+             "fused_rms_swiglu_int8", "gelu_erf")
     t0 = time.perf_counter()
     errors = {}
 
@@ -4422,6 +4444,126 @@ def swiglu_case(dev, M, d, H, seed):
                 in_out_ms=copy_ms)
 
 
+def bf16_ulp(ref):
+    """One bf16 ulp at each reference value's magnitude (at least the
+    smallest normal's)."""
+    import torch
+    mag = ref.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def phase_gelu_erf(dev):
+    """The bias add + erf-GELU forward and backward kernels at ESM2-3B's
+    index call (GELU_SHAPE, bf16, 3 N(0, 1) rows so the clamp is active on
+    5% of them): one launch each; the forward against the plain chain
+    (gelu_erf_ref of x + b), the backward (through GeluErf, as autograd
+    runs it) against torch.autograd of the plain chain, each within the
+    tolerances of GELU_SHAPE's comment. Times by CUDA events: the forward
+    in turns with the plain chain, the library's F.gelu(x + b)
+    (approximate="none", its own erf) beside it; the backward alone (a
+    retained graph's grad), the plain chain's backward summed over its row
+    blocks, and F.gelu's backward. Bounds: 4 bytes an element forward, 6
+    backward, and the bias. Returns the two kernels' entries."""
+    import torch
+    import torch.nn.functional as F
+    from procyon_tpu_torch.ops import activations as act
+    M, Fw = GELU_SHAPE["M"], GELU_SHAPE["F"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    x = (3 * torch.randn((M, Fw), generator=g, device=dev)).to(torch.bfloat16)
+    b = (0.5 * torch.randn((Fw,), generator=g, device=dev)).to(torch.bfloat16)
+    gout = torch.randn((M, Fw), generator=g, device=dev).to(torch.bfloat16)
+    shape = (f"M{M} F{Fw} bf16 + bias (ESM2-3B's MLP over an index call of "
+             "128 x 1,026 rows)")
+
+    before = (act.launches, act.launches_bwd)
+    out = act.gelu_erf_fast(x, b)
+    torch.cuda.synchronize()
+    check((act.launches, act.launches_bwd) == (before[0] + 1, before[1]),
+          "gelu_erf: not one forward launch a call")
+    ref = act.gelu_erf_ref(x + b)
+    diff = (out.float() - ref.float()).abs()
+    ulp = bf16_ulp(ref)
+    worst_ulp = (diff / ulp).max().item()
+    max_err = diff.max().item()
+    same = (out == ref).sum().item() / out.numel()
+    del diff, ulp
+    check(worst_ulp <= 1 and same >= GELU_SAME,
+          f"gelu_erf forward: {worst_ulp} bf16 ulps off the plain chain at "
+          f"worst, {same:.6f} of the elements the same bits")
+    again = act.gelu_erf_fast(x, b)
+    check(torch.equal(out, again), "gelu_erf: two launches differ")
+    del again, ref
+    torch.cuda.empty_cache()
+    ms, plain_ms = paired_ms(lambda: act.gelu_erf_fast(x, b),
+                             lambda: act.gelu_erf_ref(x + b))
+    library_ms = cuda_ms(lambda: F.gelu(x + b))
+    bound_ms, bound_by = bound(nbytes(x, b, out), 0, PEAK_BF16)
+    del out
+    torch.cuda.empty_cache()
+
+    xk = x.clone().requires_grad_(True)
+    yk = act.gelu_erf_fast(xk, b)
+    before = (act.launches, act.launches_bwd)
+    (dx,) = torch.autograd.grad(yk, xk, gout, retain_graph=True)
+    torch.cuda.synchronize()
+    check((act.launches, act.launches_bwd) == (before[0], before[1] + 1),
+          "gelu_erf: not one backward launch a call")
+    part = M // GELU_BWD_PARTS
+    worst, same_bwd, max_err_bwd, plain_bwd_ms = -math.inf, 0.0, 0.0, 0.0
+    for i in range(GELU_BWD_PARTS):
+        rows = slice(i * part, M if i == GELU_BWD_PARTS - 1
+                     else (i + 1) * part)
+        xr = x[rows].clone().requires_grad_(True)
+        yr = act.gelu_erf_ref(xr + b)
+        (want,) = torch.autograd.grad(yr, xr, gout[rows], retain_graph=True)
+        d = (dx[rows].float() - want.float()).abs()
+        tol = bf16_ulp(want) + 2.0 ** -20 * gout[rows].float().abs()
+        worst = max(worst, (d - tol).max().item())
+        max_err_bwd = max(max_err_bwd, d.max().item())
+        same_bwd += (dx[rows] == want).sum().item()
+        del d, tol, want
+        plain_bwd_ms += cuda_ms(lambda: torch.autograd.grad(
+            yr, xr, gout[rows], retain_graph=True), iters=3, warmup=1)
+        del xr, yr
+        torch.cuda.empty_cache()
+    same_bwd /= M * Fw
+    check(worst <= 0 and same_bwd >= GELU_SAME_BWD,
+          f"gelu_erf backward: {worst} past one bf16 ulp + 2^-20 |g| of "
+          f"autograd of the plain chain at worst, {same_bwd:.6f} of the "
+          "elements the same bits")
+    ms_bwd = cuda_ms(lambda: torch.autograd.grad(yk, xk, gout,
+                                                 retain_graph=True))
+    bound_bwd_ms, bound_bwd_by = bound(nbytes(gout, x, b, dx), 0, PEAK_BF16)
+    del xk, yk, dx
+    torch.cuda.empty_cache()
+    xl = x.clone().requires_grad_(True)
+    yl = F.gelu(xl + b)
+    library_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        yl, xl, gout, retain_graph=True))
+    del xl, yl, x, gout
+    torch.cuda.empty_cache()
+    print(f"bias add + erf-GELU {shape}: forward {worst_ulp:.2f} bf16 ulp "
+          f"at worst, {same:.6f} the plain chain's bits (tol 1 ulp, "
+          f"{GELU_SAME}); kernel {ms:.4f} ms, plain chain {plain_ms:.4f} ms, "
+          f"F.gelu(x + b) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}; backward {same_bwd:.6f} autograd's bits (tol 1 ulp "
+          f"+ 2^-20 |g|, {GELU_SAME_BWD}); kernel {ms_bwd:.4f} ms, plain "
+          f"chain's backward {plain_bwd_ms:.4f} ms ({GELU_BWD_PARTS} row "
+          f"blocks), F.gelu's {library_bwd_ms:.4f} ms, bound "
+          f"{bound_bwd_ms:.4f} ms by {bound_bwd_by}")
+    common = dict(route="cuda", source="procyon_tpu_torch/csrc/gelu_erf.cu",
+                  replaces="none (procyon_tpu/ops/activations.py:33, "
+                           "plain jnp that XLA fuses)", shape=shape)
+    return [dict(name="gelu_erf", **common, max_abs_err=max_err,
+                 max_ulp=worst_ulp, same_bits=same, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=library_ms),
+            dict(name="gelu_erf_bwd", **common, max_abs_err=max_err_bwd,
+                 same_bits=same_bwd, ms=ms_bwd, plain_ms=plain_bwd_ms,
+                 bound_ms=bound_bwd_ms, bound_by=bound_bwd_by,
+                 library_ms=library_bwd_ms)]
+
+
 def phase_swiglu(dev):
     """Kernel row 7 at the Bind prefill's MLP and at Llama-3-8B's; the
     kernels line carries the first (the shape of the path it runs on)."""
@@ -5949,7 +6091,9 @@ def phase_esm_train(dev, service, store, profile=False):
     proteins x 1024 residues from the FASTA store, masked natively), then
     the joint step on 3 over all three. 2 warm and 4 timed global steps;
     ms a phase and a global step, the MLM step's tokens/s and MFU, peak
-    memory, launches of rows 3, 8 and 9 a phase. Returns (launches, the
+    memory, launches of rows 3, 8 and 9 and of the GELU pair (csrc/
+    gelu_erf.cu, at least one a layer of each ESM2 pass) a phase, their
+    counts set to 0 before the steps. Returns (launches, the
     trained encoder's tree and config, results)."""
     import tempfile
 
@@ -5957,6 +6101,7 @@ def phase_esm_train(dev, service, store, profile=False):
     from procyon_tpu_torch import config as tconfig
     from procyon_tpu_torch.data import data_config
     from procyon_tpu_torch.models import esm2
+    from procyon_tpu_torch.ops import activations as act
     from procyon_tpu_torch.ops import flash_attention as fa
     from procyon_tpu_torch.scripts import bench_train
     from procyon_tpu_torch.training import optimizer as topt
@@ -6023,9 +6168,11 @@ def phase_esm_train(dev, service, store, profile=False):
         "joint": 2 * (2 * lcfg.n_layers + 3 * ecfg.n_layers)}
     counts = ("launches", "launches_bwd_dq", "launches_bwd_dkv")
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
+    act.launches = act.launches_bwd = 0
+    esm_passes = {"qa": 1, "retrieval": 1, "mlm": 1, "joint": 3}
     torch.cuda.reset_peak_memory_stats(dev)
     times = {k: [] for k in ("qa", "retrieval", "mlm", "joint", "global")}
-    per, first, last = {}, {}, {}
+    per, gelu_per, first, last = {}, {}, {}, {}
     for step in range(n_steps):
         batches = {"qa": qa, "retrieval": qa, "mlm": mlm[2 * step]}
         joint_batches = {"qa": qa, "retrieval": qa, "mlm": mlm[2 * step + 1]}
@@ -6033,6 +6180,7 @@ def phase_esm_train(dev, service, store, profile=False):
         g0 = time.perf_counter()
         for phase in ("qa", "retrieval", "mlm", "joint"):
             before = [getattr(fa, c) for c in counts]
+            gelu_before = (act.launches, act.launches_bwd)
             p0 = time.perf_counter()
             if phase == "joint":
                 trainer.state, m = trainer.joint_step(trainer.state,
@@ -6043,6 +6191,8 @@ def phase_esm_train(dev, service, store, profile=False):
             loss = float(m["loss"])
             ms = (time.perf_counter() - p0) * 1e3
             per[phase] = [getattr(fa, c) - b for c, b in zip(counts, before)]
+            gelu_per[phase] = [act.launches - gelu_before[0],
+                               act.launches_bwd - gelu_before[1]]
             check(math.isfinite(loss), f"{phase} loss {loss}")
             first.setdefault(phase, loss)
             last[phase] = loss
@@ -6056,9 +6206,16 @@ def phase_esm_train(dev, service, store, profile=False):
               f"{phase} phase: launches of rows 3, 8, 9 {per[phase]}, "
               f"expected {[n, n // 2, n // 2]} (remat: two forwards a "
               "layer)")
+        layers = esm_passes[phase] * ecfg.n_layers
+        check(gelu_per[phase][0] >= 2 * layers
+              and gelu_per[phase][1] >= layers,
+              f"{phase} phase: launches of the GELU pair {gelu_per[phase]}, "
+              f"expected at least {[2 * layers, layers]} (one a layer of "
+              "the encoder's MLP, two forwards a layer under remat)")
     launches = {"flash_attention_fwd": fa.launches,
                 "flash_attention_bwd_dq": fa.launches_bwd_dq,
-                "flash_attention_bwd_dkv": fa.launches_bwd_dkv}
+                "flash_attention_bwd_dkv": fa.launches_bwd_dkv,
+                "gelu_erf": act.launches, "gelu_erf_bwd": act.launches_bwd}
     mean = {k: sum(v) / len(v) for k, v in times.items()}
     S = sum(int(b["protein_tokens"].shape[1]) for b in mlm) / len(mlm)
     tokens = t["mlm_batch"] * S
@@ -6075,6 +6232,8 @@ def phase_esm_train(dev, service, store, profile=False):
         mlm_flop_per_token=fpt, peak_gib=peak,
         launches_per_phase={k: dict(zip(("fwd", "dq", "dkv"), v))
                             for k, v in per.items()},
+        gelu_launches_per_phase={k: dict(zip(("fwd", "bwd"), v))
+                                 for k, v in gelu_per.items()},
         first_loss=first, last_loss=last)
     print(f"  a global step (host clock, mean of {t['timed']}): "
           + ", ".join(f"{k} {mean[k]:.1f}" for k in ("qa", "retrieval",
@@ -6084,7 +6243,8 @@ def phase_esm_train(dev, service, store, profile=False):
           f"{mean['mlm']:.1f} ms: {results['mlm_tokens_per_sec']:.0f} "
           f"tokens/s, MFU {mfu:.1%} ({fpt * tokens:.3e} FLOP at "
           f"{PEAK_BF16:.3g}); peak memory {peak:.1f} GiB (the service's "
-          f"bf16 weights included); launches a phase (fwd, dq, dkv) {per}")
+          f"bf16 weights included); launches a phase (fwd, dq, dkv) {per}; "
+          f"of the GELU pair (fwd, bwd) {gelu_per}")
     print(f"  losses first {first}, last {last}")
     if profile:
         results["mlm_profile"] = profile_once(
@@ -6330,7 +6490,8 @@ def run_esm_train_group(dev, service, profile=False):
     """The live-encoder slice: E (the native data path, whose store the
     rest reads), C (rows 3, 8, 9 at ESM2's shapes; not counted), D (the
     2-layer card-against-CPU check and its planted faults), then A with
-    the counts of rows 3, 8 and 9 set to 0 before it and read after it,
+    the counts of rows 3, 8 and 9 and of the GELU pair set to 0 before it
+    and read after it,
     and B with rows 1 and 4's. Returns (launches, the kernel entries at
     ESM2's shapes, results)."""
     import tempfile
@@ -7705,7 +7866,8 @@ def run_only(dev, names, profile):
     batch, bf16 and int8, and the dead-chunk case), "times" (rows 5, 11,
     12, 13, 10, 7 and 14 timed alone, see phase_times), "swiglu" (row 7 at both
     SWIGLU_SHAPES: checks, planted faults, times and each launch's device
-    time), "decode" (row 14 at 8 and 16 rows and the probe chains),
+    time), "gelu" (the bias add + erf-GELU pair at GELU_SHAPE), "decode"
+    (row 14 at 8 and 16 rows and the probe chains),
     "serving" (phase_serving on the synthetic service, with --profile a
     decode round traced), "eval" (the evaluation slice: the 2-layer
     retrieval eval check, run_eval_framework on the card and the CPU, the
@@ -7741,6 +7903,7 @@ def run_only(dev, names, profile):
         "paged": lambda: phase_paged(dev),
         "times": lambda: phase_times(dev),
         "swiglu": lambda: phase_swiglu(dev),
+        "gelu": lambda: phase_gelu_erf(dev),
         "decode": lambda: [phase_fused_decode(dev), phase_probes(dev)[1]],
         "serving": lambda: phase_serving(dev, synthetic_service(dev),
                                          profile)[1],
@@ -7822,6 +7985,7 @@ def main():
     probe_launches, decode_probe, blocks_probe = phase_probes(dev)
     swiglu = phase_swiglu(dev)
     torch.cuda.empty_cache()
+    gelu = phase_gelu_erf(dev)
     kernels.append(staged)
     kernels.append(dict(
         name="fused_decode_mlp", route="cuda",
@@ -7840,6 +8004,7 @@ def main():
         bf16_route_us={M: decode_probe[M]["bf16_us"] for M in DECODE_ROWS},
         kernel_us={M: decode_probe[M]["kernel_us"] for M in DECODE_ROWS}))
     kernels.append(swiglu)
+    kernels.extend(gelu)
     phase_small_reference(dev)
     launches, cos_min, state = phase_main_path(dev)
     rates, bench_cos = phase_throughput(dev, *state, profile=profile)
@@ -7878,7 +8043,7 @@ def main():
     esm_launches, esm_entries, esm_results = run_esm_train_group(
         dev, service, profile)
     for key, n in esm_launches.items():
-        launches[key] += n
+        launches[key] = launches.get(key, 0) + n
     keep = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     for name in ("esm2_training_shape", "esm2_prefix_shape"):

@@ -147,7 +147,7 @@ def _block(x, lp, seg_ids, cfg: BertConfig):
     x = layer_norm(x + attn @ a["wo"] + a["bo"], lp["attn_norm"]["w"],
                    lp["attn_norm"]["b"], eps=cfg.norm_eps)
     m = lp["mlp"]
-    h = gelu_erf_fast(x @ m["w1"] + m["b1"])
+    h = gelu_erf_fast(x @ m["w1"], m["b1"])
     return layer_norm(x + h @ m["w2"] + m["b2"], lp["mlp_norm"]["w"],
                       lp["mlp_norm"]["b"], eps=cfg.norm_eps)
 

@@ -278,7 +278,7 @@ def _adapter(y, lp, cfg: ESM2Config):
     a = lp.get("adapter")
     if not cfg.adapter_rank or a is None:
         return y
-    mid = gelu_erf_fast(y @ a["wd"] + a["bd"])
+    mid = gelu_erf_fast(y @ a["wd"], a["bd"])
     return y + (mid @ a["wu"] + a["bu"]).to(y.dtype)
 
 
@@ -309,12 +309,14 @@ def _mlp(x, lp, cfg: ESM2Config, lora_expert=0, mesh=None):
                    eps=cfg.norm_eps)
     h1 = _lora_col(lp, "w1", cfg, h,
                    quant.mm(coll.copy_to(h, g), lp["mlp"]["w1"], mode),
-                   lora_expert, g) + coll.split_to(lp["mlp"]["b1"], g)
+                   lora_expert, g)
+    b1 = coll.split_to(lp["mlp"]["b1"], g)
     if cfg.gelu_approx:
+        h1 = h1 + b1
         h = torch.nn.functional.gelu(h1.float(), approximate="tanh").to(
             h1.dtype)
     else:
-        h = gelu_erf_fast(h1)
+        h = gelu_erf_fast(h1, b1)
     x = x + _row(lp, "mlp", "w2", cfg, h, lora_expert, g) + lp["mlp"]["b2"]
     return _adapter(x, lp, cfg)
 
@@ -429,7 +431,7 @@ def forward(params, cfg: ESM2Config, tokens: torch.Tensor, *,
     out = {"hidden": x}
     if return_logits:
         lm = params["lm_head"]
-        h = gelu_erf_fast(x @ lm["dense_w"] + lm["dense_b"])
+        h = gelu_erf_fast(x @ lm["dense_w"], lm["dense_b"])
         h = layer_norm(h, lm["norm"]["w"], lm["norm"]["b"], eps=cfg.norm_eps)
         logits = h @ params["embed"].t().to(h.dtype)
         out["logits"] = logits.float() + lm["bias"]

@@ -6,9 +6,10 @@ def launch_counts() -> dict:
     """Each hand-written kernel's launch counter, by kernel name. A wrapper
     adds one where it launches its kernel and nowhere else; the plain
     versions count nothing."""
-    from procyon_tpu_torch.ops import (attention_rowblock, flash_attention,
-                                       fused_decode, fused_mlp, int4_matmul,
-                                       page_move, paged_attention)
+    from procyon_tpu_torch.ops import (activations, attention_rowblock,
+                                       flash_attention, fused_decode,
+                                       fused_mlp, int4_matmul, page_move,
+                                       paged_attention)
     return {"rowblock_attention": attention_rowblock.launches,
             "fused_ln_mlp_int8": fused_mlp.launches,
             "ln_quant_rows": fused_mlp.launches_ln_quant,
@@ -21,7 +22,9 @@ def launch_counts() -> dict:
             "page_move": page_move.launches,
             "page_move_staged": page_move.launches_staged,
             "int4_matmul": int4_matmul.launches,
-            "fused_decode_mlp": fused_decode.launches}
+            "fused_decode_mlp": fused_decode.launches,
+            "gelu_erf": activations.launches,
+            "gelu_erf_bwd": activations.launches_bwd}
 
 
 def launches_since(before: dict) -> dict:

@@ -41,7 +41,12 @@ ESM2-3B's training attention (H 40, D 64, S 1026, bidirectional,
 right-padded, and with a 16-key prefix) the flash forward and backward
 against their plain versions and through the autograd Function, and a
 2-layer ESM2 with MoLoRA banks, a prefix and the adapter under remat (two
-forward launches a layer) against the CPU in f32.
+forward launches a layer) against the CPU in f32; the bias add + erf-GELU
+forward at ESM2-3B's widths, an odd width, unaligned rows, bf16 and f32,
+with and without bias, within one bf16 ulp of the plain chain and 99.9%
+the same bits, the backward against autograd of the plain chain, under a
+non-reentrant checkpoint, its dispatch (fp16 refused, a strided view
+made contiguous), and one launch a call.
 
 Marked `cuda`: needs a CUDA device, and without one every test skips (the
 fixture decides, at run time). This file imports torch only (the machine
@@ -1569,3 +1574,166 @@ def test_batcher_with_int4_weights_on_the_card(cuda):
     assert outs[0] == outs[1]
     with pytest.raises(ValueError, match="device"):
         serving.ContinuousBatcher(params, cfg, pcfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Bias add + erf-GELU (csrc/gelu_erf.cu) against the plain chain
+# ---------------------------------------------------------------------------
+
+GELU_EDGE = 4.2 * 2 ** 0.5
+
+
+def _bf16_ulp(ref):
+    """One bf16 ulp at each reference value's magnitude (at least the
+    smallest normal's)."""
+    mag = ref.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _gelu_input(M, F, dtype, dev, seed):
+    """3 N(0, 1) rows (the clamp, |x| > 5.94, is active on 5% of them) with
+    zero, the clamp's edges and points beside them, and large values in
+    the first row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 3 * torch.randn((M, F), generator=g, device=dev)
+    special = torch.tensor([0.0, -0.0, GELU_EDGE, -GELU_EDGE,
+                            GELU_EDGE + 1e-3, -GELU_EDGE - 1e-3, 20.0, -20.0,
+                            -0.75, 1e-30], device=dev)
+    x[0, :special.numel()] = special[:F]
+    b = 0.5 * torch.randn((F,), generator=g, device=dev)
+    return x.to(dtype), b.to(dtype), g
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,F", [
+    (2052, 10240),   # ESM2-3B's MLP over two rows of 1,026
+    (4100, 2560),    # ESM2-3B's width (the MLM head's dense)
+    (333, 1001),     # an odd width: the element path
+    (64, 100),       # f32 vectors, bf16 elements
+])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_gelu_erf_forward_matches_plain(cuda, dtype, M, F, with_bias):
+    """One launch a call; every element within one bf16 ulp of the plain
+    chain and at least 99.9% of them the same bits (the same f32
+    operations in the same order, CUDA's tanhf on both sides)."""
+    from procyon_tpu_torch.ops import activations as act
+    x, b, _ = _gelu_input(M, F, dtype, cuda, M + F)
+    b = b if with_bias else None
+    before = (act.launches, act.launches_bwd)
+    out = act.gelu_erf_fast(x, b)
+    torch.cuda.synchronize()
+    assert (act.launches, act.launches_bwd) == (before[0] + 1, before[1])
+    ref = act.gelu_erf_ref(x if b is None else x + b)
+    assert out.dtype == dtype and out.shape == x.shape
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= _bf16_ulp(ref)).all()), float(
+        (diff / _bf16_ulp(ref)).max())
+    same = (out.float() == ref.float()).float().mean().item()
+    assert same >= 0.999, same
+
+
+def test_gelu_erf_unaligned_and_3d_rows(cuda):
+    """Rows that start 2 bytes off a 16-byte boundary take the element path;
+    a [B, S, F] tensor is its flat rows; both as the plain chain."""
+    from procyon_tpu_torch.ops import activations as act
+    x, b, _ = _gelu_input(64 * 2, 2560, torch.bfloat16, cuda, 5)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    buf[1:] = x.flatten()
+    xu = buf[1:].view(x.shape)
+    assert xu.is_contiguous() and xu.data_ptr() % 16
+    for inp in (xu, x.view(2, 64, 2560)):
+        out = act.gelu_erf_fast(inp, b)
+        ref = act.gelu_erf_ref(inp + b)
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= _bf16_ulp(ref)).all())
+        assert (out == ref).float().mean().item() >= 0.999
+
+
+def test_gelu_erf_dispatch_on_what_it_sees(cuda):
+    """fp16 rows raise TypeError; a strided view is made contiguous and goes
+    to the kernel, one launch, as the plain chain; a bias of another dtype
+    is added first, as torch adds it, and the sum goes to the kernel in
+    f32."""
+    from procyon_tpu_torch.ops import activations as act
+    x, b, _ = _gelu_input(256, 512, torch.bfloat16, cuda, 6)
+    before = act.launches
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        act.gelu_erf_fast(x.half(), b.half())
+    assert act.launches == before
+    view = x[:, ::2]
+    out = act.gelu_erf_fast(view)
+    assert act.launches == before + 1
+    ref = act.gelu_erf_ref(view)
+    assert bool(((out.float() - ref.float()).abs() <= _bf16_ulp(ref)).all())
+    assert (out == ref).float().mean().item() >= 0.999
+    out = act.gelu_erf_fast(x, b.float())
+    assert out.dtype == torch.float32 and act.launches == before + 2
+    ref = act.gelu_erf_ref(x + b.float())
+    assert bool(((out - ref).abs() <= _bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,F", [(2052, 10240), (333, 1001)])
+def test_gelu_erf_backward_matches_autograd(cuda, dtype, M, F):
+    """One backward launch; dx against torch.autograd of the plain chain
+    within one bf16 ulp plus 2^-20 |g| (the analytic derivative and the
+    chain's round differently in f32 where the derivative's two terms
+    cancel, near x = -0.75); the bias's gradient, the rows' sum, within the
+    sum of those differences and two ulps."""
+    from procyon_tpu_torch.ops import activations as act
+    x, b, g = _gelu_input(M, F, dtype, cuda, 7 * M + F)
+    gout = torch.randn((M, F), generator=g, device=cuda).to(dtype)
+    xk, bk = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    out = act.gelu_erf_fast(xk, bk)
+    before = (act.launches, act.launches_bwd)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert (act.launches, act.launches_bwd) == (before[0], before[1] + 1)
+    xr, br = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    act.gelu_erf_ref(xr + br).backward(gout)
+    dx, want = xk.grad.float(), xr.grad.float()
+    diff = (dx - want).abs()
+    bound = _bf16_ulp(want) + 2.0 ** -20 * gout.float().abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    if dtype == torch.bfloat16:
+        assert (dx == want).float().mean().item() >= 0.99
+    db, db_want = bk.grad.float(), br.grad.float()
+    assert bool(((db - db_want).abs() <= 2 * _bf16_ulp(db_want)
+                 + diff.sum(0)).all())
+
+
+def test_gelu_erf_under_checkpoint_on_the_card(cuda):
+    """An MLP's up product and GELU (frozen bias) under torch.utils.
+    checkpoint (use_reentrant=False): two forward launches (the forward
+    and its recompute) and one backward launch; the input's gradient the
+    same bits as without the checkpoint, and within 2^-8 of the plain
+    chain's in norm."""
+    from procyon_tpu_torch.ops import activations as act
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((1026, 640), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((640, 2560), generator=g, device=cuda) / 640 ** 0.5).to(
+        torch.bfloat16)
+    b = (0.5 * torch.randn((2560,), generator=g, device=cuda)).to(
+        torch.bfloat16)
+
+    def layer(inp):
+        return act.gelu_erf_fast(inp @ w, b) @ w.t()
+
+    def plain(inp):
+        return act.gelu_erf_ref(inp @ w + b) @ w.t()
+
+    grads = []
+    for fn, remat in ((layer, True), (layer, False), (plain, False)):
+        xi = x.clone().requires_grad_(True)
+        before = (act.launches, act.launches_bwd)
+        y = torch.utils.checkpoint.checkpoint(fn, xi, use_reentrant=False) \
+            if remat else fn(xi)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        n = (act.launches - before[0], act.launches_bwd - before[1])
+        assert n == {(layer, True): (2, 1), (layer, False): (1, 1),
+                     (plain, False): (0, 0)}[(fn, remat)]
+        grads.append(xi.grad.float())
+    assert torch.equal(grads[0], grads[1])
+    gap = (grads[1] - grads[2]).norm() / grads[2].norm()
+    assert gap <= 2.0 ** -8, float(gap)
